@@ -3,17 +3,20 @@ with one CUDA card (an NVIDIA H100).
 
 It builds every kernel of the ported slice from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card at the shapes
-the main path gives it, drives the main path once through the entry point a
-user calls (`cli.evaluate_beir.main` on the `synthetic-rich` task at the full
-`mini` width, random weights from a seed), and checks what comes out. Any
-failed check exits non-zero. The last two lines of output are the `kernels`
-JSON line (before it, the card's name and power limit) and
-`{"ok": true, "device": {...}}`.
+the main path gives it (and on the main path's own first ingest batch), times
+ablation builds of the head kernel to show where its time goes, drives the
+main path once through the entry point a user calls (`cli.evaluate_beir.main`
+on the `synthetic-rich` task at the full `mini` width, random weights from a
+seed), and checks what comes out. Any failed check exits non-zero. The last
+lines of output are the `kernels` JSON line, the card's name and power
+limit, and `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
-`output/chip_smoke/` and builds the kernels under `build/torch_kernels/`.
+`output/chip_smoke/` and builds the kernels under `build/torch_kernels/`
+(the ablation copies under `build/maxpool_ablation/`).
 """
 
+import ctypes
 import json
 import logging
 import os
@@ -73,43 +76,176 @@ def library_head(h, mask, w, bias):
     return (logits.view(B, L, -1) * mask[:, :, None]).amax(dim=1)
 
 
-def phase_kernels(dev, shapes):
+def kernel_row(name, h, mask, w, bias):
+    """Hold the kernel against its plain version on these inputs, check that
+    two launches agree bit for bit, and time kernel, plain and library."""
     from opensearch_sparse_model_tuning_sample_torch.ops.maxpool import (
         maxpool_head, maxpool_head_reference)
 
+    B, L, D = h.shape
+    V = w.shape[0]
+    got = maxpool_head(h, mask, w, bias)
+    again = maxpool_head(h, mask, w, bias)
+    ref = maxpool_head_reference(h, mask, w, bias)
+    lib = library_head(h, mask, w, bias)
+    torch.cuda.synchronize()
+    err = (got - ref).abs()
+    check(bool((err <= TOL * ref.abs().clamp_min(1.0)).all()),
+          f"maxpool_head vs plain at {name}: max |err| {float(err.max())}")
+    check(torch.equal(got, again), f"two launches agree bit for bit at {name}")
+    dead = ~mask.bool().any(dim=1)
+    check(bool((got[dead] == 0).all()), "an all-masked row pools to exactly 0")
+    check(bool(((lib - ref).abs() <= 2e-2 * ref.abs().clamp_min(1.0)).all()),
+          "the library yardstick computes the same function")
+    ms = cuda_ms(lambda: maxpool_head(h, mask, w, bias), iters=20)
+    plain_ms = cuda_ms(lambda: maxpool_head_reference(h, mask, w, bias), iters=3)
+    library_ms = cuda_ms(lambda: library_head(h, mask, w, bias), iters=5)
+    # the work these inputs need: logits at unmasked positions only
+    # (a masked position contributes exactly 0 without a product)
+    flops = 2.0 * float(mask.sum()) * D * V
+    nbytes = B * L * D * 2 + B * L * 4 + V * D * 2 + V * 4 + B * V * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    # what the kernel computes: every position of each 64-position chunk
+    # that holds an unmasked one (the rest of the chunk is padding)
+    pad = -L % 64
+    live = torch.nn.functional.pad(mask.bool(), (0, pad)).view(B, -1, 64).any(dim=2)
+    computed = float((live.unsqueeze(2) & (torch.arange(L + pad, device=h.device) < L)
+                      .view(1, -1, 64)).sum())
+    row = dict(
+        shape=[B, L, D, V], max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        share_of_bound=max(t_ops, t_bytes) / ms, tflops=flops / ms / 1e9,
+        mean_unmasked=float(mask.sum()) / B, computed_over_unmasked=computed / float(mask.sum()),
+    )
+    print(f"maxpool_head {name} B={B} L={L} D={D} V={V}: max|err| {row['max_abs_err']:.3g}, "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.1f} TFLOP/s, "
+          f"share of bound {row['share_of_bound']:.3f}; mean unmasked length "
+          f"{row['mean_unmasked']:.2f} of {L}, computed/unmasked positions "
+          f"{row['computed_over_unmasked']:.3f}; two launches bit-equal", flush=True)
+    return row
+
+
+def phase_kernels(dev, shapes, batch):
+    """Synthetic inputs at each shape, then the main path's own first ingest
+    batch (`batch`: h, mask, w, bias from the mini encoder)."""
     rows = []
     for i, (B, L, D, V) in enumerate(shapes):
         h, mask, w, bias = maxpool_inputs(B, L, D, V, seed=i, dev=dev)
-        got = maxpool_head(h, mask, w, bias)
-        ref = maxpool_head_reference(h, mask, w, bias)
-        lib = library_head(h, mask, w, bias)
-        torch.cuda.synchronize()
-        err = (got - ref).abs()
-        check(bool((err <= TOL * ref.abs().clamp_min(1.0)).all()),
-              f"maxpool_head vs plain at {(B, L, D, V)}: max |err| {float(err.max())}")
-        check(bool((got[-1] == 0).all()), "an all-masked row pools to exactly 0")
-        check(bool(((lib - ref).abs() <= 2e-2 * ref.abs().clamp_min(1.0)).all()),
-              "the library yardstick computes the same function")
-        ms = cuda_ms(lambda: maxpool_head(h, mask, w, bias), iters=20)
-        plain_ms = cuda_ms(lambda: maxpool_head_reference(h, mask, w, bias), iters=3)
-        library_ms = cuda_ms(lambda: library_head(h, mask, w, bias), iters=5)
-        # the work these inputs need: logits at unmasked positions only
-        # (a masked position contributes exactly 0 without a product)
-        flops = 2.0 * float(mask.sum()) * D * V
-        nbytes = B * L * D * 2 + B * L * 4 + V * D * 2 + V * 4 + B * V * 4
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-        rows.append(dict(
-            shape=[B, L, D, V], max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-        ))
-        print(f"maxpool_head B={B} L={L} D={D} V={V}: max|err| {rows[-1]['max_abs_err']:.3g}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-              f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}), "
-              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-        del h, mask, w, bias, got, ref, lib
+        rows.append(kernel_row("synthetic", h, mask, w, bias))
+        del h, mask, w, bias
         torch.cuda.empty_cache()
+    rows.append(kernel_row("main-path batch", *batch))
+    rows[-1]["inputs"] = "main-path batch"
     return rows
+
+
+def main_path_batch(model, texts, dev):
+    """h, mask, w and bias of the head for `texts`, exactly as the encoder
+    hands them to the kernel, and the time of the per-batch fp32 -> bf16
+    cast of the decoder weight (models/bert.py, mlm_maxpool)."""
+    from opensearch_sparse_model_tuning_sample_torch.models.sparse_encoder import BatchEncoder
+
+    enc = BatchEncoder(model, max_length=512)
+    feats = model.tokenizer.encode_bucketed(texts, 512, enc.seq_buckets)
+    ids = torch.from_numpy(feats["input_ids"]).to(dev)
+    mask = torch.from_numpy(feats["attention_mask"]).to(dev)
+    bert = model.bert
+    with torch.inference_mode():
+        h = bert.head_hidden(bert.encode_hidden(ids, mask)).to(torch.bfloat16).contiguous()
+        w = bert.decoder_weight().to(torch.bfloat16).contiguous()
+        bias = bert.mlm_head.bias.detach().float().contiguous()
+        cast_ms = cuda_ms(lambda: bert.decoder_weight().to(torch.bfloat16), iters=20)
+    print(f"per-batch decoder weight cast fp32 -> bf16 {tuple(w.shape)}: {cast_ms:.4f} ms",
+          flush=True)
+    return (h, mask.to(torch.int32).contiguous(), w, bias), cast_ms
+
+
+# (text in the source, its replacement) for each part that can be taken out
+_EPILOGUE = (
+    "      // accumulator register 4j + 2hh + e: vocab row warp*16 + g + 8hh of",
+    "#pragma unroll\n      for (int mt = 0; mt < MT; ++mt) {\n"
+    "        run[mt][0] = fmaxf(run[mt][0], acc[mt][0]);\n"
+    "        run[mt][1] = fmaxf(run[mt][1], acc[mt][2]);\n      }\n      continue;\n"
+    "      // accumulator register 4j + 2hh + e: vocab row warp*16 + g + 8hh of",
+)
+_H = [
+    ("        mbar_wait(full + s * 8, ph);\n", ""),
+    ("          if (lane == 0) mbar_arrive(empty + prev * 8);\n", ""),
+    ("      if (lane == 0) mbar_arrive(empty + prev * 8);\n", ""),
+    ("  for (int b = p; b < B; b += kConsumerWGs) {", "  for (int b = p; b < 0; b += kConsumerWGs) {"),
+]
+ABLATIONS = {"kernel": [], "no_epilogue": [_EPILOGUE], "no_h": _H, "mma_only": [_EPILOGUE] + _H}
+
+
+def _ablation_source(edits):
+    from opensearch_sparse_model_tuning_sample_torch.ops.kernel_build import SOURCES
+
+    src = SOURCES["maxpool_head"].read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"ablation anchor not found once in maxpool_head.cu: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def _build_ablations(out_dir):
+    from opensearch_sparse_model_tuning_sample_torch.ops.kernel_build import NVCC_FLAGS, _nvcc
+
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, edits in ABLATIONS.items():
+        cu = os.path.join(out_dir, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(_ablation_source(edits))
+        procs[name] = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(out_dir, f"{name}.so"), cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.maxpool_head_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.maxpool_head_bf16.restype = i
+        libs[name] = lib
+    return libs
+
+
+def phase_ablation(dev, shapes):
+    """Where the head kernel's time goes: the kernel as built and three
+    copies with a part taken out, each with the port's nvcc flags, timed at
+    `shapes` (best of two passes, order A B C D D C B A). The copies compute
+    wrong results on purpose; only their times mean anything:
+      no_epilogue  the per-chunk epilogue (bias, mask, running max) cut to
+                   one max per row: what the epilogue costs;
+      no_h         no h box loaded or waited for (the products read a stale
+                   ring): what streaming h through the rings costs;
+      mma_only     both: the wgmma issue and the w tile load alone."""
+    libs = _build_ablations(os.path.join(HERE, "build", "maxpool_ablation"))
+    times = {}
+    for i, (B, L, D, V) in enumerate(shapes):
+        h, mask, w, bias = maxpool_inputs(B, L, D, V, seed=i, dev=dev)
+        out = torch.empty(B, V, device=dev)
+
+        def launch(lib):
+            rc = lib.maxpool_head_bf16(h.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                                       bias.data_ptr(), out.data_ptr(), B, L, D, V,
+                                       torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"ablation launch: CUDA error {rc}")
+
+        best = {}
+        for name in list(libs) + list(libs)[::-1]:
+            ms = cuda_ms(lambda: launch(libs[name]), iters=20)
+            best[name] = min(best.get(name, ms), ms)
+        torch.cuda.synchronize()
+        print(f"ablation B={B} L={L} D={D} V={V}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in best.items()), flush=True)
+        times[f"{B}x{L}x{D}x{V}"] = best
+    return times
 
 
 class _IngestRate(logging.Handler):
@@ -235,23 +371,37 @@ def main():
     t0 = time.time()
     built = kernel_build.build()
     for name, info in built.items():
-        regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-        print(f"built {name} in {info['seconds']:.1f} s; ptxas: {regs}", flush=True)
+        # registers, spills and shared memory per kernel, and any note that
+        # ptxas serialized the wgmmas (C75xx)
+        report = [ln.strip() for ln in info["log"].splitlines()
+                  if "registers" in ln or "spill" in ln or "smem" in ln or "C75" in ln]
+        print(f"built {name} in {info['seconds']:.1f} s; ptxas: {report}", flush=True)
     print(f"build phase {time.time() - t0:.1f} s", flush=True)
 
     # 3. each kernel against its plain version on the card. The main path's
     # ingest batches are B=50 at the L=64 bucket (synthetic-rich docs all
     # fit 64 tokens); 128 and 512 are the longer buckets; base is D=768.
+    # The last row is the main path's own first batch, at real doc lengths.
+    cfg = main_path_config(dev)
+    model_args, data_args, training_args = parse_config(dict(cfg))
+    corpus, queries, _ = resolve_dataset("synthetic-rich", data_args.beir_dir)
+    docs = BEIRCorpusDataset(corpus)
+    model = se.from_model_args(model_args, seed=training_args.seed, device=dev)
     shapes = [(50, 64, 256, 30592), (50, 128, 256, 30592), (50, 512, 256, 30592),
               (8, 512, 768, 30592)]
     t0 = time.time()
-    rows = phase_kernels(dev, shapes)
+    batch, cast_ms = main_path_batch(
+        model, [docs[i][1] for i in range(training_args.per_device_eval_batch_size)], dev)
+    rows = phase_kernels(dev, shapes, batch)
+    del batch
     print(f"kernel phase {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    ablation = phase_ablation(dev, shapes)
+    print(f"ablation phase {time.time() - t0:.1f} s", flush=True)
 
     # 4. the main path: cli.evaluate_beir on synthetic-rich, mini, on the card
     os.makedirs(OUT, exist_ok=True)
     os.environ["METRICS_DIR"] = os.path.join(OUT, "metrics")
-    cfg = main_path_config(dev)
     rate = _IngestRate()
     logging.getLogger("opensearch_sparse_model_tuning_sample_torch.eval.beir").addHandler(rate)
     t0 = time.time()
@@ -259,9 +409,7 @@ def main():
     avg = evaluate_beir.main(dict(cfg))
     launches = maxpool_head.launches
     t_main = time.time() - t0
-    model_args, data_args, training_args = parse_config(dict(cfg))
-    corpus, queries, _ = resolve_dataset("synthetic-rich", data_args.beir_dir)
-    n_docs = len(BEIRCorpusDataset(corpus))
+    n_docs = len(docs)
     n_batches = -(-n_docs // training_args.per_device_eval_batch_size)
     print(f"main path {t_main:.1f} s: {n_docs} docs, {len(queries)} queries, "
           f"maxpool_head launches {launches} for {n_batches} ingest batches", flush=True)
@@ -269,7 +417,6 @@ def main():
     check(0.0 <= avg["NDCG@10"] <= 1.0 and avg["flops"] > 0, "finite metrics")
 
     # the exact scan against brute force, all queries
-    model = se.from_model_args(model_args, seed=training_args.seed, device=dev)
     qd = KeyValueDataset(queries)
     enc = se.BatchEncoder(model, max_length=512)
     q, nq = enc.encode_chunk_device([qd[i][1] for i in range(len(qd))], inf_free=True, rows=50)
@@ -285,7 +432,6 @@ def main():
                             "synthetic-rich", max_length=512, batch_size=50,
                             result_size=100)["qps"] for _ in range(3)]
     print(f"search q/s repeated on the warm process: {warm_qps}", flush=True)
-    docs = BEIRCorpusDataset(corpus)
     enc_err = encoder_check(model, [docs[i][1] for i in range(256)], data_args.index_l_max, dev)
     print(f"encoder top-{data_args.index_l_max} with the kernel equals the plain head "
           f"for 256 docs (max |err| {enc_err:.3g})", flush=True)
@@ -294,7 +440,7 @@ def main():
           f"card {card}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
-    main_row = rows[0]
+    main_row = rows[-1]  # the main path's own batch
     kernels = [{
         "name": "maxpool_head",
         "route": "cuda",
@@ -308,7 +454,11 @@ def main():
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "share_of_bound": main_row["share_of_bound"],
         "shape": main_row["shape"],
+        "inputs": "main-path batch",
+        "decoder_cast_ms": cast_ms,
+        "ablation_ms": ablation,
         "all_shapes": rows,
     }]
     print(json.dumps({"kernels": kernels}))

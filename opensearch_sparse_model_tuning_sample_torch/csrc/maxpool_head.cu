@@ -7,34 +7,65 @@
 // out [B, V] fp32. The [B, L, V] logits never reach device memory.
 //
 // Replaces the TPU kernel opensearch_sparse_model_tuning_sample_tpu/ops/
-// pallas_maxpool.py (`_kernel`, launched by `maxpool_head`), with the
-// semantics of the production head bert.mlm_maxpool: the bias is added in
-// fp32 after an fp32-accumulated product, then the sum is multiplied by the
-// mask, so a masked position contributes exactly 0 (not -inf) and an
-// all-masked row pools to 0. Positions at or past L contribute nothing.
+// pallas_maxpool.py (`_kernel` at :36, launched by `maxpool_head` through the
+// `pallas_call` at :99), with the semantics of the production head
+// bert.mlm_maxpool: the bias is added in fp32 after an fp32-accumulated
+// product, then the sum is multiplied by the mask, so a masked position
+// contributes exactly 0 (not -inf) and an all-masked row pools to 0.
+// Positions at or past L are absent, not zeros.
 //
-// What bounds it: 2*B*L*D*V operations against ~(V*D*2 + B*L*D*2 + B*V*4)
-// bytes. At the mini width (B=50, L=128, D=256, V=30592) that is 1.0e11
-// operations against 25 MB, so the bf16 tensor-core rate bounds it (about
-// 0.10 ms at 989 TFLOP/s), not the 3.35 TB/s memory.
+// What bounds it: 2 * (unmasked positions) * D * V operations at 989 TFLOP/s
+// (bf16 tensor cores) against V*D*2 + B*L*D*2 + B*L*4 + V*4 + B*V*4 bytes at
+// 3.35 TB/s. At the mini width (B=50, L=64, D=256, V=30592) that is ~0.04 ms
+// of operations against ~0.01 ms of bytes: the tensor cores bound it. Behind
+// that sits the L2: every vocab tile re-reads all of h, ceil(V/TV) * B*L*D*2
+// bytes per launch (~197 MB at [50, 64, 256] with TV = 256; ~1.5 GB at
+// [8, 512, 768] with TV = 128), so the vocab tile is as tall as shared memory
+// allows.
 //
-// Design (simple first; wgmma, TMA and a persistent grid are later work):
-//   * a block owns one vocab tile of TV rows and a tile of TB docs and loops
-//     over all of L for each doc itself: no carry between blocks, no atomics,
-//     a deterministic result;
-//   * the vocab tile of w stays in shared memory for all the block's docs;
-//     h is staged LC sequence rows at a time;
-//   * the product runs on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//     fp32 accumulate). The vocab is the M side, the sequence the N side, so
-//     the max over L is a max over each accumulator row: within a thread,
-//     then across the four lanes of a quad;
-//   * a step whose positions are all masked skips the product: each of its
-//     positions contributes exactly 0, which the running max takes directly;
-//   * shared rows are padded by 8 bf16 so the fragment loads are free of
-//     bank conflicts for every D.
+// Design. A GEMM with a max epilogue: M = vocab rows, N = the positions of
+// one doc, K = D. The max over L is a max over each accumulator row.
+//   * Resident vocab tile. A block owns TV = 64*MT vocab rows (MT = 4, 2 or 1,
+//     the largest whose tile and two-stage h rings fit in 227 KB: TV = 256 at
+//     D = 256, 128 at D = 768, 64 at D = 1024). Thread 0 loads its [TV, D]
+//     slice of w once by TMA, in boxes of 64 K-columns with the 128-byte
+//     swizzle, each box on its own mbarrier so the first product starts after
+//     the first box. w is read from memory once per launch.
+//   * h streamed through rings. Two consumer warpgroups take alternate docs
+//     (ping-pong), each against all TV rows, each with its own ring of 2..8
+//     stages fed by its own producer warp, so the two pipelines never wait on
+//     each other. A stage is one TMA box of [64 positions, 64 K] of h[b]
+//     (8 KB) with a full/empty mbarrier pair. The ring unit is a K box, not a
+//     whole chunk, so a deep D still pipelines where only two stages fit
+//     (D = 768).
+//   * wgmma.mma_async m64n64k16, bf16 -> fp32, both operands K-major in
+//     shared memory (A = the w tile, B = the h box). One commit group per
+//     box; wait_group 1 releases the previous box while the next one runs.
+//   * Epilogue per 64-position chunk, in registers: + bias (held per row),
+//     * mask (shuffled from the lanes that read it), positions >= L dropped,
+//     running max per row that carries across the chunks of one doc; at the
+//     doc's end the max over the quad (shfl_xor 1, 2) and one fp32 store
+//     per (v, b), v < V.
+//   * Masked-chunk skip. Producer and consumers read each chunk's mask; a
+//     chunk with every position masked is not loaded and its positions
+//     contribute exactly 0, so the consumers take max(run, 0). 64 positions
+//     is also the skip unit: no doc of the 64-token bucket the main path
+//     ingests is shorter than 32 tokens, so a 32-position unit would skip
+//     nothing there, while an N of 64 feeds the tensor cores better.
+//   * Grid: one block per vocab tile, every doc in the block, no carry
+//     between blocks and no atomics: the result is deterministic bit for bit.
+// Against the four limits of the mma.sync kernel it replaces: loads and
+// compute overlap (TMA rings, async wgmma); no fragment loads from shared
+// memory (wgmma reads its operands through descriptors); 10 warps per SM in
+// two independent pipelines instead of 4-8 synchronous warps; and the
+// vocab tile at D = 768 is 128 rows, with each h box feeding two m64 tiles.
+//
+// A lost copy would hang the card, so every mbarrier wait traps after ~4 s.
 // It launches on the caller's stream, allocates nothing and returns
-// cudaGetLastError().
+// cudaGetLastError(). The TMA descriptors are encoded on the host for every
+// launch through the driver entry point (no -lcuda at link time).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -42,95 +73,225 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLC = 32;          // sequence rows staged per step
-constexpr int kNT = kLC / 8;     // n8 tiles per step
-constexpr int kTB = 8;           // docs per block
-constexpr int kMaxSmem = 232448; // dynamic shared memory a block may use
+constexpr int kNc = 64;                       // positions per chunk (wgmma N)
+constexpr int kBoxK = 64;                     // K columns per box: one 128-byte swizzle row
+constexpr int kBoxBytes = kNc * kBoxK * 2;    // one h box, bf16
+constexpr int kConsumerWGs = 2;               // warpgroups, one ring each
+constexpr int kThreads = kConsumerWGs * 128 + kConsumerWGs * 32;  // + a producer warp per ring
+constexpr int kMaxStages = 8;
+constexpr int kMaxSmem = 232448;              // dynamic shared memory a block may use
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+struct Plan {
+  int mt;       // m64 tiles per warpgroup (TV = 64 * mt); 0 if D does not fit
+  int kblocks;  // K boxes per row: ceil(D / 64)
+  int stages;   // stages per ring
+  size_t smem;  // dynamic shared memory bytes
+};
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// MT m16 tiles of vocab rows per warp: the block's vocab tile is TV = 64*MT.
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-maxpool_head_kernel(const __nv_bfloat16* __restrict__ h,
-                    const int32_t* __restrict__ mask,
-                    const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ bias,
-                    float* __restrict__ out, int B, int L, int D, int V) {
-  constexpr int TV = kWarps * MT * 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D16 = (D + 15) & ~15;
-  const int stride = D16 + 8;  // bf16 per shared row
-  const int vecs = D16 / 8;    // 16-byte vectors per shared row
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* h_s = w_s + TV * stride;
-  float* m_s = reinterpret_cast<float*>(h_s + kLC * stride);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // quad row, lane in quad
-  const int v0 = blockIdx.x * TV;
-  const int row0 = warp * MT * 16;        // this warp's first row in the tile
-
-  // stage the vocab tile; rows past V and columns past D are zero
-  for (int i = tid; i < TV * vecs; i += kThreads) {
-    const int r = i / vecs, c = (i - r * vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (v0 + r < V && c < D)
-      val = *reinterpret_cast<const uint4*>(w + (size_t)(v0 + r) * D + c);
-    *reinterpret_cast<uint4*>(w_s + r * stride + c) = val;
+Plan make_plan(int D) {
+  Plan p{0, (D + kBoxK - 1) / kBoxK, 0, 0};
+  const size_t per_stage = (size_t)kConsumerWGs * (kBoxBytes + 16);  // boxes + full/empty
+  for (int mt = 4; mt >= 1; mt /= 2) {
+    const size_t fixed = 1024 /* alignment slack */ + (size_t)p.kblocks * mt * 64 * kBoxK * 2 +
+                         (size_t)p.kblocks * 8 /* w barriers */;
+    if (fixed + 2 * per_stage > (size_t)kMaxSmem) continue;
+    const size_t stages = ((size_t)kMaxSmem - fixed) / per_stage;
+    p.mt = mt;
+    p.stages = stages < (size_t)kMaxStages ? (int)stages : kMaxStages;
+    p.smem = fixed + p.stages * per_stage;
+    return p;
   }
+  return p;
+}
+
+// ---- PTX wrappers ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of `parity` to complete; trap instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  for (uint32_t i = 1;; ++i) {
+    if (mbar_try_wait(bar, parity)) return;
+    if ((i & 255) == 0 && global_ns() - t0 > 4000000000ull) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// K-major operand in shared memory with the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart (SBO); LBO is unused for this layout.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of the accumulators across a wait.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both K-major bf16 in shared
+// memory, fp32 accumulate; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// ---- the kernel -----------------------------------------------------------
+
+struct Smem {
+  uint32_t w;      // w tile: kblocks boxes of [TV rows, 64 K], swizzled
+  uint32_t ring;   // ring p, stage s at ring + (p * stages + s) * kBoxBytes
+  uint32_t w_bar;  // kblocks barriers
+  uint32_t full;   // 2 * stages barriers
+  uint32_t empty;  // 2 * stages barriers
+};
+
+// One producer warp: the h boxes of every live chunk of docs p, p + 2, ...
+// into ring p.
+__device__ void produce(int p, const Smem& sm, int stages, int kblocks, const CUtensorMap* hmap,
+                        const int32_t* __restrict__ mask, int B, int L) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t ring = sm.ring + p * stages * kBoxBytes;
+  const uint32_t full = sm.full + p * stages * 8, empty = sm.empty + p * stages * 8;
+  int s = 0, ph = 0;
+  for (int b = p; b < B; b += kConsumerWGs) {
+    const int32_t* mrow = mask + (size_t)b * L;
+    for (int l0 = 0; l0 < L; l0 += kNc) {
+      const int la = l0 + lane, lb = l0 + 32 + lane;
+      const bool live = (la < L && mrow[la] != 0) || (lb < L && mrow[lb] != 0);
+      if (!__any_sync(0xffffffffu, live)) continue;
+      if (lane == 0)
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(empty + s * 8, ph ^ 1);
+          mbar_expect_tx(full + s * 8, kBoxBytes);
+          tma_load_3d(ring + s * kBoxBytes, hmap, kb * kBoxK, l0, b, full + s * 8);
+          if (++s == stages) { s = 0; ph ^= 1; }
+        }
+      __syncwarp();
+    }
+  }
+  // no copy into this block's shared memory may outlive the block
+  if (p == 0 && lane == 0)
+    for (int kb = 0; kb < kblocks; ++kb) mbar_wait(sm.w_bar + kb * 8, 0);
+}
+
+// One consumer warpgroup: docs wg, wg + 2, ... against all TV rows.
+template <int MT>
+__device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
+                        const int32_t* __restrict__ mask, const float* __restrict__ bias,
+                        float* __restrict__ out, int B, int L, int V) {
+  constexpr int TV = 64 * MT;
+  constexpr uint32_t kTileBytes = TV * kBoxK * 2;  // one K box of the w tile
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row g (and g+8), columns 2t, 2t+1
+  const int v0 = blockIdx.x * TV;
 
   float bias_r[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int v = v0 + row0 + mt * 16 + g + hh * 8;
+      const int v = v0 + mt * 64 + warp * 16 + g + hh * 8;
       bias_r[mt][hh] = v < V ? bias[v] : 0.f;
     }
 
-  const int b_end = min((int)blockIdx.y * kTB + kTB, B);
-  for (int b = blockIdx.y * kTB; b < b_end; ++b) {
+  const uint32_t ring = sm.ring + wg * stages * kBoxBytes;
+  const uint32_t full = sm.full + wg * stages * 8, empty = sm.empty + wg * stages * 8;
+  int s = 0, ph = 0;
+  float acc[MT][32];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+
+  for (int b = wg; b < B; b += kConsumerWGs) {
     float run[MT][2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) run[mt][0] = run[mt][1] = -INFINITY;
+    const int32_t* mrow = mask + (size_t)b * L;
 
-    for (int l0 = 0; l0 < L; l0 += kLC) {
-      __syncthreads();  // the last step's readers are done with h_s and m_s
-      const __nv_bfloat16* hb = h + ((size_t)b * L + l0) * D;
-      for (int i = tid; i < kLC * vecs; i += kThreads) {
-        const int r = i / vecs, c = (i - r * vecs) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (l0 + r < L && c < D)
-          val = *reinterpret_cast<const uint4*>(hb + (size_t)r * D + c);
-        *reinterpret_cast<uint4*>(h_s + r * stride + c) = val;
-      }
-      int live = 0;
-      if (tid < kLC) {
-        float m = 0.f;
-        if (l0 + tid < L) {
-          m = (float)mask[(size_t)b * L + l0 + tid];
-          live = m != 0.f;
-        }
-        m_s[tid] = m;
-      }
-      live = __syncthreads_or(live);
-      const int rows = min(kLC, L - l0);
-      if (!live) {
+    for (int l0 = 0; l0 < L; l0 += kNc) {
+      const int la = l0 + lane, lb = l0 + 32 + lane;
+      const float m0 = la < L ? (float)mrow[la] : 0.f;
+      const float m1 = lb < L ? (float)mrow[lb] : 0.f;
+      if (!__any_sync(0xffffffffu, m0 != 0.f || m1 != 0.f)) {
         // every position here is masked and contributes exactly 0
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
@@ -140,48 +301,55 @@ maxpool_head_kernel(const __nv_bfloat16* __restrict__ h,
         continue;
       }
 
-      float acc[MT][kNT][4];
+      int prev = 0;
+      for (int kb = 0; kb < kblocks; ++kb) {
+        mbar_wait(sm.w_bar + kb * 8, 0);
+        mbar_wait(full + s * 8, ph);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+        wgmma_fence();
+        const uint32_t a_box = sm.w + kb * kTileBytes;
+        const uint32_t b_box = ring + s * kBoxBytes;
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
+        for (int kk = 0; kk < kBoxK / 16; ++kk) {
+          const uint64_t bd = smem_desc(b_box + kk * 32);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
-
-      for (int k0 = 0; k0 < D16; k0 += 16) {
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const __nv_bfloat16* p = w_s + (row0 + mt * 16 + g) * stride + k0 + 2 * t;
-          a[mt][0] = ld_pair(p);
-          a[mt][1] = ld_pair(p + 8 * stride);
-          a[mt][2] = ld_pair(p + 8);
-          a[mt][3] = ld_pair(p + 8 * stride + 8);
+          for (int mt = 0; mt < MT; ++mt)
+            wgmma_m64n64k16(acc[mt], smem_desc(a_box + mt * 64 * 128 + kk * 32), bd,
+                            (kb | kk) != 0);
         }
+        wgmma_commit();
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const __nv_bfloat16* p = h_s + (nt * 8 + g) * stride + k0 + 2 * t;
-          const uint32_t b0 = ld_pair(p), b1 = ld_pair(p + 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_16816(acc[mt][nt], a[mt], b0, b1);
+        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+        if (kb > 0) {
+          wgmma_wait<1>();  // the previous box's products are done
+          if (lane == 0) mbar_arrive(empty + prev * 8);
         }
+        prev = s;
+        if (++s == stages) { s = 0; ph ^= 1; }
       }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+      if (lane == 0) mbar_arrive(empty + prev * 8);
 
-      // accumulator (mt, nt): c0,c1 -> vocab row g, positions 2t, 2t+1;
-      // c2,c3 -> vocab row g+8, same positions
+      // accumulator register 4j + 2hh + e: vocab row warp*16 + g + 8hh of
+      // each m64 tile, position l0 + 8j + 2t + e
+      const int nvalid = L - l0;
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
+      for (int j = 0; j < kNc / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int l = nt * 8 + 2 * t + j;
-          if (l < rows) {
-            const float m = m_s[l];
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          const float m = __shfl_sync(0xffffffffu, j < 4 ? m0 : m1, c & 31);
+          const bool present = c < nvalid;
 #pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              run[mt][0] = fmaxf(run[mt][0], (acc[mt][nt][j] + bias_r[mt][0]) * m);
-              run[mt][1] = fmaxf(run[mt][1], (acc[mt][nt][2 + j] + bias_r[mt][1]) * m);
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float x = (acc[mt][4 * j + 2 * hh + e] + bias_r[mt][hh]) * m;
+              if (present) run[mt][hh] = fmaxf(run[mt][hh], x);
             }
-          }
         }
     }
 
@@ -192,30 +360,97 @@ maxpool_head_kernel(const __nv_bfloat16* __restrict__ h,
         float r = run[mt][hh];
         r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
         r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
-        const int v = v0 + row0 + mt * 16 + g + hh * 8;
+        const int v = v0 + mt * 64 + warp * 16 + g + hh * 8;
         if (t == 0 && v < V) out[(size_t)b * V + v] = r;
       }
   }
 }
 
-size_t smem_bytes(int mt, int D) {
-  const int stride = ((D + 15) & ~15) + 8;
-  return (size_t)(kWarps * mt * 16 + kLC) * stride * 2 + kLC * sizeof(float);
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+maxpool_head_kernel(const __grid_constant__ CUtensorMap hmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const int32_t* __restrict__ mask, const float* __restrict__ bias,
+                    float* __restrict__ out, int B, int L, int V, int kblocks, int stages) {
+  constexpr int TV = 64 * MT;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  Smem sm;
+  sm.w = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
+  sm.ring = sm.w + kblocks * TV * kBoxK * 2;
+  sm.w_bar = sm.ring + kConsumerWGs * stages * kBoxBytes;
+  sm.full = sm.w_bar + kblocks * 8;
+  sm.empty = sm.full + kConsumerWGs * stages * 8;
+
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    for (int kb = 0; kb < kblocks; ++kb) mbar_init(sm.w_bar + kb * 8, 1);
+    for (int i = 0; i < kConsumerWGs * stages; ++i) {
+      mbar_init(sm.full + i * 8, 1);
+      mbar_init(sm.empty + i * 8, 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the block's w tile, once
+    const uint32_t w_bytes = TV * kBoxK * 2;
+    for (int kb = 0; kb < kblocks; ++kb) {
+      mbar_expect_tx(sm.w_bar + kb * 8, w_bytes);
+      tma_load_2d(sm.w + kb * w_bytes, &wmap, kb * kBoxK, blockIdx.x * TV, sm.w_bar + kb * 8);
+    }
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWGs * 4)
+    produce(warp - kConsumerWGs * 4, sm, stages, kblocks, &hmap, mask, B, L);
+  else
+    consume<MT>(warp >> 2, sm, stages, kblocks, mask, bias, out, B, L, V);
+}
+
+// ---- host side ------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// bf16 tensor of `rank` dims (innermost first) read in [64 x rows] boxes
+// with the 128-byte swizzle; out-of-range rows and columns read as zeros.
+bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MT>
-int launch(const void* h, const void* mask, const void* w, const void* bias,
-           void* out, int B, int L, int D, int V, cudaStream_t stream) {
-  const size_t smem = smem_bytes(MT, D);
+int launch(const CUtensorMap& hmap, const CUtensorMap& wmap, const void* mask, const void* bias,
+           void* out, int B, int L, int V, const Plan& plan, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      maxpool_head_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      maxpool_head_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
-  constexpr int TV = kWarps * MT * 16;
-  const dim3 grid((V + TV - 1) / TV, (B + kTB - 1) / kTB);
-  maxpool_head_kernel<MT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const int32_t*>(mask),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<float*>(out), B, L, D, V);
+  constexpr int TV = 64 * MT;
+  maxpool_head_kernel<MT><<<(V + TV - 1) / TV, kThreads, plan.smem, stream>>>(
+      hmap, wmap, static_cast<const int32_t*>(mask), static_cast<const float*>(bias),
+      static_cast<float*>(out), B, L, V, plan.kblocks, plan.stages);
   return (int)cudaGetLastError();
 }
 
@@ -223,25 +458,40 @@ int launch(const void* h, const void* mask, const void* w, const void* bias,
 
 extern "C" {
 
-// Largest hidden width the kernel takes (the vocab tile and one staged step
-// must fit in shared memory); the wrapper raises above it.
+// Largest hidden width the kernel takes (a 64-row vocab tile and two stages
+// per ring must fit in shared memory); the wrapper raises above it.
 int maxpool_head_max_dim() {
   int D = 8;
-  while (smem_bytes(1, D + 8) <= (size_t)kMaxSmem) D += 8;
+  while (make_plan(D + 8).mt) D += 8;
   return D;
 }
 
-int maxpool_head_bf16(const void* h, const void* mask, const void* w,
-                      const void* bias, void* out, int B, int L, int D, int V,
-                      void* stream) {
-  if (B <= 0 || L <= 0 || V <= 0 || D <= 0 || D % 8 != 0)
+int maxpool_head_bf16(const void* h, const void* mask, const void* w, const void* bias,
+                      void* out, int B, int L, int D, int V, void* stream) {
+  if (B <= 0 || L <= 0 || V <= 0 || D <= 0 || D % 8 != 0) return (int)cudaErrorInvalidValue;
+  // TMA reads from 16-byte aligned addresses with 16-byte aligned row strides
+  if (reinterpret_cast<uintptr_t>(h) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const Plan plan = make_plan(D);
+  if (!plan.mt) return (int)cudaErrorInvalidValue;
+
+  CUtensorMap hmap, wmap;
+  const cuuint64_t h_dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t h_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t h_box[3] = {kBoxK, kNc, 1};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)D, (cuuint64_t)V};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t w_box[2] = {kBoxK, (cuuint32_t)(64 * plan.mt)};
+  if (!encode(&hmap, h, 3, h_dims, h_strides, h_box) ||
+      !encode(&wmap, w, 2, w_dims, w_strides, w_box))
     return (int)cudaErrorInvalidValue;
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (smem_bytes(2, D) <= (size_t)kMaxSmem)
-    return launch<2>(h, mask, w, bias, out, B, L, D, V, s);
-  if (smem_bytes(1, D) <= (size_t)kMaxSmem)
-    return launch<1>(h, mask, w, bias, out, B, L, D, V, s);
-  return (int)cudaErrorInvalidValue;
+  switch (plan.mt) {
+    case 4: return launch<4>(hmap, wmap, mask, bias, out, B, L, V, plan, s);
+    case 2: return launch<2>(hmap, wmap, mask, bias, out, B, L, V, plan, s);
+    default: return launch<1>(hmap, wmap, mask, bias, out, B, L, V, plan, s);
+  }
 }
 
 }  // extern "C"

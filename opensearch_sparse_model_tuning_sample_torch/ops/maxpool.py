@@ -3,7 +3,8 @@
     pooled[b, v] = max_l mask[b, l] * (h[b, l, :] . w[v, :] + bias[v])
 
 `maxpool_head` launches the hand-written Hopper kernel
-(`csrc/maxpool_head.cu`) on a CUDA tensor, and takes the plain PyTorch
+(`csrc/maxpool_head.cu`: wgmma fed by TMA, a resident vocab tile, h streamed
+through mbarrier rings) on a CUDA tensor, and takes the plain PyTorch
 version `maxpool_head_reference` only for a tensor that lies on the CPU.
 It replaces the TPU kernel `opensearch_sparse_model_tuning_sample_tpu/ops/
 pallas_maxpool.py::maxpool_head` (`pallas_call` at line 99) with the
@@ -46,7 +47,11 @@ def maxpool_head_reference(
     return pooled
 
 
-def _check_cuda_args(h, mask, w, bias):
+def check_kernel_args(h, mask, w, bias, max_dim):
+    """Raise on what the kernel cannot take: shapes, dtypes, devices,
+    contiguity, D not a multiple of 8 or above `max_dim`, and an h or w that
+    does not start on a 16-byte boundary (TMA reads from aligned addresses;
+    a sliced view can break that). Pure Python, so it runs on any device."""
     if h.dim() != 3 or mask.dim() != 2 or w.dim() != 2 or bias.dim() != 1:
         raise ValueError("maxpool_head wants h [B,L,D], mask [B,L], w [V,D], bias [V]")
     B, L, D = h.shape
@@ -71,6 +76,14 @@ def _check_cuda_args(h, mask, w, bias):
         raise ValueError("maxpool_head: empty batch, sequence or vocab")
     if D % 8:
         raise ValueError(f"maxpool_head kernel needs D a multiple of 8, got {D}")
+    if D > max_dim:
+        raise ValueError(f"maxpool_head kernel takes D <= {max_dim}, got {D}")
+    for name, t in (("h", h), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"maxpool_head kernel needs {name} 16-byte aligned, got address "
+                f"{t.data_ptr():#x}"
+            )
 
 
 def _lib():
@@ -100,13 +113,10 @@ def maxpool_head(
         return maxpool_head_reference(h, mask, w, bias)
     if h.device.type != "cuda":
         raise ValueError(f"maxpool_head runs on cuda or cpu, not {h.device}")
-    _check_cuda_args(h, mask, w, bias)
     lib = _lib()
+    check_kernel_args(h, mask, w, bias, lib.maxpool_head_max_dim())
     B, L, D = h.shape
     V = w.shape[0]
-    max_dim = lib.maxpool_head_max_dim()
-    if D > max_dim:
-        raise ValueError(f"maxpool_head kernel takes D <= {max_dim}, got {D}")
     out = torch.empty((B, V), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from opensearch_sparse_model_tuning_sample_torch.ops.maxpool import (
+    _lib,
     maxpool_head,
     maxpool_head_reference,
 )
@@ -28,31 +29,34 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(B, L, D, V, seed, device):
+def _inputs(B, L, D, V, seed, device, mask=None):
     rng = np.random.default_rng(seed)
     h = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(V, D)) * 0.05).astype(np.float32))
     bias = torch.from_numpy(rng.normal(size=(V,)).astype(np.float32))
-    lens = rng.integers(1, L + 1, size=B)
-    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
-    mask[-1] = 0  # one all-masked row
+    if mask is None:
+        lens = rng.integers(1, L + 1, size=B)
+        mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+        mask[-1] = 0  # one all-masked row
     return (h.to(device, torch.bfloat16), torch.from_numpy(mask).to(device),
             w.to(device, torch.bfloat16), bias.to(device))
 
 
-# (B, L, D, V): the mini ingest shapes, a base-width shape, L not a multiple
-# of the kernel's 32-row step, D not a multiple of 16, the widest D (the
-# 64-row vocab tile), and a vocab edge that is not a multiple of the tile
-@pytest.mark.parametrize("B,L,D,V", [
-    (50, 128, 256, 30592),
-    (50, 512, 256, 30592),
-    (8, 512, 768, 30592),
-    (5, 45, 256, 1000),
-    (9, 64, 264, 777),
-    (3, 40, 1024, 300),
-])
-def test_maxpool_kernel_matches_plain_version(cuda, B, L, D, V):
-    h, mask, w, bias = _inputs(B, L, D, V, seed=B * L + D, device=cuda)
+def _holey_mask(B, L, seed):
+    """Left padding, interior holes, a fully masked 64-position chunk (the
+    kernel's skip unit) in the middle of a live row, right padding, an
+    all-masked row; any further rows are full."""
+    rng = np.random.default_rng(seed)
+    mask = np.ones((B, L), np.int32)
+    mask[0, : L // 3] = 0
+    mask[1, rng.choice(L, size=L // 4, replace=False)] = 0
+    mask[2, 64:128] = 0
+    mask[3, L // 2:] = 0
+    mask[4] = 0
+    return mask
+
+
+def _check(h, mask, w, bias):
     before = maxpool_head.launches
     got = maxpool_head(h, mask, w, bias)
     torch.cuda.synchronize()
@@ -61,9 +65,55 @@ def test_maxpool_kernel_matches_plain_version(cuda, B, L, D, V):
     # both sides sum exact bf16 products in fp32, in another order
     err = (got - ref).abs()
     assert bool((err <= 1e-3 * ref.abs().clamp_min(1.0)).all()), float(err.max())
-    assert bool((got[-1] == 0).all())  # all-masked row pools to exactly 0
-    padded = ~mask.bool().all(dim=1)  # a row with any padding pools to >= 0
+    dead = ~mask.bool().any(dim=1)
+    assert bool((got[dead] == 0).all())  # an all-masked row pools to exactly 0
+    padded = ~mask.bool().all(dim=1)  # a row with any masked position pools to >= 0
     assert bool((got[padded] >= 0).all())
+    return got
+
+
+# (B, L, D, V): the mini ingest shapes; the base width; L = 45 and 600, not
+# multiples of the kernel's 64-position chunk (600 spans ten); D = 264, not a
+# multiple of the 64-column K box; D = 8, the narrowest; D = 1024 (large,
+# the 64-row vocab tile); V = 300, under one vocab tile, and V = 777, a
+# ragged vocab edge
+@pytest.mark.parametrize("B,L,D,V", [
+    (50, 128, 256, 30592),
+    (50, 512, 256, 30592),
+    (8, 512, 768, 30592),
+    (5, 45, 256, 1000),
+    (4, 600, 256, 777),
+    (9, 64, 264, 777),
+    (6, 70, 8, 500),
+    (3, 40, 1024, 300),
+])
+def test_maxpool_kernel_matches_plain_version(cuda, B, L, D, V):
+    _check(*_inputs(B, L, D, V, seed=B * L + D, device=cuda))
+
+
+@pytest.mark.parametrize("B,L,D,V", [(6, 600, 256, 30592), (6, 200, 768, 777),
+                                     (5, 192, 1024, 300)])
+def test_maxpool_kernel_on_holey_masks(cuda, B, L, D, V):
+    mask = _holey_mask(B, L, seed=L)
+    _check(*_inputs(B, L, D, V, seed=L + D, device=cuda, mask=mask))
+
+
+def test_maxpool_kernel_at_d_1032(cuda):
+    """Above `large`: matches where the kernel takes it, raises where not."""
+    h, mask, w, bias = _inputs(3, 70, 1032, 300, seed=1, device=cuda)
+    if 1032 > _lib().maxpool_head_max_dim():
+        with pytest.raises(ValueError):
+            maxpool_head(h, mask, w, bias)
+    else:
+        _check(h, mask, w, bias)
+
+
+def test_maxpool_kernel_is_deterministic(cuda):
+    """No atomics and no carry between blocks: two launches are bit-equal."""
+    h, mask, w, bias = _inputs(50, 128, 256, 30592, seed=3, device=cuda)
+    a = maxpool_head(h, mask, w, bias)
+    b = maxpool_head(h, mask, w, bias)
+    assert torch.equal(a, b)
 
 
 def test_maxpool_kernel_rejects_what_it_cannot_take(cuda):
@@ -75,3 +125,11 @@ def test_maxpool_kernel_rejects_what_it_cannot_take(cuda):
         maxpool_head(h.float(), mask, w, bias)
     with pytest.raises(TypeError):
         maxpool_head(h, mask.long(), w, bias)
+    # a contiguous view 2 bytes off a 16-byte boundary: TMA cannot read it
+    buf = torch.empty(h.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        maxpool_head(buf[1:].view(h.shape), mask, w, bias)
+    too_wide = _lib().maxpool_head_max_dim() + 8
+    h, mask, w, bias = _inputs(2, 8, too_wide, 64, seed=0, device=cuda)
+    with pytest.raises(ValueError):
+        maxpool_head(h, mask, w, bias)

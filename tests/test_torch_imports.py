@@ -65,6 +65,14 @@ def test_port_sources_never_name_jax():
                             or s.startswith("from opensearch_sparse_model_tuning_sample_tpu")), (f, s)
 
 
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on the card's machine, which has no JAX."""
+    for line in open(os.path.join(REPO, "chip_smoke.py")).read().splitlines():
+        s = line.strip()
+        is_import = s.startswith(("import ", "from "))
+        assert not (is_import and ("jax" in s or "sample_tpu" in s)), s
+
+
 @pytest.mark.parametrize("request_", [None, "cuda"])
 def test_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch, request_):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

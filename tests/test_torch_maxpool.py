@@ -20,6 +20,7 @@ from opensearch_sparse_model_tuning_sample_tpu.ops.pallas_maxpool import maxpool
 from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
 from opensearch_sparse_model_tuning_sample_torch.models.convert import params_from_jax
 from opensearch_sparse_model_tuning_sample_torch.ops.maxpool import (
+    check_kernel_args,
     maxpool_head,
     maxpool_head_reference,
 )
@@ -38,6 +39,22 @@ def _inputs(B, L, D, V, seed):
     mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
     mask[-1] = 0  # one all-masked row
     return h, mask, w, bias
+
+
+def _holey_mask(B, L, rng):
+    """Masks the kernel's 64-position chunk skip must get right: left
+    padding, interior holes, a fully masked 64-wide chunk in the middle of a
+    row (where L allows), right padding, an all-masked row and a full row."""
+    mask = np.ones((B, L), np.int32)
+    mask[0, : L // 3] = 0  # left padding
+    mask[1, rng.choice(L, size=max(1, L // 4), replace=False)] = 0  # interior holes
+    if L >= 192:
+        mask[2, 64:128] = 0  # one whole chunk masked, live chunks around it
+    else:
+        mask[2, L // 3: 2 * L // 3] = 0
+    mask[3, L // 2:] = 0  # right padding
+    mask[4] = 0  # all masked
+    return mask
 
 
 def _plain(h, mask, w, bias):
@@ -95,6 +112,101 @@ def test_plain_version_matches_jax_scan_head(untied, L):
     with torch.no_grad():
         got = model.mlm_maxpool(torch.from_numpy(hidden), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("L", [40, 192])
+def test_plain_version_matches_pallas_interpret_on_holey_masks(L):
+    """Left padding, interior holes and a fully masked chunk in mid-row: a
+    masked position contributes exactly 0 wherever it sits."""
+    B, D, V = 6, 32, 256
+    rng = np.random.default_rng(L)
+    h, _, w, bias = _inputs(B, L, D, V, seed=L)
+    mask = _holey_mask(B, L, rng)
+    got = _plain(h, mask, w, bias)
+    ref = np.asarray(pallas_maxpool_head(
+        jnp.asarray(h), jnp.asarray(mask), jnp.asarray(w.T), jnp.asarray(bias),
+        tile_b=B, tile_v=128, chunk=8, interpret=True,
+    ))
+    np.testing.assert_allclose(got, ref, **TOL)
+    assert (got[4] == 0).all()  # all-masked row pools to exactly 0
+    assert (got[:4] >= 0).all()  # a row with any masked position pools to >= 0
+    assert (got[5] < 0).any()  # the full row may pool below 0
+
+
+@pytest.mark.parametrize("L", [40, 192])
+def test_plain_version_matches_jax_scan_head_on_holey_masks(L):
+    """The port's BertForMaskedLM.mlm_maxpool against JAX bert.mlm_maxpool
+    on the same holey masks, same fp32 weights."""
+    jcfg = jbert.config_from_preset("tiny", vocab_size=1000, compute_dtype=jnp.float32)
+    params = jbert.init(jax.random.PRNGKey(5), jcfg)
+    rng = np.random.default_rng(L + 1)
+    B, D = 6, jcfg.hidden_size
+    hidden = rng.normal(size=(B, L, D)).astype(np.float32)
+    mask = _holey_mask(B, L, rng)
+    ref = np.asarray(jbert.mlm_maxpool(params, jcfg, jnp.asarray(hidden), jnp.asarray(mask), chunk=8))
+    tcfg = tbert.BertConfig(**{
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tbert.BertConfig)
+        if f.name not in ("param_dtype", "compute_dtype")
+    }, compute_dtype=torch.float32)
+    model = tbert.from_state_dict(
+        tcfg, params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg),
+        torch.device("cpu"))
+    with torch.no_grad():
+        got = model.mlm_maxpool(torch.from_numpy(hidden), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+    assert (got[4] == 0).all()
+
+
+def _kernel_args(B=2, L=8, D=32, V=64):
+    return (torch.zeros(B, L, D, dtype=torch.bfloat16), torch.ones(B, L, dtype=torch.int32),
+            torch.zeros(V, D, dtype=torch.bfloat16), torch.zeros(V, dtype=torch.float32))
+
+
+def test_kernel_argument_checks_accept_what_the_kernel_takes():
+    check_kernel_args(*_kernel_args(), max_dim=1536)
+    check_kernel_args(*_kernel_args(D=1536), max_dim=1536)
+
+
+@pytest.mark.parametrize("case", [
+    "D_not_multiple_of_8", "D_above_max", "h_misaligned", "w_misaligned", "shapes_disagree",
+    "h_not_contiguous", "empty_batch",
+])
+def test_kernel_argument_checks_raise_value_error(case):
+    """The checks run before any launch, on any device: a sliced view that
+    breaks TMA's 16-byte alignment raises instead of reaching the card."""
+    h, mask, w, bias = _kernel_args()
+    max_dim = 1536
+    if case == "D_not_multiple_of_8":
+        h, mask, w, bias = _kernel_args(D=20)
+    elif case == "D_above_max":
+        h, mask, w, bias = _kernel_args(D=1544)
+    elif case == "h_misaligned":
+        buf = torch.zeros(h.numel() + 1, dtype=torch.bfloat16)
+        h = buf[1:].view(h.shape)  # contiguous, 2 bytes off a 16-byte boundary
+        assert h.is_contiguous() and h.data_ptr() % 16
+    elif case == "w_misaligned":
+        buf = torch.zeros(w.numel() + 4, dtype=torch.bfloat16)
+        w = buf[4:].view(w.shape)
+        assert w.data_ptr() % 16
+    elif case == "shapes_disagree":
+        bias = torch.zeros(63)
+    elif case == "h_not_contiguous":
+        h = torch.zeros(2, 32, 8, dtype=torch.bfloat16).transpose(1, 2)
+    elif case == "empty_batch":
+        h, mask = h[:0], mask[:0]
+    with pytest.raises(ValueError):
+        check_kernel_args(h, mask, w, bias, max_dim=max_dim)
+
+
+@pytest.mark.parametrize("case", ["h_float", "w_float", "mask_int64", "bias_bf16"])
+def test_kernel_argument_checks_raise_type_error(case):
+    h, mask, w, bias = _kernel_args()
+    h = h.float() if case == "h_float" else h
+    w = w.float() if case == "w_float" else w
+    mask = mask.long() if case == "mask_int64" else mask
+    bias = bias.bfloat16() if case == "bias_bf16" else bias
+    with pytest.raises(TypeError):
+        check_kernel_args(h, mask, w, bias, max_dim=1536)
 
 
 def test_wrapper_takes_the_plain_version_on_cpu_only():
