@@ -1,15 +1,20 @@
 """On-card smoke run of the PyTorch port: `python3 chip_smoke.py` on a machine
 with one CUDA card (an NVIDIA H100).
 
-It builds every kernel of the ported slice from the sources in this checkout,
-holds each kernel against its plain PyTorch version on the card at the shapes
-the main path gives it (and on the main path's own first ingest batch), times
-ablation builds of the head kernel to show where its time goes, drives the
-main path once through the entry point a user calls (`cli.evaluate_beir.main`
-on the `synthetic-rich` task at the full `mini` width, random weights from a
-seed), and checks what comes out. Any failed check exits non-zero. The last
-lines of output are the `kernels` JSON line, the card's name and power
-limit, and `{"ok": true, "device": {...}}`.
+It builds every kernel of the ported slices from the sources in this
+checkout (one nvcc per source, all at once), holds each kernel against its
+plain PyTorch version on the card at the shapes the main path gives it (and
+on the main path's own batches), times ablation builds of the ingest head
+kernel to show where its time goes, and drives the main path once through
+the entry points a user calls, at the full `mini` width on the
+`synthetic-rich` task: `cli.mine` -> `cli.train_ir` (the
+`config_infonce_synthetic` recipe, 50 steps from a seeded random init) ->
+`cli.evaluate_beir` on the exported `checkpoint-50`. It checks what comes
+out, that every kernel of the path ran (launch counts, read around the path)
+and that no plain version did, and that one whole train step's gradients
+with the kernels equal those with the plain head. Any failed check exits
+non-zero. The last lines of output are the `kernels` JSON line, the card's
+name and power limit, and `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
 `output/chip_smoke/` and builds the kernels under `build/torch_kernels/`
@@ -23,6 +28,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -30,10 +36,20 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "output", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
+# the tensor cores, and HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-3  # |kernel - plain| <= TOL * max(1, |plain|): fp32 sums in another order
+TRAIN_STEPS = 50
+# one whole train step, kernels against the plain head: per tensor
+# |g_kernel - g_plain| <= GRAD_TOL |g_plain| + GRAD_FLOOR G (G the largest
+# tensor gradient norm). Both round dh and dw to bf16 at the same place; the
+# fp32 sums differ in order, which moves a bf16 rounding here and there, and
+# the bf16 encoder backward carries that on. The floor covers gradients that
+# are 0 in exact arithmetic (attention key biases) and hold rounding noise.
+GRAD_TOL, GRAD_FLOOR = 2e-2, 1e-4
 
 
 def check(cond, what):
@@ -71,9 +87,13 @@ def maxpool_inputs(B, L, D, V, seed, dev):
 def library_head(h, mask, w, bias):
     """The same function from PyTorch's own calls: one bf16 GEMM with fp32
     output over [B*L, D] x [D, V], bias, mask, amax. A yardstick only."""
+    return library_head_logits(h, mask, w, bias).amax(dim=1)
+
+
+def library_head_logits(h, mask, w, bias):
     B, L, D = h.shape
     logits = torch.mm(h.reshape(B * L, D), w.t(), out_dtype=torch.float32) + bias
-    return (logits.view(B, L, -1) * mask[:, :, None]).amax(dim=1)
+    return logits.view(B, L, -1) * mask[:, :, None]
 
 
 def kernel_row(name, h, mask, w, bias):
@@ -248,6 +268,206 @@ def phase_ablation(dev, shapes):
     return times
 
 
+def holey_inputs(B, L, D, V, seed, dev):
+    """maxpool_inputs (lengths in [L/2, L], the last row all masked) with
+    left padding in row 0 and every fifth position masked in row 1."""
+    h, mask, w, bias = maxpool_inputs(B, L, D, V, seed, dev)
+    mask[0, : L // 3] = 0
+    mask[1, ::5] = 0
+    return h, mask, w, bias
+
+
+def library_scatter(g, idx, mask, L):
+    """The dense [B, L, V] bf16 gradient of the masked logits: one scatter."""
+    B, V = g.shape
+    coef = (g * mask.gather(1, idx.long()).float()).to(torch.bfloat16)
+    return torch.zeros(B, L, V, dtype=torch.bfloat16, device=g.device).scatter_(
+        1, idx.long()[:, None, :], coef[:, None, :])
+
+
+def library_bwd_w(g, idx, mask, h):
+    """dw, dbias from PyTorch's own calls: the scatter, one bf16 GEMM with
+    fp32 output and a sum. A yardstick only."""
+    B, L, D = h.shape
+    s = library_scatter(g, idx, mask, L).view(B * L, -1)
+    return torch.mm(s.t(), h.reshape(B * L, D), out_dtype=torch.float32), s.sum(0, dtype=torch.float32)
+
+
+def library_bwd_h(g, idx, mask, w):
+    """dh from PyTorch's own calls: the scatter and one bf16 GEMM."""
+    B, L = mask.shape
+    s = library_scatter(g, idx, mask, L).view(B * L, -1)
+    return torch.mm(s, w, out_dtype=torch.float32).view(B, L, -1)
+
+
+def library_head_argmax(h, mask, w, bias):
+    return library_head_logits(h, mask, w, bias).max(dim=1)
+
+
+def value_at(h, mask, w, bias, idx):
+    """mask * (h[b, idx[b, v]] . w[v] + bias[v]): the logit the argmax names."""
+    out = torch.empty(idx.shape, device=h.device)
+    wf = w.float()
+    for b in range(h.shape[0]):
+        li = idx[b].long()
+        out[b] = ((h[b].float()[li] * wf).sum(1) + bias) * mask[b].float()[li]
+    return out
+
+
+def _close(got, ref, what, tol=TOL):
+    err = (got - ref).abs()
+    check(bool((err <= tol * ref.abs().clamp_min(1.0)).all()),
+          f"{what}: max |err| {float(err.max())}")
+    return float(err.max())
+
+
+def _bound(flops, peak_flops, nbytes):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def train_kernel_rows(name, h, mask, w, bias, g):
+    """The three training kernels on these inputs against their plain
+    versions, two launches of each bit-equal, and their times beside the
+    plain version's, the library calls' and the bound. g is the upstream
+    gradient of the pooled logits.
+
+    Bounds: argmax forward, 2 * unmasked * D * V bf16 operations at 989
+    TFLOP/s against h + mask + w + bias + out (fp32) + idx (int32) bytes at
+    3.35 TB/s. bwd_w: 2 * nnz * D fp32 FMA operations at 67 TFLOP/s, nnz the
+    (b, v) with g * mask[b, idx] != 0, against g + idx + mask + h + dw (fp32)
+    + dbias bytes. bwd_h: the same operations against g + idx + mask + w +
+    dh (fp32) bytes."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
+
+    B, L, D = h.shape
+    V = w.shape[0]
+    pooled, idx = mp.maxpool_head_argmax(h, mask, w, bias)
+    dw, dbias = mp.maxpool_head_bwd_w(g, idx, mask, h)
+    dh = mp.maxpool_head_bwd_h(g, idx, mask, w)
+    torch.cuda.synchronize()
+    err_f = _close(pooled, mp.maxpool_head_reference(h, mask, w, bias), f"argmax forward at {name}")
+    check(bool(((idx >= 0) & (idx < L)).all()), f"argmax positions in range at {name}")
+    # near-ties may pick another position than the plain argmax: compare values
+    _close(value_at(h, mask, w, bias, idx), pooled, f"logit at the kernel's argmax at {name}")
+    rdw, rdbias = mp.maxpool_head_bwd_w_reference(g, idx, mask, h)
+    err_w = max(_close(dw, rdw, f"bwd_w dw at {name}"), _close(dbias, rdbias, f"bwd_w dbias at {name}"))
+    rdh = mp.maxpool_head_bwd_h_reference(g, idx, mask, w)
+    err_h = _close(dh, rdh, f"bwd_h at {name}")
+    dead = ~mask.bool().any(dim=1)
+    check(bool((pooled[dead] == 0).all()) and bool((dh[mask == 0] == 0).all()),
+          f"masked positions pool to 0 and get no gradient at {name}")
+    check(torch.equal(mp.maxpool_head_argmax(h, mask, w, bias)[1], idx)
+          and torch.equal(mp.maxpool_head_bwd_w(g, idx, mask, h)[0], dw)
+          and torch.equal(mp.maxpool_head_bwd_h(g, idx, mask, w), dh),
+          f"two launches of each training kernel agree bit for bit at {name}")
+    del rdw, rdbias, rdh
+    # the yardsticks round g * mask to bf16, and the true gradients cancel
+    # much (a softmax's rows sum to 0), so they are held to the plain
+    # version fed the same bf16-rounded g
+    g16 = g.to(torch.bfloat16).float()
+    _close(library_bwd_w(g, idx, mask, h)[0], mp.maxpool_head_bwd_w_reference(g16, idx, mask, h)[0],
+           "the library yardstick computes the same dw")
+    _close(library_bwd_h(g, idx, mask, w), mp.maxpool_head_bwd_h_reference(g16, idx, mask, w),
+           "the library yardstick computes the same dh")
+    torch.cuda.empty_cache()
+
+    unmasked = float(mask.sum())
+    nnz = float(((g * mask.gather(1, idx.long()).float()) != 0).sum())
+    fwd_bound = _bound(2.0 * unmasked * D * V, PEAK_BF16_FLOPS,
+                       B * L * D * 2 + B * L * 4 + V * D * 2 + V * 4 + B * V * 8)
+    w_bound = _bound(2.0 * nnz * D, PEAK_FP32_FLOPS,
+                     B * V * 8 + B * L * 4 + B * L * D * 2 + V * D * 4 + V * 4)
+    h_bound = _bound(2.0 * nnz * D, PEAK_FP32_FLOPS,
+                     B * V * 8 + B * L * 4 + V * D * 2 + B * L * D * 4)
+    rows = {
+        "maxpool_head_argmax": dict(
+            max_abs_err=err_f, ms=cuda_ms(lambda: mp.maxpool_head_argmax(h, mask, w, bias), 20),
+            plain_ms=cuda_ms(lambda: mp.maxpool_head_argmax_reference(h, mask, w, bias), 3),
+            library_ms=cuda_ms(lambda: library_head_argmax(h, mask, w, bias), 5),
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
+        "maxpool_head_bwd_w": dict(
+            max_abs_err=err_w, ms=cuda_ms(lambda: mp.maxpool_head_bwd_w(g, idx, mask, h), 20),
+            plain_ms=cuda_ms(lambda: mp.maxpool_head_bwd_w_reference(g, idx, mask, h), 3),
+            library_ms=cuda_ms(lambda: library_bwd_w(g, idx, mask, h), 5),
+            bound_ms=w_bound[0], bound_by=w_bound[1]),
+        "maxpool_head_bwd_h": dict(
+            max_abs_err=err_h, ms=cuda_ms(lambda: mp.maxpool_head_bwd_h(g, idx, mask, w), 20),
+            sort_ms=cuda_ms(lambda: mp.argmax_order(idx), 20),
+            plain_ms=cuda_ms(lambda: mp.maxpool_head_bwd_h_reference(g, idx, mask, w), 3),
+            library_ms=cuda_ms(lambda: library_bwd_h(g, idx, mask, w), 5),
+            bound_ms=h_bound[0], bound_by=h_bound[1]),
+    }
+    for k, r in rows.items():
+        r.update(shape=[B, L, D, V], share_of_bound=r["bound_ms"] / r["ms"], inputs=name)
+        extra = f", of which the argmax sort {r['sort_ms']:.4f} ms" if "sort_ms" in r else ""
+        print(f"{k} {name} B={B} L={L} D={D} V={V}: max|err| {r['max_abs_err']:.3g}, kernel "
+              f"{r['ms']:.4f} ms{extra}, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
+              f"of bound {r['share_of_bound']:.3f}; nonzero (b, v) gradients {nnz:.0f} of "
+              f"{B * V}; two launches bit-equal", flush=True)
+    return rows
+
+
+def phase_train_kernels(dev, shapes):
+    """Synthetic inputs at the training shapes: holey masks, an all-masked
+    row, an upstream gradient with about half its entries 0 (as relu
+    leaves it)."""
+    out = []
+    for i, (B, L, D, V) in enumerate(shapes):
+        h, mask, w, bias = holey_inputs(B, L, D, V, seed=100 + i, dev=dev)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        g = torch.randn(B, V, device=dev, generator=gen)
+        g = g * (torch.rand(B, V, device=dev, generator=gen) < 0.5)
+        out.append(train_kernel_rows("synthetic", h, mask, w, bias, g))
+        del h, mask, w, bias, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def smoke_recipe(dev):
+    """configs/config_infonce_synthetic.yaml as the smoke run uses it, written
+    under output/chip_smoke/. The smoke run's only change to the recipe is
+    the short warm-up (10 of 50 steps, where the recipe warms up over 200 of
+    2000); the rest is the run's length (max_steps, save_steps = 50), where it
+    writes, and the card."""
+    import yaml
+
+    with open(os.path.join(HERE, "configs", "config_infonce_synthetic.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(max_steps=TRAIN_STEPS, warmup_steps=10, save_steps=TRAIN_STEPS,
+               output_dir=os.path.join(OUT, "infonce_synthetic"),
+               idf_path=os.path.join(HERE, cfg["idf_path"]), device=str(dev))
+    path = os.path.join(OUT, "config_infonce_synthetic.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path, cfg
+
+
+def _counters():
+    from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
+
+    kernels = {f.__name__: f for f in (mp.maxpool_head, mp.maxpool_head_argmax,
+                                       mp.maxpool_head_bwd_w, mp.maxpool_head_bwd_h)}
+    plains = {f.__name__: f for f in (mp.maxpool_head_reference, mp.maxpool_head_argmax_reference,
+                                      mp.maxpool_head_bwd_w_reference,
+                                      mp.maxpool_head_bwd_h_reference)}
+    return kernels, plains
+
+
+def reset_counters():
+    kernels, plains = _counters()
+    for f in kernels.values():
+        f.launches = 0
+    for f in plains.values():
+        f.calls = 0
+
+
+def read_counters():
+    kernels, plains = _counters()
+    return ({k: f.launches for k, f in kernels.items()}, {k: f.calls for k, f in plains.items()})
+
+
 class _IngestRate(logging.Handler):
     """Picks the docs/s out of eval.beir.ingest's log record."""
 
@@ -260,7 +480,9 @@ class _IngestRate(logging.Handler):
             self.docs_per_s = record.args[3]
 
 
-def main_path_config(dev):
+def model_config(dev):
+    """The random-init mini encoder the ingest-kernel phase reads its batch
+    from (the first 50 synthetic-rich docs at the eval shapes)."""
     return {
         "arch": "mini",
         "idf_path": os.path.join(HERE, "assets", "idf.npz"),
@@ -268,8 +490,7 @@ def main_path_config(dev):
         "beir_datasets": "synthetic-rich",
         "eval_max_seq_length": 512,
         "per_device_eval_batch_size": 50,
-        "index_engine": "auto",
-        "output_dir": os.path.join(OUT, "eval"),
+        "output_dir": os.path.join(OUT, "random_init"),
         "device": str(dev),
         "model_name_or_path": None,
     }
@@ -341,13 +562,210 @@ def encoder_check(model, texts, l_max, dev):
     return float(err.max())
 
 
+def phase_train_path(dev):
+    """The main path through its entry points: cli.mine -> cli.train_ir ->
+    cli.evaluate_beir on the exported checkpoint. The kernel and plain
+    counters are set to 0 just before each part and read just after."""
+    from opensearch_sparse_model_tuning_sample_torch.cli import evaluate_beir, mine, train_ir
+    from opensearch_sparse_model_tuning_sample_torch.train.trainer import Trainer
+
+    path, cfg = smoke_recipe(dev)
+    out = {"cfg": cfg, "path": path}
+    marks = {}
+    orig_step = Trainer.train_step
+
+    def timed_step(self, batch):  # host clock over steps 10..50, synchronized at both ends
+        if self.step == 10:
+            torch.cuda.synchronize()
+            marks["start"] = time.perf_counter()
+        metrics = orig_step(self, batch)
+        if self.step == TRAIN_STEPS:
+            torch.cuda.synchronize()
+            marks["end"] = time.perf_counter()
+        return metrics
+
+    cwd = os.getcwd()
+    os.chdir(OUT)  # cli.mine saves data/<name>_train under the working dir; train_file reads it
+    try:
+        t0 = time.time()
+        reset_counters()
+        rows = mine.main(path)
+        out["mine"] = read_counters()
+        out["mine_s"] = time.time() - t0
+        check(len(rows) > 0 and os.path.isdir(cfg["train_file"]), "cli.mine saved training rows")
+        print(f"cli.mine: {len(rows)} rows in {out['mine_s']:.1f} s; counters {out['mine']}",
+              flush=True)
+
+        Trainer.train_step = timed_step
+        t0 = time.time()
+        reset_counters()
+        trainer = train_ir.main(path)
+        out["train"] = read_counters()
+        out["train_s"] = time.time() - t0
+        Trainer.train_step = orig_step
+
+        t0 = time.time()
+        reset_counters()
+        out["avg"] = evaluate_beir.main(path)
+        out["eval"] = read_counters()
+        out["eval_s"] = time.time() - t0
+    finally:
+        Trainer.train_step = orig_step
+        os.chdir(cwd)
+
+    steps = trainer.step
+    launches, plain = out["train"]
+    print(f"cli.train_ir: {steps} steps in {out['train_s']:.1f} s; counters {out['train']}",
+          flush=True)
+    check(steps == TRAIN_STEPS, "the trainer took every step")
+    for k in ("maxpool_head_argmax", "maxpool_head_bwd_w", "maxpool_head_bwd_h"):
+        check(launches[k] == steps, f"{k} launched once per train step ({launches[k]})")
+    for part in ("mine", "train", "eval"):
+        check(not any(out[part][1].values()), f"no plain version ran in cli.{part}: {out[part][1]}")
+    hist = trainer.log_history
+    for h in hist:
+        check(all(np.isfinite(v) for v in h.values()), f"finite metrics at step {h['step']}")
+    check(hist[0]["step"] == 1 and hist[-1]["step"] == steps, "logged at step 1 and the last")
+    check(hist[-1]["ranking_loss"] < hist[0]["ranking_loss"],
+          f"the ranking loss fell: {hist[0]['ranking_loss']:.5f} -> {hist[-1]['ranking_loss']:.5f}")
+    ckpt = os.path.join(cfg["output_dir"], f"checkpoint-{steps}")
+    for f in ("model.safetensors", "config.json", "vocab.txt"):
+        check(os.path.exists(os.path.join(ckpt, f)), f"checkpoint file {f}")
+    check(os.path.exists(os.path.join(cfg["output_dir"], "train_state", "state.pt")),
+          "the train state is saved")
+    print("launches per train step: " + ", ".join(
+        f"{k} {launches[k] / steps:g}" for k in ("maxpool_head_argmax", "maxpool_head_bwd_w",
+                                                 "maxpool_head_bwd_h")), flush=True)
+    docs = (TRAIN_STEPS - 10) * cfg["per_device_train_batch_size"] * (1 + cfg["sample_num_one_query"])
+    out["docs_per_s"] = docs / (marks["end"] - marks["start"])
+    print(f"train: ranking loss {hist[0]['ranking_loss']:.5f} (step 1) -> "
+          f"{hist[-1]['ranking_loss']:.5f} (step {steps}); {out['docs_per_s']:.1f} docs/s over "
+          f"steps 10..{steps} ({docs} docs, host clock, synchronized); checkpoint {ckpt}",
+          flush=True)
+    out["trainer"], out["steps"], out["ckpt"] = trainer, steps, ckpt
+    return out
+
+
+def grad_check(trainer, dev):
+    """One whole train step's gradients (the step's loss, dropout off, the
+    trained parameters, the first 15 mined rows) with the kernels against
+    the same step with the plain head: torch autograd of
+    maxpool_head_reference. Also captures the head's inputs and upstream
+    gradient on this main-path batch for the kernel rows."""
+    from opensearch_sparse_model_tuning_sample_torch.data.collator import build_collator
+    from opensearch_sparse_model_tuning_sample_torch.data.datasets import load_dataset
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as bert_mod
+    from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
+    from opensearch_sparse_model_tuning_sample_torch.train.trainer import train_loss
+
+    model, ma, da = trainer.model, trainer.model_args, trainer.data_args
+    ds = load_dataset(os.path.join(OUT, da.train_file), da.data_type,
+                      sample_num_one_query=da.sample_num_one_query)
+    collator = build_collator(da.data_type, model.tokenizer, da.max_seq_length,
+                              seq_buckets=da.seq_buckets)
+    n = trainer.args.per_device_train_batch_size
+    np_batch = collator([ds[i] for i in range(n)])
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in np_batch.items()}
+
+    captured = {}
+    kernel_head = bert_mod.maxpool_head_train
+
+    def capture(h, mask, w, bias):
+        pooled = kernel_head(h, mask, w, bias)
+        captured["args"] = (h.detach(), mask, w.detach(), bias.detach())
+        pooled.register_hook(lambda g: captured.__setitem__("g", g.detach().float().contiguous()))
+        return pooled
+
+    def plain_head(h, mask, w, bias):
+        return mp.maxpool_head_reference(h, mask, w, bias)
+
+    grads, losses = {}, {}
+    for name, head in (("kernels", capture), ("plain", plain_head)):
+        bert_mod.maxpool_head_train = head
+        try:
+            model.zero_grad(set_to_none=True)
+            loss, _ = train_loss(model, batch, trainer.step, trainer.loss_specs, ma, da)
+            loss.backward()
+        finally:
+            bert_mod.maxpool_head_train = kernel_head
+        losses[name] = loss.item()
+        grads[name] = {k: p.grad.float().clone() for k, p in model.named_parameters()
+                       if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    check(abs(losses["kernels"] - losses["plain"]) <= 1e-4 * abs(losses["plain"]),
+          f"train-step loss, kernels {losses['kernels']} vs plain head {losses['plain']}")
+    check(grads["kernels"].keys() == grads["plain"].keys(), "the same parameters get gradients")
+    big = max(float(g.norm()) for g in grads["plain"].values())
+    rel = {}
+    for k, gp in grads["plain"].items():
+        err = float((grads["kernels"][k] - gp).norm())
+        check(err <= GRAD_TOL * float(gp.norm()) + GRAD_FLOOR * big,
+              f"train-step gradient of {k}: |kernels - plain| {err:.3g}, |plain| {float(gp.norm()):.3g}")
+        rel[k] = (err / max(float(gp.norm()), 1e-30), float(gp.norm()))
+    top = sorted(rel.items(), key=lambda kv: -kv[1][0])[:4]
+    above = max(r for r, n in rel.values() if n > 1e-3 * big)
+    print(f"full-step gradient check: {len(rel)} tensors, loss {losses['kernels']:.6f} (kernels) "
+          f"vs {losses['plain']:.6f} (plain head); worst relative errors "
+          + ", ".join(f"{k} {r:.3g} (|g| {n:.3g})" for k, (r, n) in top)
+          + f"; worst among tensors with |g| > 1e-3 G: {above:.3g} (tolerance {GRAD_TOL} + "
+          f"{GRAD_FLOOR} G, G = {big:.3g})", flush=True)
+
+    # what in a (non-logging) train step makes the host wait for the card:
+    # one more step of the loop's own train_step under CUDA's sync check
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_step(np_batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0][:120] for w in caught
+             if str(w.message).startswith("called a synchronizing")]
+    print(f"host syncs in one train step (CUDA's sync check, which its own notice calls a "
+          f"prototype that may miss some): {len(syncs)} {sorted(set(syncs))}", flush=True)
+    return captured, above, np_batch
+
+
+def profile_steps(trainer, np_batch, step_ms, n=5):
+    """Where a train step's time goes: `n` more steps of the loop's own
+    train_step under torch.profiler. Prints the device operations' time by
+    name (user annotations, which span other operations, left out), their
+    count per step, and the card's busy share of `step_ms`, the step time
+    measured without the profiler (whose own host overhead inflates the
+    wall time it sees)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            trainer.train_step(np_batch)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    launches = sum(e.count for e in on_card)
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]
+    busy_ms = busy_us / n / 1e3
+    print(f"profile of {n} train steps: the card busy {busy_ms:.3f} ms a step, "
+          f"{busy_ms / step_ms:.3f} of the {step_ms:.2f} ms step measured without the profiler "
+          f"({wall_us / n / 1e3:.2f} ms under it); {launches / n:.0f} device operations a step; "
+          "by device time: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / n / 1e3:.4f} ms x{e.count // n}"
+                      for e in top), flush=True)
+    return {"step_ms": step_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
+            "profiled_step_ms": wall_us / n / 1e3, "ops_per_step": launches / n}
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, HERE)
-    from opensearch_sparse_model_tuning_sample_torch.cli import evaluate_beir
+    from opensearch_sparse_model_tuning_sample_torch.cli.evaluate_beir import prepare_model_args
     from opensearch_sparse_model_tuning_sample_torch.core.config import parse_config
     from opensearch_sparse_model_tuning_sample_torch.core.device import resolve_device
     from opensearch_sparse_model_tuning_sample_torch.data.datasets import (
@@ -357,7 +775,6 @@ def main():
     from opensearch_sparse_model_tuning_sample_torch.index.engine import SparseIndex
     from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
     from opensearch_sparse_model_tuning_sample_torch.ops import kernel_build
-    from opensearch_sparse_model_tuning_sample_torch.ops.maxpool import maxpool_head
 
     # 1. device
     card = subprocess.run(
@@ -366,6 +783,11 @@ def main():
     ).stdout.strip().splitlines()[0]
     dev = resolve_device("cuda")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    import datasets
+    import safetensors
+    import yaml
+    print(f"packages: datasets {datasets.__version__}, safetensors {safetensors.__version__}, "
+          f"yaml {yaml.__version__}: the CLIs' own formats on the card", flush=True)
 
     # 2. build every kernel from this checkout's sources, in parallel
     t0 = time.time()
@@ -374,16 +796,18 @@ def main():
         # registers, spills and shared memory per kernel, and any note that
         # ptxas serialized the wgmmas (C75xx)
         report = [ln.strip() for ln in info["log"].splitlines()
-                  if "registers" in ln or "spill" in ln or "smem" in ln or "C75" in ln]
+                  if "registers" in ln or "spill" in ln or "smem" in ln or "C75" in ln
+                  or "Compiling entry" in ln]
         print(f"built {name} in {info['seconds']:.1f} s; ptxas: {report}", flush=True)
     print(f"build phase {time.time() - t0:.1f} s", flush=True)
+    os.makedirs(OUT, exist_ok=True)
+    os.environ["METRICS_DIR"] = os.path.join(OUT, "metrics")
 
-    # 3. each kernel against its plain version on the card. The main path's
-    # ingest batches are B=50 at the L=64 bucket (synthetic-rich docs all
-    # fit 64 tokens); 128 and 512 are the longer buckets; base is D=768.
-    # The last row is the main path's own first batch, at real doc lengths.
-    cfg = main_path_config(dev)
-    model_args, data_args, training_args = parse_config(dict(cfg))
+    # 3. the ingest kernel against its plain version. The eval's ingest
+    # batches are B=50 at the L=64 bucket (synthetic-rich docs all fit 64
+    # tokens); 128 and 512 are the longer buckets; base is D=768. The last
+    # row is the eval's own first batch (random-init mini), at real lengths.
+    model_args, data_args, training_args = parse_config(model_config(dev))
     corpus, queries, _ = resolve_dataset("synthetic-rich", data_args.beir_dir)
     docs = BEIRCorpusDataset(corpus)
     model = se.from_model_args(model_args, seed=training_args.seed, device=dev)
@@ -393,54 +817,76 @@ def main():
     batch, cast_ms = main_path_batch(
         model, [docs[i][1] for i in range(training_args.per_device_eval_batch_size)], dev)
     rows = phase_kernels(dev, shapes, batch)
-    del batch
+    del batch, model
     print(f"kernel phase {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
     ablation = phase_ablation(dev, shapes)
     print(f"ablation phase {time.time() - t0:.1f} s", flush=True)
 
-    # 4. the main path: cli.evaluate_beir on synthetic-rich, mini, on the card
-    os.makedirs(OUT, exist_ok=True)
-    os.environ["METRICS_DIR"] = os.path.join(OUT, "metrics")
+    # 4. the training kernels against their plain versions: the train step's
+    # doc batch is 15 queries x (1 pos + 2 negs) = 45 docs at L = 64; 128 and
+    # 512 are the longer buckets; D = 768 the base width
+    t0 = time.time()
+    train_shapes = [(45, 64, 256, 30592), (45, 128, 256, 30592), (45, 512, 256, 30592),
+                    (8, 512, 768, 30592)]
+    train_rows = phase_train_kernels(dev, train_shapes)
+    print(f"train-kernel phase {time.time() - t0:.1f} s", flush=True)
+
+    # 5. the main path: mine -> train -> evaluate, through the entry points
     rate = _IngestRate()
     logging.getLogger("opensearch_sparse_model_tuning_sample_torch.eval.beir").addHandler(rate)
     t0 = time.time()
-    maxpool_head.launches = 0
-    avg = evaluate_beir.main(dict(cfg))
-    launches = maxpool_head.launches
-    t_main = time.time() - t0
+    path = phase_train_path(dev)
+    print(f"main path {time.time() - t0:.1f} s (mine {path['mine_s']:.1f}, train "
+          f"{path['train_s']:.1f}, evaluate {path['eval_s']:.1f})", flush=True)
+    avg = path["avg"]
+    launches = path["eval"][0]["maxpool_head"]
     n_docs = len(docs)
-    n_batches = -(-n_docs // training_args.per_device_eval_batch_size)
-    print(f"main path {t_main:.1f} s: {n_docs} docs, {len(queries)} queries, "
-          f"maxpool_head launches {launches} for {n_batches} ingest batches", flush=True)
-    check(launches >= n_batches, "the kernel ran for every ingest batch")
+    n_batches = -(-n_docs // path["cfg"]["per_device_eval_batch_size"])
+    print(f"evaluate: {n_docs} docs, {len(queries)} queries, maxpool_head launches {launches} "
+          f"for {n_batches} ingest batches", flush=True)
+    check(launches >= n_batches, "the ingest kernel ran for every ingest batch")
     check(0.0 <= avg["NDCG@10"] <= 1.0 and avg["flops"] > 0, "finite metrics")
 
-    # the exact scan against brute force, all queries
+    # 6. one whole train step with the kernels against the plain head, and
+    # the training kernels on that main-path batch
+    t0 = time.time()
+    captured, grad_worst, np_batch = grad_check(path["trainer"], dev)
+    docs_per_step = path["cfg"]["per_device_train_batch_size"] * (
+        1 + path["cfg"]["sample_num_one_query"])
+    profile = profile_steps(path["trainer"], np_batch, 1e3 * docs_per_step / path["docs_per_s"])
+    main_train = train_kernel_rows("main-path batch", *captured["args"], captured["g"])
+    print(f"gradient check and main-path train rows {time.time() - t0:.1f} s", flush=True)
+
+    # 7. the exact scan of the trained checkpoint's index against brute force
+    ma, da, ta = parse_config(path["path"])
+    prepare_model_args(ma, ta.output_dir, ta.max_steps)
+    check(ma.model_name_or_path == path["ckpt"], "evaluate_beir read the exported checkpoint")
+    ckpt_model = se.from_model_args(ma, seed=ta.seed, device=dev)
     qd = KeyValueDataset(queries)
-    enc = se.BatchEncoder(model, max_length=512)
+    enc = se.BatchEncoder(ckpt_model, max_length=512)
     q, nq = enc.encode_chunk_device([qd[i][1] for i in range(len(qd))], inf_free=True, rows=50)
     q = q[:nq]
-    index_dir = os.path.join(cfg["output_dir"], "beir_eval", "synthetic-rich.index")
+    index_dir = os.path.join(ta.output_dir, "beir_eval", "synthetic-rich.index")
     index = SparseIndex.load(index_dir, device=dev)
     hits = index.search(q, k=10)
-    n_hits = brute_force_check(index_dir, q, hits, model.vocab_size, dev)
+    n_hits = brute_force_check(index_dir, q, hits, ckpt_model.vocab_size, dev)
     print(f"exact scan top-10 equals brute force for all {nq} queries ({n_hits} hits)", flush=True)
     # the main path reads search q/s once, on the process's first search
     # call; the same call repeated on the warm process shows its spread
-    warm_qps = [beir_search(queries, model, index, os.path.dirname(index_dir),
+    warm_qps = [beir_search(queries, ckpt_model, index, os.path.dirname(index_dir),
                             "synthetic-rich", max_length=512, batch_size=50,
                             result_size=100)["qps"] for _ in range(3)]
     print(f"search q/s repeated on the warm process: {warm_qps}", flush=True)
-    enc_err = encoder_check(model, [docs[i][1] for i in range(256)], data_args.index_l_max, dev)
-    print(f"encoder top-{data_args.index_l_max} with the kernel equals the plain head "
+    enc_err = encoder_check(ckpt_model, [docs[i][1] for i in range(256)], da.index_l_max, dev)
+    print(f"encoder top-{da.index_l_max} with the kernel equals the plain head "
           f"for 256 docs (max |err| {enc_err:.3g})", flush=True)
     print(f"ingest {rate.docs_per_s:.1f} docs/s, search {avg['qps']:.1f} q/s, "
-          f"NDCG@10 {avg['NDCG@10']:.5f} (random-init weights: not a quality figure); "
-          f"card {card}", flush=True)
+          f"NDCG@10 {avg['NDCG@10']:.5f} after {TRAIN_STEPS} steps from random init; "
+          f"train {path['docs_per_s']:.1f} docs/s; card {card}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
-    main_row = rows[-1]  # the main path's own batch
+    main_row = rows[-1]  # the eval's own first batch
     kernels = [{
         "name": "maxpool_head",
         "route": "cuda",
@@ -461,6 +907,37 @@ def main():
         "ablation_ms": ablation,
         "all_shapes": rows,
     }]
+    sources = {
+        "maxpool_head_argmax": ("csrc/maxpool_head.cu",
+                                "opensearch_sparse_model_tuning_sample_tpu/ops/pallas_maxpool.py:99"),
+        "maxpool_head_bwd_w": ("csrc/maxpool_head_bwd.cu",
+                               "opensearch_sparse_model_tuning_sample_tpu/models/bert.py:360"),
+        "maxpool_head_bwd_h": ("csrc/maxpool_head_bwd.cu",
+                               "opensearch_sparse_model_tuning_sample_tpu/models/bert.py:360"),
+    }
+    for name, (src, replaces) in sources.items():
+        r = main_train[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"opensearch_sparse_model_tuning_sample_torch/{src}",
+            "replaces": replaces,
+            # the backward has no Pallas kernel: JAX differentiates its scan head
+            "jax_counterpart": "pallas_call forward" if name.endswith("argmax")
+            else "XLA autodiff of models/bert.py:360-402 mlm_maxpool",
+            "launches": path["train"][0][name],
+            "max_abs_err": max([r["max_abs_err"]] + [t[name]["max_abs_err"] for t in train_rows]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "share_of_bound": r["share_of_bound"], "shape": r["shape"],
+            "inputs": "main-path batch",
+            "launches_per_train_step": path["train"][0][name] / path["steps"],
+            **({"sort_ms": r["sort_ms"]} if "sort_ms" in r else {}),
+            "all_shapes": [t[name] for t in train_rows] + [r],
+        })
+    print("train path: " + json.dumps({
+        "steps": path["steps"], "train_docs_per_s": path["docs_per_s"],
+        "full_step_grad_worst_rel_err": grad_worst, "profile": profile,
+        "log": path["trainer"].log_history, "ndcg_at_10": avg["NDCG@10"]}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

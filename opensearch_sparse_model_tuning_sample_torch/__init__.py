@@ -2,22 +2,26 @@
 
 The PyTorch port of `opensearch_sparse_model_tuning_sample_tpu`, which stays
 in the repository as the reference. This package imports torch, never jax,
-and nothing of the JAX package. The ported slice so far is the serving path
-of `cli.evaluate_beir`: encode a corpus with the BERT-MLM sparse encoder
-(whose masked max-pool head is a hand-written Hopper kernel, ops/maxpool.py
-+ csrc/maxpool_head.cu), keep the top `l_max` (token, weight) pairs per doc,
-build the exact index, encode inference-free queries, search, and score
-with trec_eval NDCG.
+and nothing of the JAX package. The ported slices so far are mine -> train ->
+evaluate: `cli.mine` (hard negatives from the exact index), `cli.train_ir`
+(losses, FLOPS regulariser, AdamW, checkpoint export) and
+`cli.evaluate_beir` (encode a corpus with the BERT-MLM sparse encoder, keep
+the top `l_max` (token, weight) pairs per doc, build the exact index,
+encode inference-free queries, search, score with trec_eval NDCG). The
+encoder's masked max-pool head is a hand-written Hopper kernel with a
+gradient (ops/maxpool.py + csrc/maxpool_head.cu, csrc/maxpool_head_bwd.cu).
 
 Layout:
     core/      config system + device/dtype policy
     models/    BERT-MLM module, sparse encoder, tokenizer, HF import
-    ops/       activations, the fused max-pool head and its kernel build
+    ops/       activations, losses, FLOPS, the fused max-pool head + kernel build
     csrc/      CUDA sources of the kernels
-    data/      corpus datasets
+    data/      corpus and training datasets, collator, loader
+    train/     the train step and loop
+    mine/      hard-negative mining
     index/     the exact on-device sparse index (sparse scan + dense oracle)
     eval/      BEIR harness + trec-eval metrics + metrics sink
-    cli/       evaluate entry point
+    cli/       mine, train_ir and evaluate_beir entry points
 """
 
 __version__ = "0.1.0"

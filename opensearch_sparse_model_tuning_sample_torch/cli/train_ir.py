@@ -1,0 +1,112 @@
+"""Training entry point of the PyTorch port:
+
+    python -m opensearch_sparse_model_tuning_sample_torch.cli.train_ir cfg.yaml [--device cpu]
+
+Reference: train_ir.py:30-150, the same single-YAML interface as the JAX
+package's `cli.train_ir`. One card: the batch is `per_device_train_batch_size`
+x `gradient_accumulation_steps` rows per optimizer step. Runs on the CUDA
+card unless `--device cpu`. Data parallelism (`dp_size` > 1) and KD teacher
+ensembles are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+import sys
+
+from ..core.config import parse_config, snapshot_config
+from ..core.device import resolve_device
+from ..data.collator import build_collator
+from ..data.datasets import load_dataset, load_datasets
+from ..data.loader import DataLoader, epochs
+from ..models import sparse_encoder as se
+from ..ops.losses import build_loss_specs
+from ..train.trainer import Trainer
+from ..utils.logging_utils import set_logging
+
+logger = logging.getLogger(__name__)
+
+
+def _check_single_card(training_args, data_args):
+    if training_args.dp_size not in (-1, 1):
+        raise NotImplementedError(
+            f"dp_size={training_args.dp_size}: the PyTorch port trains on one card; "
+            "data parallelism is not ported yet (ROADMAP Queue 1: distribution)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "a multi-process launch: the PyTorch port trains in one process; "
+            "distribution is not ported yet (ROADMAP Queue 1: distribution)")
+    if data_args.kd_ensemble_teacher_kwargs:
+        raise NotImplementedError(
+            "kd_ensemble_teacher_kwargs: KD teacher ensembles are not ported to the "
+            "PyTorch package yet (ROADMAP Queue 1: KD teachers)")
+
+
+def main(config_source=None):
+    model_args, data_args, training_args = parse_config(config_source)
+    set_logging(training_args.output_dir, "train.log", training_args.log_level)
+    # config snapshot for reproducibility (reference train_ir.py:33-44)
+    argv_yaml = (config_source is None and len(sys.argv) == 2
+                 and sys.argv[1].endswith((".yaml", ".yml")))
+    if isinstance(config_source, str) or argv_yaml:
+        shutil.copy(config_source or sys.argv[1],
+                    os.path.join(training_args.output_dir, "train_config.yaml"))
+    else:
+        snapshot_config(model_args, data_args, training_args,
+                        os.path.join(training_args.output_dir, "config.yaml"))
+    _check_single_card(training_args, data_args)
+
+    device = resolve_device(training_args.device)
+    model = se.from_model_args(model_args, seed=training_args.seed, device=device)
+    logger.info("model: %s hidden=%d layers=%d vocab=%d on %s",
+                model_args.model_name_or_path or model_args.arch, model.cfg.hidden_size,
+                model.cfg.num_hidden_layers, model.cfg.vocab_size, device)
+
+    collator = build_collator(data_args.data_type, model.tokenizer, data_args.max_seq_length,
+                              seq_buckets=data_args.seq_buckets)
+    loss_specs = build_loss_specs(data_args)
+    logger.info("losses: %s", loss_specs)
+
+    # one loader batch per optimizer step: with gradient accumulation the
+    # trainer splits it into A microbatches (HF effective batch semantics)
+    batch_size = training_args.per_device_train_batch_size * max(
+        1, training_args.gradient_accumulation_steps)
+    ds_kwargs = dict(
+        swap_times=data_args.swap_times,
+        sample_num_one_query=data_args.sample_num_one_query,
+        first_rank_thresh=data_args.first_rank_thresh,
+        score_scale=data_args.score_scale,
+        shuffle_seed=training_args.seed,
+    )
+    if data_args.train_file is not None:
+        dataset = load_dataset(data_args.train_file, data_args.data_type, **ds_kwargs)
+    elif data_args.train_file_dir is not None:
+        dataset = load_datasets(data_args.train_file_dir, data_args.data_type, **ds_kwargs)
+    else:
+        raise ValueError("train_file or train_file_dir must be specified")
+
+    loader = DataLoader(
+        dataset, batch_size=batch_size, collate_fn=collator,
+        drop_last=training_args.dataloader_drop_last, seed=training_args.seed,
+        prefetch=training_args.dataloader_prefetch_factor or 0,
+    )
+    trainer = Trainer(model, model_args, data_args, training_args, loss_specs=loss_specs)
+    if training_args.resume:
+        state_dir = os.path.join(os.path.abspath(training_args.output_dir), "train_state")
+        if os.path.isdir(state_dir):
+            trainer.restore_train_state(state_dir)
+            logger.info("resumed from %s at step %d", state_dir, trainer.step)
+        else:
+            logger.info("resume requested but no train_state at %s; fresh run", state_dir)
+
+    # exact resume: the data stream fast-forwards to the restored step
+    trainer.train(epochs(loader, training_args.max_steps, start=trainer.step))
+    trainer.save_train_state()
+    logger.info("training complete at step %d", trainer.step)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -57,8 +57,8 @@ class ModelArguments:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # Rematerialize transformer layers in the backward pass: ~1 extra forward
-    # of FLOPs for O(layers) less activation memory (training; not read by
-    # the ported slices yet)
+    # of FLOPs for O(layers) less activation memory (torch.utils.checkpoint
+    # per layer, models/bert.py)
     remat: bool = False
 
     def __post_init__(self):
@@ -172,10 +172,7 @@ class MiningArguments:
 @dataclass
 class TrainingArguments:
     """The subset of HF TrainingArguments the reference recipes exercise,
-    plus the framework's own knobs. Most are read by the training slice,
-    not ported yet; the ported slices read the eval batch size, seed,
-    output_dir, log_level and device.
-    """
+    plus the framework's own knobs (train/trainer.py, cli/train_ir.py)."""
 
     output_dir: str = "output/run"
     per_device_train_batch_size: int = 8
@@ -208,16 +205,16 @@ class TrainingArguments:
     # Device the port runs on: "cuda" (the default; raises without a card)
     # or "cpu" on request (`--device cpu`). See core/device.py.
     device: str = "cuda"
-    # Data-parallel mesh size of the JAX package; the port runs on one card
-    # and reads it only so shared configs parse.
+    # Data-parallel mesh size of the JAX package; the port trains on one card
+    # and raises on a dp_size above 1 (distribution is not ported yet).
     dp_size: int = -1
     donate_state: bool = True
     profile_dir: Optional[str] = None
-    # Resume from {output_dir}/train_state (orbax full state: params +
-    # optimizer + step + loss moving average) — exact-resume capability the
-    # reference lacks (SURVEY §5). The data stream fast-forwards to the
-    # restored step (epoch seed + in-epoch position), so the resumed run
-    # sees the identical batch sequence an uninterrupted run would.
+    # Resume from {output_dir}/train_state (the port's torch.save of model,
+    # optimizer, schedule, step and loss moving average) — exact resume,
+    # which the reference lacks (SURVEY §5). The data stream fast-forwards
+    # to the restored step (epoch seed + in-epoch position), so the resumed
+    # run sees the batch sequence an uninterrupted run would.
     resume: bool = False
 
     def __post_init__(self):

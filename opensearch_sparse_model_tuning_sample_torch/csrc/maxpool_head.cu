@@ -64,6 +64,16 @@
 // It launches on the caller's stream, allocates nothing and returns
 // cudaGetLastError(). The TMA descriptors are encoded on the host for every
 // launch through the driver entry point (no -lcuda at link time).
+//
+// Training variant (kArgmax, `maxpool_head_argmax_bf16`): the same kernel
+// also writes idx[b, v], the position l that gave out[b, v], for the
+// backward (csrc/maxpool_head_bwd.cu). Among equal maxima the smallest
+// position wins; a masked chunk that is skipped reports its first position
+// (masked, so it carries no gradient). The running index costs registers
+// beside the running max: at the 256-row tile ptxas spills (168 registers,
+// 160 bytes), at the 128-row tile it does not (159), so the argmax variant
+// takes at most 128 rows (kArgmaxMaxMT). The ingest instantiation
+// (kArgmax = false) is unchanged.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -80,6 +90,7 @@ constexpr int kConsumerWGs = 2;               // warpgroups, one ring each
 constexpr int kThreads = kConsumerWGs * 128 + kConsumerWGs * 32;  // + a producer warp per ring
 constexpr int kMaxStages = 8;
 constexpr int kMaxSmem = 232448;              // dynamic shared memory a block may use
+constexpr int kArgmaxMaxMT = 2;               // the argmax variant's tile: at most 128 rows
 
 struct Plan {
   int mt;       // m64 tiles per warpgroup (TV = 64 * mt); 0 if D does not fit
@@ -88,10 +99,11 @@ struct Plan {
   size_t smem;  // dynamic shared memory bytes
 };
 
-Plan make_plan(int D) {
+Plan make_plan(int D, int max_mt = 4) {
   Plan p{0, (D + kBoxK - 1) / kBoxK, 0, 0};
   const size_t per_stage = (size_t)kConsumerWGs * (kBoxBytes + 16);  // boxes + full/empty
   for (int mt = 4; mt >= 1; mt /= 2) {
+    if (mt > max_mt) continue;
     const size_t fixed = 1024 /* alignment slack */ + (size_t)p.kblocks * mt * 64 * kBoxK * 2 +
                          (size_t)p.kblocks * 8 /* w barriers */;
     if (fixed + 2 * per_stage > (size_t)kMaxSmem) continue;
@@ -253,10 +265,11 @@ __device__ void produce(int p, const Smem& sm, int stages, int kblocks, const CU
 }
 
 // One consumer warpgroup: docs wg, wg + 2, ... against all TV rows.
-template <int MT>
+template <int MT, bool kArgmax>
 __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
                         const int32_t* __restrict__ mask, const float* __restrict__ bias,
-                        float* __restrict__ out, int B, int L, int V) {
+                        float* __restrict__ out, int32_t* __restrict__ idx_out, int B, int L,
+                        int V) {
   constexpr int TV = 64 * MT;
   constexpr uint32_t kTileBytes = TV * kBoxK * 2;  // one K box of the w tile
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
@@ -283,8 +296,12 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
 
   for (int b = wg; b < B; b += kConsumerWGs) {
     float run[MT][2];
+    int arg[MT][2];  // position of run (argmax variant only)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) run[mt][0] = run[mt][1] = -INFINITY;
+    for (int mt = 0; mt < MT; ++mt) {
+      run[mt][0] = run[mt][1] = -INFINITY;
+      arg[mt][0] = arg[mt][1] = 0;
+    }
     const int32_t* mrow = mask + (size_t)b * L;
 
     for (int l0 = 0; l0 < L; l0 += kNc) {
@@ -294,10 +311,18 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
       if (!__any_sync(0xffffffffu, m0 != 0.f || m1 != 0.f)) {
         // every position here is masked and contributes exactly 0
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          run[mt][0] = fmaxf(run[mt][0], 0.f);
-          run[mt][1] = fmaxf(run[mt][1], 0.f);
-        }
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            if constexpr (kArgmax) {
+              if (0.f > run[mt][hh]) {
+                run[mt][hh] = 0.f;
+                arg[mt][hh] = l0;
+              }
+            } else {
+              run[mt][hh] = fmaxf(run[mt][hh], 0.f);
+            }
+          }
         continue;
       }
 
@@ -348,7 +373,16 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const float x = (acc[mt][4 * j + 2 * hh + e] + bias_r[mt][hh]) * m;
-              if (present) run[mt][hh] = fmaxf(run[mt][hh], x);
+              if constexpr (kArgmax) {
+                // a thread visits its positions in increasing order, so a
+                // strict > keeps the first of equal maxima
+                if (present && x > run[mt][hh]) {
+                  run[mt][hh] = x;
+                  arg[mt][hh] = l0 + c;
+                }
+              } else {
+                if (present) run[mt][hh] = fmaxf(run[mt][hh], x);
+              }
             }
         }
     }
@@ -358,20 +392,35 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         float r = run[mt][hh];
-        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
-        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
         const int v = v0 + mt * 64 + warp * 16 + g + hh * 8;
+        if constexpr (kArgmax) {
+          int a = arg[mt][hh];
+#pragma unroll
+          for (int off = 1; off <= 2; off *= 2) {
+            const float ro = __shfl_xor_sync(0xffffffffu, r, off);
+            const int ao = __shfl_xor_sync(0xffffffffu, a, off);
+            if (ro > r || (ro == r && ao < a)) {
+              r = ro;
+              a = ao;
+            }
+          }
+          if (t == 0 && v < V) idx_out[(size_t)b * V + v] = a;
+        } else {
+          r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+          r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+        }
         if (t == 0 && v < V) out[(size_t)b * V + v] = r;
       }
   }
 }
 
-template <int MT>
+template <int MT, bool kArgmax>
 __global__ void __launch_bounds__(kThreads, 1)
 maxpool_head_kernel(const __grid_constant__ CUtensorMap hmap,
                     const __grid_constant__ CUtensorMap wmap,
                     const int32_t* __restrict__ mask, const float* __restrict__ bias,
-                    float* __restrict__ out, int B, int L, int V, int kblocks, int stages) {
+                    float* __restrict__ out, int32_t* __restrict__ idx_out, int B, int L, int V,
+                    int kblocks, int stages) {
   constexpr int TV = 64 * MT;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -402,7 +451,7 @@ maxpool_head_kernel(const __grid_constant__ CUtensorMap hmap,
   if (warp >= kConsumerWGs * 4)
     produce(warp - kConsumerWGs * 4, sm, stages, kblocks, &hmap, mask, B, L);
   else
-    consume<MT>(warp >> 2, sm, stages, kblocks, mask, bias, out, B, L, V);
+    consume<MT, kArgmax>(warp >> 2, sm, stages, kblocks, mask, bias, out, idx_out, B, L, V);
 }
 
 // ---- host side ------------------------------------------------------------
@@ -441,17 +490,47 @@ bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MT>
+template <int MT, bool kArgmax>
 int launch(const CUtensorMap& hmap, const CUtensorMap& wmap, const void* mask, const void* bias,
-           void* out, int B, int L, int V, const Plan& plan, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      maxpool_head_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+           void* out, void* idx, int B, int L, int V, const Plan& plan, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(maxpool_head_kernel<MT, kArgmax>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int TV = 64 * MT;
-  maxpool_head_kernel<MT><<<(V + TV - 1) / TV, kThreads, plan.smem, stream>>>(
+  maxpool_head_kernel<MT, kArgmax><<<(V + TV - 1) / TV, kThreads, plan.smem, stream>>>(
       hmap, wmap, static_cast<const int32_t*>(mask), static_cast<const float*>(bias),
-      static_cast<float*>(out), B, L, V, plan.kblocks, plan.stages);
+      static_cast<float*>(out), static_cast<int32_t*>(idx), B, L, V, plan.kblocks, plan.stages);
   return (int)cudaGetLastError();
+}
+
+template <bool kArgmax>
+int dispatch(const void* h, const void* mask, const void* w, const void* bias, void* out, void* idx,
+        int B, int L, int D, int V, void* stream) {
+  if (B <= 0 || L <= 0 || V <= 0 || D <= 0 || D % 8 != 0) return (int)cudaErrorInvalidValue;
+  // TMA reads from 16-byte aligned addresses with 16-byte aligned row strides
+  if (reinterpret_cast<uintptr_t>(h) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const Plan plan = make_plan(D, kArgmax ? kArgmaxMaxMT : 4);
+  if (!plan.mt) return (int)cudaErrorInvalidValue;
+
+  CUtensorMap hmap, wmap;
+  const cuuint64_t h_dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t h_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t h_box[3] = {kBoxK, kNc, 1};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)D, (cuuint64_t)V};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t w_box[2] = {kBoxK, (cuuint32_t)(64 * plan.mt)};
+  if (!encode(&hmap, h, 3, h_dims, h_strides, h_box) ||
+      !encode(&wmap, w, 2, w_dims, w_strides, w_box))
+    return (int)cudaErrorInvalidValue;
+
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (plan.mt) {
+    case 4: return launch<4, kArgmax>(hmap, wmap, mask, bias, out, idx, B, L, V, plan, s);
+    case 2: return launch<2, kArgmax>(hmap, wmap, mask, bias, out, idx, B, L, V, plan, s);
+    default: return launch<1, kArgmax>(hmap, wmap, mask, bias, out, idx, B, L, V, plan, s);
+  }
 }
 
 }  // namespace
@@ -468,30 +547,14 @@ int maxpool_head_max_dim() {
 
 int maxpool_head_bf16(const void* h, const void* mask, const void* w, const void* bias,
                       void* out, int B, int L, int D, int V, void* stream) {
-  if (B <= 0 || L <= 0 || V <= 0 || D <= 0 || D % 8 != 0) return (int)cudaErrorInvalidValue;
-  // TMA reads from 16-byte aligned addresses with 16-byte aligned row strides
-  if (reinterpret_cast<uintptr_t>(h) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
-    return (int)cudaErrorMisalignedAddress;
-  const Plan plan = make_plan(D);
-  if (!plan.mt) return (int)cudaErrorInvalidValue;
+  return dispatch<false>(h, mask, w, bias, out, nullptr, B, L, D, V, stream);
+}
 
-  CUtensorMap hmap, wmap;
-  const cuuint64_t h_dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t h_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
-  const cuuint32_t h_box[3] = {kBoxK, kNc, 1};
-  const cuuint64_t w_dims[2] = {(cuuint64_t)D, (cuuint64_t)V};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t w_box[2] = {kBoxK, (cuuint32_t)(64 * plan.mt)};
-  if (!encode(&hmap, h, 3, h_dims, h_strides, h_box) ||
-      !encode(&wmap, w, 2, w_dims, w_strides, w_box))
-    return (int)cudaErrorInvalidValue;
-
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (plan.mt) {
-    case 4: return launch<4>(hmap, wmap, mask, bias, out, B, L, V, plan, s);
-    case 2: return launch<2>(hmap, wmap, mask, bias, out, B, L, V, plan, s);
-    default: return launch<1>(hmap, wmap, mask, bias, out, B, L, V, plan, s);
-  }
+// The training forward: out as above, and idx [B, V] int32, the position of
+// each maximum.
+int maxpool_head_argmax_bf16(const void* h, const void* mask, const void* w, const void* bias,
+                             void* out, void* idx, int B, int L, int D, int V, void* stream) {
+  return dispatch<true>(h, mask, w, bias, out, idx, B, L, D, V, stream);
 }
 
 }  // extern "C"

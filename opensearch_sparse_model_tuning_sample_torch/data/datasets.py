@@ -1,13 +1,147 @@
-"""Corpus datasets for ingest and search: host-side indexable sequences.
+"""Datasets: host-side, indexable sequences over corpus and training rows.
 
-The PyTorch port's copy of the two views the eval path uses from the JAX
-package's `data/datasets.py` (reference dataset.py:43-64). The training
-datasets come with the training slice.
+The PyTorch port's copy of the JAX package's `data/datasets.py` (reference
+dataset.py): the corpus views the eval path uses, the posnegs and KD
+training datasets (strided KD group sampling :193-196, partial_shuffle
+:22-40, the first_rank filter :174-179, posnegs chunking :329-358), the
+modulo host shard (:124-148) and the combined multi-dataset batching
+(:389-444). Every class is a plain indexable sequence and all randomness is
+numpy, seeded, so the same rows and seed give the same batches in both
+packages.
+
+Rows may come from HF `datasets.Dataset.load_from_disk` dirs or plain lists
+of dicts: both are duck-typed on `column_names`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import logging
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+logger = logging.getLogger(__name__)
+
+
+def _column_names(rows) -> List[str]:
+    cols = getattr(rows, "column_names", None)
+    if cols is not None:
+        return list(cols)
+    if len(rows) == 0:
+        return []
+    first = rows[0]
+    return list(first.keys()) if isinstance(first, dict) else []
+
+
+def partial_shuffle(lst: Sequence, swap_times,
+                    rng: Optional[np.random.Generator] = None) -> List:
+    """Soften a rank ordering with `swap_times` random pair swaps
+    (reference dataset.py:22-40); >= n/2 swaps degenerates to a full
+    shuffle. The KD dataset seeds one Generator per (shuffle_seed, row_idx),
+    so every rank builds the same group list."""
+    swap_times = int(swap_times)
+    if swap_times <= 0:
+        return list(lst)
+    if rng is None:
+        rng = np.random  # module-global stream (single process only)
+    out = np.array(lst)
+    n = len(out)
+    if swap_times >= n // 2:
+        rng.shuffle(out)
+    else:
+        pairs = rng.integers(0, n, size=(swap_times, 2)) if isinstance(
+            rng, np.random.Generator
+        ) else rng.randint(0, n, size=(swap_times, 2))
+        for i, j in pairs:
+            out[i], out[j] = out[j], out[i]
+    return out.tolist()
+
+
+def _first_rank_keep(row: Dict, thresh: int) -> bool:
+    fr = row.get("first_rank", 1)
+    return fr >= 0 and fr <= thresh
+
+
+class KnowledgeDistillDataset:
+    """{query, docs, scores} rows -> strided doc groups.
+
+    For a row with n docs (rank-ordered) and group size `sample_num`,
+    step = n // sample_num and group i (i < step) takes docs
+    [i, i+step, i+2*step, ...], so each group spans the full rank range
+    (reference dataset.py:193-196). Scores are multiplied by `score_scale`
+    at access time; rows with a `first_rank` outside [0, first_rank_thresh]
+    are dropped (:174-179)."""
+
+    def __init__(
+        self,
+        all_data,
+        sample_num: int = 2,
+        swap_times=0,
+        first_rank_thresh: int = 10000,
+        score_scale: float = 1.0,
+        shuffle_seed: int = 0,
+        **_,
+    ):
+        assert sample_num >= 2
+        if "first_rank" in _column_names(all_data):
+            if hasattr(all_data, "filter"):
+                all_data = all_data.filter(lambda r: _first_rank_keep(r, first_rank_thresh))
+            else:
+                all_data = [r for r in all_data if _first_rank_keep(r, first_rank_thresh)]
+            logger.info("first_rank filter kept %d rows", len(all_data))
+
+        self.all_data = all_data
+        self.score_scale = score_scale
+        self.has_scores = "scores" in _column_names(all_data)
+        self.groups: List[Tuple[int, List[int]]] = []
+        for row_idx in range(len(all_data)):
+            n = len(all_data[row_idx]["docs"])
+            order = list(range(n))
+            if swap_times:
+                # one Generator per (seed, row): the same on every rank and
+                # independent of the order rows are visited in
+                order = partial_shuffle(
+                    order, swap_times, rng=np.random.default_rng([shuffle_seed, row_idx]),
+                )
+            step = n // sample_num
+            for i in range(step):
+                self.groups.append((row_idx, [order[k * step + i] for k in range(sample_num)]))
+        logger.info("KnowledgeDistillDataset: %d rows -> %d groups (sample_num=%d)",
+                    len(all_data), len(self.groups), sample_num)
+
+    def __len__(self):
+        return len(self.groups)
+
+    def __getitem__(self, idx: int):
+        row_idx, picks = self.groups[idx]
+        row = self.all_data[row_idx]
+        docs = [row["docs"][i] for i in picks]
+        if self.has_scores:
+            scores = [row["scores"][i] * self.score_scale for i in picks]
+        else:
+            scores = [None] * len(picks)
+        return row["query"], docs, scores
+
+
+class PosNegsDataset:
+    """{query, pos, negs} rows -> one item per full chunk of `sample_num`
+    negatives (remainder dropped; reference dataset.py:329-358)."""
+
+    def __init__(self, data, sample_num: int = 3, **_):
+        assert sample_num >= 1
+        self.items: List[Tuple[str, str, List[str]]] = []
+        for row in data:
+            negs = row.get("negs", []) or []
+            for i in range(0, len(negs) - sample_num + 1, sample_num):
+                self.items.append((row["query"], row["pos"], list(negs[i: i + sample_num])))
+        logger.info("PosNegsDataset: %d items", len(self.items))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx: int):
+        return self.items[idx]
 
 
 class BEIRCorpusDataset:
@@ -42,3 +176,158 @@ class KeyValueDataset:
     def __getitem__(self, idx: int):
         k = self.keys[idx]
         return k, self.data[k]
+
+
+class HostShardDataset:
+    """Static modulo shard of a dataset across processes: item i belongs to
+    rank `i % world_size` (the reference's DDPDatasetWithRank,
+    dataset.py:124-148)."""
+
+    def __init__(self, inner, rank: int, world_size: int, drop: bool = False,
+                 shuffle: bool = False, seed: Optional[int] = None):
+        n = len(inner)
+        if drop:
+            n -= n % world_size
+        self.inner = inner
+        self.idxs = list(range(rank, n, world_size))
+        if shuffle:
+            rng = np.random.default_rng(rank if seed is None else seed)
+            rng.shuffle(self.idxs)
+
+    def __len__(self):
+        return len(self.idxs)
+
+    def __getitem__(self, idx: int):
+        return self.inner[self.idxs[idx]]
+
+
+class CombinedDataset:
+    """Several datasets addressed by (dataset_idx, item_idx) pairs; batches
+    are drawn wholly from one dataset via CombinedRandomSampler
+    (reference dataset.py:425-444)."""
+
+    def __init__(self, datasets: List):
+        self.datasets = datasets
+
+    def __len__(self):
+        return sum(len(d) for d in self.datasets)
+
+    def __getitem__(self, idx):
+        ds_idx, item_idx = idx
+        return self.datasets[ds_idx][item_idx]
+
+
+class CombinedRandomSampler:
+    """Yields batches of (dataset_idx, item_idx) pairs: each batch comes from
+    ONE dataset; the dataset visiting order is shuffled with a fixed seed so
+    every process agrees on it (reference dataset.py:389-422)."""
+
+    def __init__(self, datasets: List, batch_size: int, seed: int = 0,
+                 drop_last: bool = True):
+        self.datasets = datasets
+        self.batch_size = batch_size
+        self.seed = seed
+        self.drop_last = drop_last
+        self._epoch = 0
+
+    def _batches_per_dataset(self, n: int) -> int:
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __len__(self):
+        return sum(self._batches_per_dataset(len(d)) for d in self.datasets)
+
+    def set_epoch(self, epoch: int):
+        self._epoch = epoch
+
+    def __iter__(self):
+        rng = np.random.default_rng(self.seed + self._epoch)
+        per_ds_batches: List[List[List[Tuple[int, int]]]] = []
+        visiting: List[int] = []
+        for ds_idx, ds in enumerate(self.datasets):
+            perm = rng.permutation(len(ds))
+            nb = self._batches_per_dataset(len(ds))
+            per_ds_batches.append([
+                [(ds_idx, int(j)) for j in perm[b * self.batch_size: (b + 1) * self.batch_size]]
+                for b in range(nb)
+            ])
+            visiting.extend([ds_idx] * nb)
+        rng.shuffle(visiting)
+        cursors = [0] * len(self.datasets)
+        for ds_idx in visiting:
+            yield per_ds_batches[ds_idx][cursors[ds_idx]]
+            cursors[ds_idx] += 1
+
+
+def _not_ported(what: str, item: str):
+    def make(*_, **__):
+        raise NotImplementedError(
+            f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1: {item})")
+    return make
+
+
+_MSMARCO = "cli/search.py and cli/prepare_msmarco.py, with the MS MARCO and MIRACL data"
+DATASET_CLS_MAP = {
+    "kd": KnowledgeDistillDataset,
+    "posnegs": PosNegsDataset,
+    "kd-ids": _not_ported("the kd-ids dataset", "KD teachers"),
+}
+MsMarcoKDDataset = _not_ported("MsMarcoKDDataset", _MSMARCO)
+MiraclCorpusDataset = _not_ported("MiraclCorpusDataset", _MSMARCO)
+MiraclTrainingDataset = _not_ported("MiraclTrainingDataset", _MSMARCO)
+
+
+def load_dataset(
+    path: str,
+    cls: str,
+    swap_times=0,
+    sample_num_one_query: int = 2,
+    first_rank_thresh: int = 10000,
+    score_scale: float = 1.0,
+    shuffle_seed: int = 0,
+):
+    """Load one HF save_to_disk dir into the dataset class for `cls`
+    (reference dataset.py:454-469)."""
+    import datasets as hfds
+
+    rows = hfds.Dataset.load_from_disk(path)
+    logger.info("load dataset from %s (%s): %d rows", path, cls, len(rows))
+    return DATASET_CLS_MAP[cls](
+        rows,
+        sample_num=sample_num_one_query,
+        swap_times=swap_times,
+        first_rank_thresh=first_rank_thresh,
+        score_scale=score_scale,
+        shuffle_seed=shuffle_seed,
+    )
+
+
+def load_datasets(
+    path,
+    cls: str,
+    swap_times=0,
+    sample_num_one_query: int = 2,
+    first_rank_thresh: int = 10000,
+    score_scale: float = 1.0,
+    rank: int = 0,
+    world_size: int = 1,
+    shuffle_seed: int = 0,
+):
+    """Load every dataset dir under `path` (or a list of such roots), shard
+    each across processes, and combine (reference dataset.py:472-523). One
+    process (rank 0 of 1) keeps everything; more shard with drop+shuffle like
+    the reference's world_size != 1 branch."""
+    roots = [path] if isinstance(path, str) else list(path)
+    parts = []
+    for root in roots:
+        for name in sorted(os.listdir(root)):
+            parts.append(load_dataset(
+                os.path.join(root, name), cls, swap_times, sample_num_one_query,
+                first_rank_thresh, score_scale, shuffle_seed=shuffle_seed,
+            ))
+    sharded = [
+        HostShardDataset(d, rank, world_size, drop=world_size != 1, shuffle=world_size != 1)
+        for d in parts
+    ]
+    combined = CombinedDataset(sharded)
+    logger.info("combined %d datasets: %d total items", len(parts), len(combined))
+    return combined

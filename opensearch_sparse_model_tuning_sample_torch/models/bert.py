@@ -14,22 +14,31 @@ so both packages compute the same function from the same weights:
 
 The vocab axis is padded up to `vocab_pad_multiple`; padded rows of the word
 embeddings are zero. `mlm_maxpool` is the sparse encoder's head: it calls the
-fused max-pool kernel (ops/maxpool.py), so the [B, L, V] logits never exist.
-This slice is inference only (no dropout) and hosts the BERT layout
-(absolute positions, token-type embeddings).
+fused max-pool kernel (ops/maxpool.py), so the [B, L, V] logits never exist;
+with grad on it goes through the kernel's autograd Function.
+
+Training: dropout (embeddings, attention probabilities, attention and FFN
+outputs, as the JAX package places it) is on when `encode_hidden` gets a
+`dropout_key`. Each layer draws its masks from its own `torch.Generator`,
+seeded from (key, layer) inside the layer's function, so a layer that
+`remat` recomputes in the backward (`torch.utils.checkpoint`) draws the same
+masks again. The module hosts the BERT layout (absolute positions,
+token-type embeddings).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.maxpool import maxpool_head
+from ..ops.maxpool import maxpool_head, maxpool_head_train
 
 
 def round_up(x: int, m: int) -> int:
@@ -55,6 +64,9 @@ class BertConfig:
     vocab_pad_multiple: int = 128
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    # recompute each layer in the backward instead of keeping its
+    # activations (a training knob, not a checkpoint property)
+    remat: bool = False
 
     @property
     def padded_vocab_size(self) -> int:
@@ -87,6 +99,25 @@ def config_from_preset(name: str, **overrides) -> BertConfig:
     kw = dict(PRESETS[name])
     kw.update(overrides)
     return BertConfig(**kw)
+
+
+def dropout_generator(key: Sequence[int], stream: int, device) -> torch.Generator:
+    """The generator of one dropout stream (0: embeddings, i + 1: layer i)
+    for a step's `key` (seed, step, microbatch, ...): a pure function of
+    both, so a recomputed layer draws the masks it drew the first time."""
+    state = np.random.SeedSequence([int(k) for k in key] + [stream]).generate_state(2)
+    seed = (int(state[0]) << 31) ^ int(state[1])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Keep each element with probability 1 - rate, scaled by 1 / (1 - rate),
+    in x's dtype (the JAX package's `_dropout`); the identity without a
+    generator or at rate 0."""
+    if gen is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def _act_by_name(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -137,7 +168,8 @@ class Attention(nn.Module):
         self.query, self.key, self.value, self.output = (Dense(d, d) for _ in range(4))
         self.layer_norm = LayerNorm(d, cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg, cd = self.cfg, self.cfg.compute_dtype
         B, L, D = x.shape
         H, hd = cfg.num_attention_heads, cfg.head_dim
@@ -149,8 +181,10 @@ class Attention(nn.Module):
         # fp32 logits from exact products of the compute-dtype values
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
         probs = torch.softmax(logits + mask_bias, dim=-1).to(cd)
+        probs = _dropout(probs, cfg.attention_probs_dropout_prob, gen)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, D)
-        return self.layer_norm(x + self.output(ctx, cd))
+        out = _dropout(self.output(ctx, cd), cfg.hidden_dropout_prob, gen)
+        return self.layer_norm(x + out)
 
 
 class FeedForward(nn.Module):
@@ -161,10 +195,11 @@ class FeedForward(nn.Module):
         self.output = Dense(cfg.intermediate_size, cfg.hidden_size)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gen: Optional[torch.Generator] = None) -> torch.Tensor:
         cd = self.cfg.compute_dtype
         h = _act_by_name(self.intermediate(x, cd), self.cfg.hidden_act)
-        return self.layer_norm(x + self.output(h, cd))
+        out = _dropout(self.output(h, cd), self.cfg.hidden_dropout_prob, gen)
+        return self.layer_norm(x + out)
 
 
 class Layer(nn.Module):
@@ -173,8 +208,10 @@ class Layer(nn.Module):
         self.attention = Attention(cfg)
         self.ffn = FeedForward(cfg)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor) -> torch.Tensor:
-        return self.ffn(self.attention(x, mask_bias))
+    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+                dropout_key: Optional[Sequence[int]] = None, stream: int = 0) -> torch.Tensor:
+        gen = None if dropout_key is None else dropout_generator(dropout_key, stream, x.device)
+        return self.ffn(self.attention(x, mask_bias, gen), gen)
 
 
 class Embeddings(nn.Module):
@@ -213,8 +250,10 @@ class BertForMaskedLM(nn.Module):
         input_ids: torch.Tensor,  # [B, L] int
         attention_mask: torch.Tensor,  # [B, L] int/bool
         token_type_ids: Optional[torch.Tensor] = None,
+        dropout_key: Optional[Sequence[int]] = None,
     ) -> torch.Tensor:
-        """Transformer stack -> final hidden states [B, L, D] (compute dtype)."""
+        """Transformer stack -> final hidden states [B, L, D] (compute dtype).
+        Dropout is on when `dropout_key` is given (training)."""
         cfg, cd = self.cfg, self.cfg.compute_dtype
         emb = self.embeddings
         input_ids = input_ids.long()
@@ -225,12 +264,21 @@ class BertForMaskedLM(nn.Module):
              + F.embedding(pos_ids, emb.position_embeddings).to(cd)
              + F.embedding(token_type_ids.long(), emb.token_type_embeddings).to(cd))
         x = emb.layer_norm(x)
+        if dropout_key is not None:
+            x = _dropout(x, cfg.hidden_dropout_prob,
+                         dropout_generator(dropout_key, 0, x.device))
         # additive attention bias: 0 where attended, large-negative where masked
         mask_bias = torch.where(
             attention_mask[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min
         ).to(torch.float32)
-        for layer in self.layers:
-            x = layer(x, mask_bias)
+        for i, layer in enumerate(self.layers):
+            if cfg.remat and torch.is_grad_enabled():
+                # the layer's dropout generator is made inside the recomputed
+                # function, so the replay draws the same masks
+                x = checkpoint(layer, x, mask_bias, dropout_key, i + 1,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x, mask_bias, dropout_key, i + 1)
         return x
 
     def decoder_weight(self) -> torch.Tensor:
@@ -257,14 +305,19 @@ class BertForMaskedLM(nn.Module):
     def mlm_maxpool(self, hidden: torch.Tensor,
                     attention_mask: torch.Tensor) -> torch.Tensor:
         """max_l mask[b,l] * logits[b,l,v] -> [B, padded_V] fp32, through the
-        fused kernel without ever forming the logits."""
+        fused kernel without ever forming the logits: with grad on (and an
+        input that needs it) through its autograd Function, which the
+        training step differentiates; otherwise the ingest kernel."""
         cd = self.cfg.compute_dtype
-        return maxpool_head(
+        args = (
             self.head_hidden(hidden).to(cd).contiguous(),
             attention_mask.to(torch.int32).contiguous(),
             self.decoder_weight().to(cd).contiguous(),
             self.mlm_head.bias.float().contiguous(),
         )
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            return maxpool_head_train(*args)
+        return maxpool_head(*args)
 
 
 def init_state_dict(cfg: BertConfig, seed: int = 0) -> Dict[str, torch.Tensor]:

@@ -3,8 +3,8 @@ HuggingFace BERT-for-MaskedLM on-disk layout.
 
 Reads and writes the same `config.json` + `model.safetensors` + `vocab.txt`
 (+ `idf.json`) directory the JAX package's `hf_import.save_checkpoint`
-writes, so a checkpoint made by either package loads in the other. This
-slice hosts the BERT layout; RoBERTa and DistilBERT layouts raise
+writes, byte for byte, so a checkpoint made by either package loads in the
+other. The port hosts the BERT layout; RoBERTa and DistilBERT layouts raise
 `UnsupportedArchitecture` (their canonicalisation is a later slice).
 """
 
@@ -182,3 +182,77 @@ def load_checkpoint(
         if tok is not None:
             idf = load_idf_weights(idf_path, tok)
     return cfg, sd, idf
+
+
+# ---------------------------------------------------------------------------
+# Export
+# ---------------------------------------------------------------------------
+
+
+def state_dict_from_module(bert, cfg: BertConfig) -> Dict[str, np.ndarray]:
+    """The port's BertForMaskedLM -> the HF BERT state dict (numpy fp32,
+    contiguous: safetensors writes raw buffers). Padded vocab rows are cut;
+    the decoder is written out even when tied, as HF does."""
+    own = {k: v.detach().to("cpu", torch.float32).contiguous().numpy()
+           for k, v in bert.state_dict().items()}
+    v = cfg.vocab_size
+    word = own["embeddings.word_embeddings"]
+    sd = {
+        "bert.embeddings.word_embeddings.weight": word[:v],
+        "bert.embeddings.position_embeddings.weight": own["embeddings.position_embeddings"],
+        "bert.embeddings.token_type_embeddings.weight": own["embeddings.token_type_embeddings"],
+        "bert.embeddings.LayerNorm.weight": own["embeddings.layer_norm.weight"],
+        "bert.embeddings.LayerNorm.bias": own["embeddings.layer_norm.bias"],
+        "cls.predictions.bias": own["mlm_head.bias"][:v],
+        "cls.predictions.decoder.weight": own.get("mlm_head.decoder", word)[:v],
+    }
+    for leaf, name in (("transform.dense", "transform"), ("transform.LayerNorm", "layer_norm")):
+        for part in ("weight", "bias"):
+            sd[f"cls.predictions.{leaf}.{part}"] = own[f"mlm_head.{name}.{part}"]
+    for i in range(cfg.num_hidden_layers):
+        for leaf, name in _LAYER_LEAVES.items():
+            for part in ("weight", "bias"):
+                sd[f"bert.encoder.layer.{i}.{leaf}.{part}"] = own[f"layers.{i}.{name}.{part}"]
+    return {k: np.ascontiguousarray(a) for k, a in sd.items()}
+
+
+def _config_json_for_export(cfg: BertConfig) -> Dict:
+    return {
+        "architectures": ["BertForMaskedLM"],
+        "model_type": "bert",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_hidden_layers,
+        "num_attention_heads": cfg.num_attention_heads,
+        "intermediate_size": cfg.intermediate_size,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "type_vocab_size": cfg.type_vocab_size,
+        "layer_norm_eps": cfg.layer_norm_eps,
+        "hidden_dropout_prob": cfg.hidden_dropout_prob,
+        "attention_probs_dropout_prob": cfg.attention_probs_dropout_prob,
+        "hidden_act": cfg.hidden_act,
+        "pad_token_id": cfg.pad_token_id,
+    }
+
+
+def save_checkpoint(model, output_dir: str):
+    """Write an HF-layout checkpoint dir from a SparseEncoderModel: backbone
+    (`model.safetensors`), `config.json` and the tokenizer always, `idf.json`
+    only when the IDF vector trains (reference ModelWrapper.save,
+    trainer.py:37-49). The JAX package's `save_checkpoint` writes the same
+    bytes for the same weights."""
+    from safetensors.numpy import save_file
+
+    os.makedirs(output_dir, exist_ok=True)
+    cfg = model.cfg
+    save_file(state_dict_from_module(model.bert, cfg),
+              os.path.join(output_dir, "model.safetensors"))
+    with open(os.path.join(output_dir, "config.json"), "w") as f:
+        json.dump(_config_json_for_export(cfg), f, indent=2)
+    model.tokenizer.save_pretrained(output_dir)
+    if model.idf_requires_grad:
+        idf = model.idf_vector.detach().to("cpu", torch.float32).numpy()
+        idf_json = {model.tokenizer.convert_id_to_token(int(i)): float(idf[i])
+                    for i in np.nonzero(idf)[0]}
+        with open(os.path.join(output_dir, "idf.json"), "w") as f:
+            json.dump(idf_json, f)

@@ -14,9 +14,10 @@ The port of the JAX package's `models/sparse_encoder.py` (reference
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,11 +87,14 @@ class SparseEncoderModel(nn.Module):
 
 
 def encode_doc(model: SparseEncoderModel, input_ids: torch.Tensor,
-               attention_mask: torch.Tensor) -> torch.Tensor:
+               attention_mask: torch.Tensor,
+               dropout_key: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Full forward: masked max-pool of the MLM logits (the fused kernel) ->
     log1p(relu) [-> log1p] [-> prune]. Output [B, vocab_size] fp32 (padded
-    vocab columns dropped). Reference `_encode` (sparse_encoders.py:107-119)."""
-    hidden = model.bert.encode_hidden(input_ids, attention_mask)
+    vocab columns dropped). Reference `_encode` (sparse_encoders.py:107-119).
+    Training mode is a `dropout_key` (dropout on, its generators seeded from
+    the key) with grad enabled."""
+    hidden = model.bert.encode_hidden(input_ids, attention_mask, dropout_key=dropout_key)
     pooled = model.bert.mlm_maxpool(hidden, attention_mask)
     rep = pooled_activation(pooled, use_l0=model.use_l0, prune_ratio=model.prune_ratio)
     return rep[:, : model.cfg.vocab_size]
@@ -331,6 +335,7 @@ def build_model(
     param_dtype=torch.float32,
     compute_dtype=torch.bfloat16,
     device: DeviceLike = None,
+    remat: bool = False,
 ) -> SparseEncoderModel:
     """Factory mirroring reference `get_model` (utils.py:50-68). Weights come
     from a local HF-layout checkpoint dir, else a seeded random init of an
@@ -354,6 +359,9 @@ def build_model(
         )
         sd = bert_mod.init_state_dict(cfg, seed)
         loaded_idf = None
+    # a training knob, not a checkpoint property: loaded checkpoints take it too
+    if cfg.remat != remat:
+        cfg = dataclasses.replace(cfg, remat=remat)
 
     if loaded_idf is not None and idf_path is None:
         idf = loaded_idf
@@ -398,4 +406,5 @@ def from_model_args(model_args, seed: int = 0, device: DeviceLike = None) -> Spa
         param_dtype=resolve_dtype(model_args.param_dtype),
         compute_dtype=resolve_dtype(model_args.compute_dtype),
         device=device,
+        remat=getattr(model_args, "remat", False),
     )

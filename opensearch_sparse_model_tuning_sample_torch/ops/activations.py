@@ -59,10 +59,11 @@ def inf_free_activation(
     Ids outside [0, vocab_size) are dropped."""
     B = input_ids.shape[0]
     ids = input_ids.long()
-    out = torch.zeros((B, vocab_size), dtype=torch.float32, device=ids.device)
-    valid = (ids >= 0) & (ids < vocab_size)
-    rows = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
-    out[rows[valid], ids[valid]] = 1.0
+    valid = ((ids >= 0) & (ids < vocab_size)).float()
+    # a max-scatter of 1 at each valid id (an invalid one adds a 0 somewhere):
+    # no boolean indexing, so no wait for the device in a train step
+    out = torch.zeros((B, vocab_size), dtype=torch.float32, device=ids.device).scatter_reduce_(
+        1, ids.clamp(0, vocab_size - 1), valid, reduce="amax")
     out = torch.where(special_token_mask[None, :], 0.0, out)
     return out * torch.relu(idf_vector.float())[None, :]
 

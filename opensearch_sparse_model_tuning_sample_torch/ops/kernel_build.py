@@ -21,7 +21,10 @@ from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = {"maxpool_head": _PKG / "csrc" / "maxpool_head.cu"}
+SOURCES = {
+    "maxpool_head": _PKG / "csrc" / "maxpool_head.cu",
+    "maxpool_head_bwd": _PKG / "csrc" / "maxpool_head_bwd.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -10,8 +10,24 @@ It replaces the TPU kernel `opensearch_sparse_model_tuning_sample_tpu/ops/
 pallas_maxpool.py::maxpool_head` (`pallas_call` at line 99) with the
 production head's semantics (`models/bert.py::mlm_maxpool` there): any
 decoder matrix, an fp32 bias added after the fp32-accumulated product, and
-a masked position that contributes exactly 0. Forward only; the backward
-comes with the training slice.
+a masked position that contributes exactly 0.
+
+Training goes through `MaxPoolHead`, a `torch.autograd.Function`: its
+forward is the same kernel's argmax variant (`maxpool_head_argmax`, which
+also returns the position of each maximum), its backward two gather-reduce
+kernels (`csrc/maxpool_head_bwd.cu`): `maxpool_head_bwd_w` for the decoder
+and bias gradients, `maxpool_head_bwd_h` for the hidden states'. Each kernel
+has its plain version beside it, which the wrappers take on the CPU only.
+The raw wrappers raise on an input that requires grad while grad mode is
+on: outside the Function the kernels would return a tensor with no
+gradient.
+
+Ties. The JAX package differentiates its `lax.scan` head, and `jnp.max` /
+`jnp.maximum` split the gradient of a tie evenly; the argmax gives it all to
+one position (the smallest). The two agree wherever the maximum is unique.
+Ties at 0, where a masked position wins, carry no gradient in either: the
+position's mask is 0, and downstream `relu'(0) = 0` (`threshold_backward`
+here, `activations.py:52` in JAX).
 """
 
 from __future__ import annotations
@@ -22,6 +38,9 @@ import torch
 
 from .kernel_build import library
 
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
 
 def maxpool_head_reference(
     h: torch.Tensor,  # [B, L, D]
@@ -31,20 +50,70 @@ def maxpool_head_reference(
     chunk: int = 64,
 ) -> torch.Tensor:
     """Plain PyTorch version: chunked fp32 matmul + bias, times the mask,
-    running max over the sequence. Inputs are upcast to fp32 before the
-    product, so bf16 inputs give exact products summed in fp32, as the
-    kernel's tensor cores do (in another order). Returns [B, V] fp32."""
+    running max over the sequence. Inputs are upcast to fp32 (float64 stays)
+    before the product, so bf16 inputs give exact products summed in fp32,
+    as the kernel's tensor cores do (in another order). Returns [B, V]."""
+    maxpool_head_reference.calls += 1
     B, L, _ = h.shape
-    wt = w.float().t()
-    b = bias.float()
-    m = mask.float()
-    pooled = torch.full((B, w.shape[0]), float("-inf"), dtype=torch.float32,
-                        device=h.device)
+    acc = _acc_dtype(h)
+    wt = w.to(acc).t()
+    b = bias.to(acc)
+    m = mask.to(acc)
+    pooled = torch.full((B, w.shape[0]), float("-inf"), dtype=acc, device=h.device)
     for l0 in range(0, L, chunk):
-        logits = torch.matmul(h[:, l0:l0 + chunk].float(), wt) + b
+        logits = torch.matmul(h[:, l0:l0 + chunk].to(acc), wt) + b
         masked = logits * m[:, l0:l0 + chunk, None]
         pooled = torch.maximum(pooled, masked.amax(dim=1))
     return pooled
+
+
+def maxpool_head_argmax_reference(h, mask, w, bias, chunk: int = 64):
+    """Plain version of the training forward: `maxpool_head_reference`'s
+    values and, per (b, v), the first position that attains the maximum
+    (int32 [B, V])."""
+    maxpool_head_argmax_reference.calls += 1
+    B, L, _ = h.shape
+    acc = _acc_dtype(h)
+    wt = w.to(acc).t()
+    b = bias.to(acc)
+    m = mask.to(acc)
+    pooled = torch.full((B, w.shape[0]), float("-inf"), dtype=acc, device=h.device)
+    idx = torch.zeros((B, w.shape[0]), dtype=torch.int64, device=h.device)
+    for l0 in range(0, L, chunk):
+        logits = torch.matmul(h[:, l0:l0 + chunk].to(acc), wt) + b
+        cmax, carg = (logits * m[:, l0:l0 + chunk, None]).max(dim=1)
+        better = cmax > pooled  # an earlier chunk keeps a tie
+        pooled = torch.where(better, cmax, pooled)
+        idx = torch.where(better, carg + l0, idx)
+    return pooled, idx.to(torch.int32)
+
+
+def _scatter_grad(g, idx, mask, L):
+    """The dense [B, L, V] gradient of the masked logits: g[b, v] * mask[b, l]
+    at l = idx[b, v], zero elsewhere."""
+    B, V = g.shape
+    acc = _acc_dtype(g)
+    pos = idx.long()
+    coef = g.to(acc) * mask.to(acc).gather(1, pos)
+    return torch.zeros((B, L, V), dtype=acc, device=g.device).scatter_(
+        1, pos[:, None, :], coef[:, None, :])
+
+
+def maxpool_head_bwd_w_reference(g, idx, mask, h):
+    """Plain version of the decoder and bias gradients: the dense scatter,
+    then one matmul. Returns (dw [V, D], dbias [V]) in fp32 (float64 stays)."""
+    maxpool_head_bwd_w_reference.calls += 1
+    B, L, D = h.shape
+    s = _scatter_grad(g, idx, mask, L).reshape(B * L, -1)
+    return torch.matmul(s.t(), h.reshape(B * L, D).to(s.dtype)), s.sum(dim=0)
+
+
+def maxpool_head_bwd_h_reference(g, idx, mask, w):
+    """Plain version of the hidden-state gradient: the dense scatter, then
+    one matmul. Returns dh [B, L, D] in fp32 (float64 stays)."""
+    maxpool_head_bwd_h_reference.calls += 1
+    s = _scatter_grad(g, idx, mask, mask.shape[1])
+    return torch.matmul(s, w.to(s.dtype))
 
 
 def check_kernel_args(h, mask, w, bias, max_dim):
@@ -67,18 +136,45 @@ def check_kernel_args(h, mask, w, bias, max_dim):
         raise TypeError(
             f"maxpool_head kernel takes fp32 bias and int32 mask, got {bias.dtype}, {mask.dtype}"
         )
-    for name, t in (("h", h), ("mask", mask), ("w", w), ("bias", bias)):
-        if t.device != h.device:
-            raise ValueError(f"maxpool_head: {name} is on {t.device}, h on {h.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"maxpool_head: {name} must be contiguous")
+    _check_layout(h, (("h", h), ("mask", mask), ("w", w), ("bias", bias)))
     if min(B, L, V) == 0:
         raise ValueError("maxpool_head: empty batch, sequence or vocab")
+    _check_width(D, max_dim, (("h", h), ("w", w)))
+
+
+def check_bwd_args(g, idx, mask, x, max_dim):
+    """The backward kernels' checks: g fp32 [B, V], idx and mask int32, x
+    (h [B, L, D] or w [V, D]) bf16, 16-byte aligned, D a multiple of 8 and at
+    most `max_dim`."""
+    if g.dim() != 2 or idx.shape != g.shape or mask.dim() != 2 or mask.shape[0] != g.shape[0]:
+        raise ValueError(
+            f"maxpool_head backward wants g, idx [B,V] and mask [B,L], got "
+            f"{tuple(g.shape)}, {tuple(idx.shape)}, {tuple(mask.shape)}")
+    if g.dtype != torch.float32 or idx.dtype != torch.int32 or mask.dtype != torch.int32:
+        raise TypeError(f"maxpool_head backward takes fp32 g and int32 idx and mask, got "
+                        f"{g.dtype}, {idx.dtype}, {mask.dtype}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"maxpool_head backward kernels take bf16 h and w, got {x.dtype}")
+    _check_layout(g, (("g", g), ("idx", idx), ("mask", mask), ("h/w", x)))
+    if min(g.shape) == 0 or mask.shape[1] == 0:
+        raise ValueError("maxpool_head backward: empty batch, sequence or vocab")
+    _check_width(x.shape[-1], max_dim, (("h/w", x),))
+
+
+def _check_layout(first, named):
+    for name, t in named:
+        if t.device != first.device:
+            raise ValueError(f"maxpool_head: {name} is on {t.device}, not {first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"maxpool_head: {name} must be contiguous")
+
+
+def _check_width(D, max_dim, aligned):
     if D % 8:
         raise ValueError(f"maxpool_head kernel needs D a multiple of 8, got {D}")
     if D > max_dim:
         raise ValueError(f"maxpool_head kernel takes D <= {max_dim}, got {D}")
-    for name, t in (("h", h), ("w", w)):
+    for name, t in aligned:
         if t.data_ptr() % 16:
             raise ValueError(
                 f"maxpool_head kernel needs {name} 16-byte aligned, got address "
@@ -86,18 +182,57 @@ def check_kernel_args(h, mask, w, bias, max_dim):
             )
 
 
+def _check_no_grad(*tensors):
+    """A raw wrapper returns a tensor without a gradient; with grad mode on
+    and an input that requires one, only `MaxPoolHead` computes it right."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "maxpool_head kernels have no autograd of their own: an input "
+            "requires grad, so call maxpool_head_train (the MaxPoolHead "
+            "Function), or run under torch.no_grad()")
+
+
+def _device(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"maxpool_head runs on cuda or cpu, not {t.device}")
+    return t.device.type
+
+
 def _lib():
     lib = library("maxpool_head")
     if not getattr(lib, "_argtypes_set", False):
-        p = ctypes.c_void_p
-        lib.maxpool_head_bf16.argtypes = [p, p, p, p, p, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_int, p]
-        lib.maxpool_head_bf16.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.maxpool_head_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.maxpool_head_bf16.restype = i
+        lib.maxpool_head_argmax_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.maxpool_head_argmax_bf16.restype = i
         lib.maxpool_head_max_dim.argtypes = []
-        lib.maxpool_head_max_dim.restype = ctypes.c_int
+        lib.maxpool_head_max_dim.restype = i
         lib._argtypes_set = True
     return lib
+
+
+def _bwd_lib():
+    lib = library("maxpool_head_bwd")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.maxpool_head_bwd_w.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.maxpool_head_bwd_w.restype = i
+        lib.maxpool_head_bwd_h.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.maxpool_head_bwd_h.restype = i
+        lib.maxpool_head_bwd_max_dim.argtypes = []
+        lib.maxpool_head_bwd_max_dim.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def maxpool_head(
@@ -107,27 +242,143 @@ def maxpool_head(
     bias: torch.Tensor,  # [V] fp32
 ) -> torch.Tensor:
     """Masked max-pool of the MLM logits -> [B, V] fp32, without the
-    [B, L, V] logits. On the CPU this is the plain version; on a CUDA
-    tensor it launches the kernel or raises."""
-    if h.device.type == "cpu":
+    [B, L, V] logits (the ingest path). On the CPU this is the plain
+    version; on a CUDA tensor it launches the kernel or raises."""
+    _check_no_grad(h, w, bias)
+    if _device(h) == "cpu":
         return maxpool_head_reference(h, mask, w, bias)
-    if h.device.type != "cuda":
-        raise ValueError(f"maxpool_head runs on cuda or cpu, not {h.device}")
     lib = _lib()
     check_kernel_args(h, mask, w, bias, lib.maxpool_head_max_dim())
     B, L, D = h.shape
     V = w.shape[0]
     out = torch.empty((B, V), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
         rc = lib.maxpool_head_bf16(
             h.data_ptr(), mask.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, L, D, V, stream,
+            out.data_ptr(), B, L, D, V, _stream(h),
         )
-    if rc != 0:
-        raise RuntimeError(f"maxpool_head kernel launch failed: CUDA error {rc}")
+    _raise_on(rc, "maxpool_head")
     maxpool_head.launches += 1
     return out
 
 
-maxpool_head.launches = 0
+def maxpool_head_argmax(h, mask, w, bias):
+    """The training forward: (pooled [B, V] fp32, idx [B, V] int32, the
+    position of each maximum). The kernel's argmax variant on a CUDA
+    tensor, the plain version on the CPU."""
+    _check_no_grad(h, w, bias)
+    if _device(h) == "cpu":
+        return maxpool_head_argmax_reference(h, mask, w, bias)
+    lib = _lib()
+    check_kernel_args(h, mask, w, bias, lib.maxpool_head_max_dim())
+    B, L, D = h.shape
+    V = w.shape[0]
+    out = torch.empty((B, V), dtype=torch.float32, device=h.device)
+    idx = torch.empty((B, V), dtype=torch.int32, device=h.device)
+    with torch.cuda.device(h.device):
+        rc = lib.maxpool_head_argmax_bf16(
+            h.data_ptr(), mask.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), idx.data_ptr(), B, L, D, V, _stream(h),
+        )
+    _raise_on(rc, "maxpool_head_argmax")
+    maxpool_head_argmax.launches += 1
+    return out, idx
+
+
+def maxpool_head_bwd_w(g, idx, mask, h):
+    """(dw [V, D], dbias [V]) fp32 from the upstream gradient g [B, V] fp32
+    and the forward's argmax: the bwd_w kernel on a CUDA tensor, the plain
+    version on the CPU."""
+    _check_no_grad(g, h)
+    if _device(g) == "cpu":
+        return maxpool_head_bwd_w_reference(g, idx, mask, h)
+    lib = _bwd_lib()
+    check_bwd_args(g, idx, mask, h, lib.maxpool_head_bwd_max_dim())
+    B, L, D = h.shape
+    V = g.shape[1]
+    if h.shape[0] != B or g.shape[0] != B or mask.shape[1] != L:
+        raise ValueError("maxpool_head_bwd_w: h, g and mask disagree on B or L")
+    dw = torch.empty((V, D), dtype=torch.float32, device=g.device)
+    dbias = torch.empty((V,), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = lib.maxpool_head_bwd_w(g.data_ptr(), idx.data_ptr(), mask.data_ptr(), h.data_ptr(),
+                                    dw.data_ptr(), dbias.data_ptr(), B, L, D, V, _stream(g))
+    _raise_on(rc, "maxpool_head_bwd_w")
+    maxpool_head_bwd_w.launches += 1
+    return dw, dbias
+
+
+def argmax_order(idx: torch.Tensor):
+    """Each doc's vocab ids ordered by argmax position, and those positions
+    (both int32 [B, V]): the runs bwd_h reduces. A stable sort, so a run
+    keeps increasing v. It does no arithmetic of the gradient."""
+    keys, order = torch.sort(idx, dim=1, stable=True)
+    return keys.contiguous(), order.to(torch.int32).contiguous()
+
+
+def maxpool_head_bwd_h(g, idx, mask, w):
+    """dh [B, L, D] fp32 from the upstream gradient g [B, V] fp32 and the
+    forward's argmax: the bwd_h kernel on a CUDA tensor (after
+    `argmax_order`), the plain version on the CPU."""
+    _check_no_grad(g, w)
+    if _device(g) == "cpu":
+        return maxpool_head_bwd_h_reference(g, idx, mask, w)
+    lib = _bwd_lib()
+    check_bwd_args(g, idx, mask, w, lib.maxpool_head_bwd_max_dim())
+    B, V = g.shape
+    L, D = mask.shape[1], w.shape[1]
+    if w.shape[0] != V:
+        raise ValueError(f"maxpool_head_bwd_h: w has {w.shape[0]} rows, g {V} columns")
+    keys, order = argmax_order(idx)
+    dh = torch.empty((B, L, D), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = lib.maxpool_head_bwd_h(g.data_ptr(), keys.data_ptr(), order.data_ptr(),
+                                    mask.data_ptr(), w.data_ptr(), dh.data_ptr(), B, L, D, V,
+                                    _stream(g))
+    _raise_on(rc, "maxpool_head_bwd_h")
+    maxpool_head_bwd_h.launches += 1
+    return dh
+
+
+class MaxPoolHead(torch.autograd.Function):
+    """The head with a gradient: forward `maxpool_head_argmax`, backward
+    `maxpool_head_bwd_w` and `maxpool_head_bwd_h`. The gradients come back
+    in the inputs' dtypes: with bf16 h and w (the cast copies of fp32
+    parameters) dh and dw are rounded to bf16 and flow on through the casts,
+    as in the JAX package's `astype` chain."""
+
+    @staticmethod
+    def forward(ctx, h, mask, w, bias):
+        pooled, idx = maxpool_head_argmax(h, mask, w, bias)
+        ctx.save_for_backward(h, mask, w, idx)
+        ctx.bias_dtype = bias.dtype
+        return pooled
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        h, mask, w, idx = ctx.saved_tensors
+        g = g.float().contiguous()
+        need_h, _, need_w, need_b = ctx.needs_input_grad
+        dh = dw = dbias = None
+        if need_w or need_b:
+            dw, dbias = maxpool_head_bwd_w(g, idx, mask, h)
+            dw = dw.to(w.dtype) if need_w else None
+            dbias = dbias.to(ctx.bias_dtype) if need_b else None
+        if need_h:
+            dh = maxpool_head_bwd_h(g, idx, mask, w).to(h.dtype)
+        return dh, None, dw, dbias
+
+
+def maxpool_head_train(h, mask, w, bias) -> torch.Tensor:
+    """`maxpool_head` with a gradient (the training path)."""
+    return MaxPoolHead.apply(h, mask, w, bias)
+
+
+# plain integer counters: a wrapper counts the launches of its kernel, a
+# plain version its calls (chip_smoke.py shows from them which ran)
+for _f in (maxpool_head, maxpool_head_argmax, maxpool_head_bwd_w, maxpool_head_bwd_h):
+    _f.launches = 0
+for _f in (maxpool_head_reference, maxpool_head_argmax_reference,
+           maxpool_head_bwd_w_reference, maxpool_head_bwd_h_reference):
+    _f.calls = 0

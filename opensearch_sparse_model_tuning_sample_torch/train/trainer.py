@@ -1,0 +1,273 @@
+"""Training: the train step and the host loop, on one card.
+
+The port of the JAX package's `train/trainer.py` (which replaces the
+reference's HF-Trainer subclass, trainer.py:52-218). A step runs the
+student forwards (docs through the BERT-MLM and the max-pool head's
+autograd Function, queries inference-free or through the encoder), the
+FLOPS/L0 regulariser with its quadratic lambda ramp, the ranking losses,
+the backward and one AdamW update:
+
+  * AdamW (betas 0.9/0.999, eps 1e-8) with weight decay on every BERT
+    parameter, biases and LayerNorm included (the reference builds AdamW
+    over model.parameters(), train_ir.py:86-90);
+  * the learnable IDF vector in its own group: frozen (outside the
+    optimizer and the clip norm), at `idf_lr`, or at the base rate;
+  * linear warm-up then linear decay, where the first update uses lr(0),
+    as optax evaluates the schedule at the count before the update;
+  * global-norm clipping (`clip_grad_norm_`: optax's `clip_by_global_norm`
+    up to a 1e-6 in the norm);
+  * gradient accumulation over A microbatches: gradients averaged, one
+    update, metrics averaged except `nonzero_max` (a max).
+
+Metrics and the loss moving average stay on the device; the loop reads
+them only at `logging_steps`, so other steps never wait for the card.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from ..models import hf_import, sparse_encoder as se
+from ..ops import flops as flops_ops
+from ..ops.losses import LossSpec, build_loss_specs
+
+logger = logging.getLogger(__name__)
+
+
+def linear_warmup_linear_decay(warmup_steps: int, total_steps: int):
+    """The multiplier of the base rate at optimizer step `step` (HF
+    get_linear_schedule_with_warmup, reference train_ir.py:103-107)."""
+
+    def factor(step: int) -> float:
+        if step < warmup_steps:
+            return step / max(warmup_steps, 1)
+        return max(0.0, (total_steps - step) / max(total_steps - warmup_steps, 1))
+
+    return factor
+
+
+def make_optimizer(model: se.SparseEncoderModel, model_args, data_args, training_args):
+    """(AdamW, LambdaLR) over the BERT parameters and, when it trains, the
+    IDF vector in its own group. A frozen IDF is not in the optimizer: no
+    update, no weight decay, and nothing in the clip norm."""
+    groups = [{"params": list(model.bert.parameters()), "lr": training_args.learning_rate}]
+    if model_args.idf_requires_grad:
+        idf_lr = data_args.idf_lr if data_args.idf_lr is not None else training_args.learning_rate
+        groups.append({"params": [model.idf_vector], "lr": idf_lr})
+    opt = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=training_args.weight_decay)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, linear_warmup_linear_decay(training_args.warmup_steps, training_args.max_steps))
+    return opt, sched
+
+
+def train_loss(model: se.SparseEncoderModel, batch: Dict[str, torch.Tensor], step: int,
+               loss_specs: List[LossSpec], model_args, data_args, dropout_key=None):
+    """One microbatch's loss and metrics (tensors on the device). `step` is
+    the optimizer's step count before this update, which the lambda ramp
+    reads; `dropout_key` (None: dropout off) seeds the dropout masks."""
+    needs_scores = any(s.kind in ("kldiv", "marginmse") for s in loss_specs)
+    teacher_scores = batch.get("scores")
+    if needs_scores and teacher_scores is None:
+        raise ValueError("kldiv/marginmse losses need teacher scores")
+
+    key_d = None if dropout_key is None else (*dropout_key, 0)
+    key_q = None if dropout_key is None else (*dropout_key, 1)
+    d_rep = se.encode_doc(model, batch["d_input_ids"], batch["d_attention_mask"],
+                          dropout_key=key_d)
+    if model_args.inf_free:
+        q_rep = se.encode_query_inf_free(model, batch["q_input_ids"])
+    else:
+        q_rep = se.encode_doc(model, batch["q_input_ids"], batch["q_attention_mask"],
+                              dropout_key=key_q)
+
+    group_num = d_rep.shape[0] // q_rep.shape[0]
+    d_flops = flops_ops.flops_value(d_rep, group_num, flops_threshold=data_args.flops_threshold)
+    flops_loss = d_flops * flops_ops.get_lambda(step, data_args.flops_d_lambda,
+                                                data_args.flops_d_T)
+    if not model_args.inf_free and data_args.flops_q_lambda:
+        flops_loss = flops_loss + flops_ops.flops_value(q_rep) * flops_ops.get_lambda(
+            step, data_args.flops_q_lambda, data_args.flops_q_T)
+
+    ranking_loss = sum(spec(q_rep, d_rep, teacher_scores) for spec in loss_specs)
+    loss = ranking_loss + flops_loss
+    with torch.no_grad():
+        nonzero = d_rep > 0
+        nnz = nonzero.sum()
+        metrics = {
+            "loss": loss.detach(),
+            "ranking_loss": ranking_loss.detach(),
+            "d_flops": d_flops.detach(),
+            "flops_loss": flops_loss.detach(),
+            "avg_doc_length": nnz / d_rep.shape[0],
+            "nonzero_mean": torch.where(nonzero, d_rep, 0.0).sum() / nnz.clamp_min(1),
+            "nonzero_max": d_rep.max(),
+        }
+    return loss, metrics
+
+
+class Trainer:
+    """Host loop: batches to the card, step, log, checkpoint.
+
+    Mirrors the observable behaviour of the reference SparseModelTrainer
+    (moving-average ranking loss with 0.99 decay and periodic health stats,
+    trainer.py:57,120-137; `checkpoint-{step}` saves, :145-156). The model's
+    parameters are updated in place."""
+
+    def __init__(self, model: se.SparseEncoderModel, model_args, data_args, training_args,
+                 loss_specs: Optional[List[LossSpec]] = None, teacher_ensemble=None):
+        if teacher_ensemble is not None:
+            raise NotImplementedError(
+                "teacher ensembles are not ported to the PyTorch package yet "
+                "(ROADMAP Queue 1: KD teachers)")
+        self.model = model
+        self.model_args = model_args
+        self.data_args = data_args
+        self.args = training_args
+        self.loss_specs = loss_specs or build_loss_specs(data_args)
+        self.device = model.device
+        model.idf_vector.requires_grad_(bool(model_args.idf_requires_grad))
+        self.optimizer, self.scheduler = make_optimizer(model, model_args, data_args,
+                                                        training_args)
+        self.params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        self.step = 0
+        self.loss_ma = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.accum_steps = max(1, int(getattr(training_args, "gradient_accumulation_steps", 1)))
+        self.log_history: List[Dict[str, float]] = []
+
+    # ------------------------------------------------------------------
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a loader batch (numpy or tensors). With
+        gradient accumulation the batch's leading dim is split into A
+        microbatches: doc rows are query-major, so a plain split keeps each
+        query's group with it (collator layout)."""
+        batch = self._to_device(batch)
+        A = self.accum_steps
+        for k, x in batch.items():
+            if x.shape[0] % A:
+                raise ValueError(f"batch leading dim {x.shape[0]} of {k} not divisible by "
+                                 f"gradient_accumulation_steps={A}")
+        self.optimizer.zero_grad(set_to_none=True)
+        per_mb = []
+        for i in range(A):
+            mb = {k: x.reshape(A, x.shape[0] // A, *x.shape[1:])[i] for k, x in batch.items()}
+            loss, m = train_loss(self.model, mb, self.step, self.loss_specs, self.model_args,
+                                 self.data_args, dropout_key=(self.args.seed, self.step, i))
+            loss.backward()  # gradients add up in .grad over the microbatches
+            per_mb.append(m)
+        if A > 1:
+            for p in self.params:
+                if p.grad is not None:
+                    p.grad.mul_(1.0 / A)
+            metrics = {k: (torch.stack([m[k] for m in per_mb]).max() if k == "nonzero_max"
+                           else torch.stack([m[k] for m in per_mb]).mean())
+                       for k in per_mb[0]}
+        else:
+            metrics = per_mb[0]
+        if self.args.max_grad_norm:
+            torch.nn.utils.clip_grad_norm_(self.params, self.args.max_grad_norm)
+        self.optimizer.step()
+        self.scheduler.step()
+        self.step += 1
+        self.loss_ma = 0.99 * self.loss_ma + 0.01 * metrics["ranking_loss"]
+        metrics["ranking_loss_ma"] = self.loss_ma
+        return metrics
+
+    def train(self, batch_iter, max_steps: Optional[int] = None):
+        max_steps = max_steps or self.args.max_steps
+        t0 = time.time()
+        start_step = self.step
+        last_saved = -1
+        prof = None
+        for batch in batch_iter:
+            if self.step >= max_steps:
+                break
+            # torch.profiler trace of steps [2, 7) when profile_dir is set
+            if self.args.profile_dir and self.step == 2 and prof is None:
+                prof = _start_profiler(self.device)
+            metrics = self.train_step(batch)
+            if prof is not None and self.step >= 7:
+                prof = _stop_profiler(prof, self.args.profile_dir)
+            step = self.step
+            if step % self.args.logging_steps == 0 or step == 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                self.log_history.append({"step": step, **m})
+                logger.info(
+                    "Step %d. ranking loss moving avg:%.5f, d_flops: %.4f, "
+                    "flops_loss: %.5f avg doc length: %.1f nonzero mean/max: "
+                    "%.4f/%.4f (%.2f steps/s)",
+                    step, m["ranking_loss_ma"], m["d_flops"], m["flops_loss"],
+                    m["avg_doc_length"], m["nonzero_mean"], m["nonzero_max"],
+                    (step - start_step) / max(time.time() - t0, 1e-9),
+                )
+            if (self.args.save_strategy == "steps" and self.args.save_steps
+                    and step % self.args.save_steps == 0):
+                self.save_checkpoint(step)
+                last_saved = step
+        if prof is not None:  # the run ended inside the trace window
+            _stop_profiler(prof, self.args.profile_dir)
+        if self.args.save_strategy != "no" and last_saved != self.step:
+            self.save_checkpoint(self.step)
+        return self
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, step: int):
+        out = os.path.join(self.args.output_dir, f"checkpoint-{step}")
+        hf_import.save_checkpoint(self.model, out)
+        logger.info("Saving model checkpoint to %s", out)
+
+    def _state_path(self, path: Optional[str]) -> str:
+        return path or os.path.join(os.path.abspath(self.args.output_dir), "train_state")
+
+    def save_train_state(self, path: Optional[str] = None):
+        """Everything an exact resume needs (model, optimizer, schedule, step,
+        loss moving average) as `train_state/state.pt`. The port's own
+        format: a JAX package's train_state does not load here."""
+        path = self._state_path(path)
+        os.makedirs(path, exist_ok=True)
+        torch.save({
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "step": self.step,
+            "loss_ma": self.loss_ma,
+        }, os.path.join(path, "state.pt"))
+
+    def restore_train_state(self, path: Optional[str] = None):
+        # on the CPU first: AdamW keeps its step counts there, and
+        # load_state_dict moves the moments to their parameters' device
+        state = torch.load(os.path.join(self._state_path(path), "state.pt"),
+                           map_location="cpu", weights_only=True)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.step = int(state["step"])
+        self.loss_ma = state["loss_ma"].to(self.device)
+
+
+def _start_profiler(device: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir: str):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
+    return None

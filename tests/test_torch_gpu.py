@@ -133,3 +133,74 @@ def test_maxpool_kernel_rejects_what_it_cannot_take(cuda):
     h, mask, w, bias = _inputs(2, 8, too_wide, 64, seed=0, device=cuda)
     with pytest.raises(ValueError):
         maxpool_head(h, mask, w, bias)
+
+
+# ---- the training kernels: argmax forward, bwd_w, bwd_h -------------------
+
+from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp  # noqa: E402
+
+
+def _value_at(h, mask, w, bias, idx):
+    """mask * (h[b, idx] . w[v] + bias[v]) per (b, v), in fp32."""
+    out = torch.empty(idx.shape, device=h.device)
+    wf = w.float()
+    for b in range(h.shape[0]):
+        li = idx[b].long()
+        out[b] = ((h[b].float()[li] * wf).sum(1) + bias) * mask[b].float()[li]
+    return out
+
+
+def _rel_ok(got, ref, tol=1e-3):
+    return bool(((got - ref).abs() <= tol * ref.abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("B,L,D,V,holey", [
+    (45, 64, 256, 30592, False),
+    (6, 600, 256, 30592, True),
+    (5, 45, 768, 777, False),
+    (6, 200, 1024, 300, True),
+])
+def test_training_kernels_match_plain_versions(cuda, B, L, D, V, holey):
+    """The argmax forward's values equal the plain head's and the logit at
+    its argmax is the pooled value (near-ties may pick another position than
+    the plain argmax, so values are compared, not indices); given that
+    argmax, bwd_w and bwd_h equal the dense-scatter backward. Each kernel
+    counts one launch; two launches of each are bit-equal."""
+    mask = _holey_mask(B, L, seed=L) if holey else None
+    h, mask, w, bias = _inputs(B, L, D, V, seed=B + L + D, device=cuda, mask=mask)
+    counts = (mp.maxpool_head_argmax.launches, mp.maxpool_head_bwd_w.launches,
+              mp.maxpool_head_bwd_h.launches)
+    pooled, idx = mp.maxpool_head_argmax(h, mask, w, bias)
+    g = torch.randn(B, V, device=cuda) * (torch.rand(B, V, device=cuda) < 0.5)
+    dw, dbias = mp.maxpool_head_bwd_w(g, idx, mask, h)
+    dh = mp.maxpool_head_bwd_h(g, idx, mask, w)
+    torch.cuda.synchronize()
+    assert (mp.maxpool_head_argmax.launches, mp.maxpool_head_bwd_w.launches,
+            mp.maxpool_head_bwd_h.launches) == tuple(c + 1 for c in counts)
+    assert _rel_ok(pooled, mp.maxpool_head_reference(h, mask, w, bias))
+    assert bool(((idx >= 0) & (idx < L)).all())
+    assert _rel_ok(_value_at(h, mask, w, bias, idx), pooled)
+    dead = ~mask.bool().any(dim=1)
+    assert bool((pooled[dead] == 0).all())
+    rdw, rdbias = mp.maxpool_head_bwd_w_reference(g, idx, mask, h)
+    assert _rel_ok(dw, rdw) and _rel_ok(dbias, rdbias)
+    assert _rel_ok(dh, mp.maxpool_head_bwd_h_reference(g, idx, mask, w))
+    assert bool((dh[dead] == 0).all()) and bool((dh[mask == 0] == 0).all())
+    assert torch.equal(mp.maxpool_head_argmax(h, mask, w, bias)[1], idx)
+    assert torch.equal(mp.maxpool_head_bwd_w(g, idx, mask, h)[0], dw)
+    assert torch.equal(mp.maxpool_head_bwd_h(g, idx, mask, w), dh)
+
+
+def test_head_function_on_the_card_matches_plain_autograd(cuda):
+    """MaxPoolHead on CUDA tensors (the kernels) against torch autograd of
+    the plain head on the same bf16 inputs: the kernels' gradients are
+    rounded to bf16 for h and w (their dtype), so 1e-2 relative."""
+    B, L, D, V = 8, 64, 256, 4096
+    h, mask, w, bias = _inputs(B, L, D, V, seed=5, device=cuda)
+    G = torch.randn(B, V, device=cuda)
+    hk, wk, bk = (t.clone().requires_grad_() for t in (h, w, bias))
+    (mp.maxpool_head_train(hk, mask, wk, bk) * G).sum().backward()
+    hp, wp, bp = (t.float().clone().requires_grad_() for t in (h, w, bias))
+    (mp.maxpool_head_reference(hp, mask, wp, bp) * G).sum().backward()
+    for got, ref in ((hk.grad, hp.grad), (wk.grad, wp.grad), (bk.grad, bp.grad)):
+        assert _rel_ok(got.float(), ref, tol=1e-2)

@@ -30,7 +30,9 @@ def test_port_has_the_slice_modules():
     for name in ("core.device", "core.config", "models.bert", "models.convert",
                  "models.hf_import", "models.sparse_encoder", "ops.maxpool",
                  "ops.activations", "index.engine", "eval.beir",
-                 "cli.evaluate_beir"):
+                 "cli.evaluate_beir", "ops.losses", "ops.flops", "data.datasets",
+                 "data.collator", "data.loader", "train.trainer", "cli.train_ir",
+                 "mine.hard_negatives", "cli.mine"):
         assert f"{port.__name__}.{name}" in mods, name
 
 
