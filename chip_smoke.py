@@ -17,14 +17,17 @@ non-zero. The last lines of output are the `kernels` JSON line, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
-`output/chip_smoke/` and builds the kernels under `build/torch_kernels/`
-(the ablation copies under `build/maxpool_ablation/`).
+`output/chip_smoke/` (there too `main_batches.pt`, the head's inputs on the
+main path, which `compare_head_kernels.py` times other checkouts on) and
+builds the kernels under `build/torch_kernels/` (the ablation copies under
+`build/maxpool_ablation/`).
 """
 
 import ctypes
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import time
@@ -42,6 +45,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TOL = 1e-3  # |kernel - plain| <= TOL * max(1, |plain|): fp32 sums in another order
+# a bf16 output (dW, dh) is an fp32 sum rounded once to the nearest bf16: on
+# top of TOL, half a bf16 ulp at the kernel's value, at most 2^-8 |kernel|
+BF16_HALF_ULP = 2.0 ** -8
 TRAIN_STEPS = 50
 # one whole train step, kernels against the plain head: per tensor
 # |g_kernel - g_plain| <= GRAD_TOL |g_plain| + GRAD_FLOOR G (G the largest
@@ -50,6 +56,8 @@ TRAIN_STEPS = 50
 # the bf16 encoder backward carries that on. The floor covers gradients that
 # are 0 in exact arithmetic (attention key biases) and hold rounding noise.
 GRAD_TOL, GRAD_FLOOR = 2e-2, 1e-4
+# and among the tensors with |g| > 1e-3 G, the worst relative error at most
+GRAD_WORST = 5e-3
 
 
 def check(cond, what):
@@ -57,12 +65,24 @@ def check(cond, what):
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, iters, warmup=2):
-    """Mean device time of fn() over `iters` back-to-back runs, CUDA events."""
+def cuda_ms(fn, iters, warmup=2, sleep=True):
+    """Mean device time of fn() over `iters` back-to-back runs, CUDA events.
+    The stream first sleeps on the card for longer than the host takes to
+    queue the runs (timed on the last warm-up pass), so the events time the
+    card running them back to back, not the host's Python between them.
+    With sleep=False the events run at the host's pace instead: a kernel
+    shorter than its wrapper's Python then reads the host's launch rate."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queue_s = time.perf_counter() - t0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if sleep:
+        torch.cuda._sleep(int(2e9 * (2 * queue_s + 1e-3)))  # cycles at up to 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -286,18 +306,21 @@ def library_scatter(g, idx, mask, L):
 
 
 def library_bwd_w(g, idx, mask, h):
-    """dw, dbias from PyTorch's own calls: the scatter, one bf16 GEMM with
-    fp32 output and a sum. A yardstick only."""
+    """dw (bf16, as the kernel writes it), dbias from PyTorch's own calls:
+    the scatter, one bf16 GEMM with fp32 output, its bf16 cast and a sum. A
+    yardstick only."""
     B, L, D = h.shape
     s = library_scatter(g, idx, mask, L).view(B * L, -1)
-    return torch.mm(s.t(), h.reshape(B * L, D), out_dtype=torch.float32), s.sum(0, dtype=torch.float32)
+    dw = torch.mm(s.t(), h.reshape(B * L, D), out_dtype=torch.float32).to(torch.bfloat16)
+    return dw, s.sum(0, dtype=torch.float32)
 
 
 def library_bwd_h(g, idx, mask, w):
-    """dh from PyTorch's own calls: the scatter and one bf16 GEMM."""
+    """dh (bf16) from PyTorch's own calls: the scatter, one bf16 GEMM with
+    fp32 output and its bf16 cast."""
     B, L = mask.shape
     s = library_scatter(g, idx, mask, L).view(B * L, -1)
-    return torch.mm(s, w, out_dtype=torch.float32).view(B, L, -1)
+    return torch.mm(s, w, out_dtype=torch.float32).view(B, L, -1).to(torch.bfloat16)
 
 
 def library_head_argmax(h, mask, w, bias):
@@ -321,6 +344,33 @@ def _close(got, ref, what, tol=TOL):
     return float(err.max())
 
 
+def _close_bf16(got, ref, what):
+    """A bf16 output against an fp32 one: TOL for the sum's order plus half
+    a bf16 ulp at the output's value. TOL's floor is the output's largest
+    magnitude where that is under 1, so small gradients (the main-path
+    batch's are ~1e-2) are held at their own scale and not at 1e-3."""
+    got = got.float()
+    err = (got - ref).abs()
+    floor = min(1.0, float(ref.abs().max()))
+    check(bool((err <= TOL * ref.abs().clamp_min(floor) + BF16_HALF_ULP * got.abs()).all()),
+          f"{what}: max |err| {float(err.max())}")
+    return float(err.max())
+
+
+def check_buckets(g, idx, mask, what):
+    """bwd_h's counting sort on the card equals the plain one exactly;
+    returns nnz."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
+
+    off, v, coef = mp.maxpool_head_bwd_buckets(g, idx, mask)
+    roff, rv, rcoef = mp.bucket_by_argmax_reference(g, idx, mask)
+    nnz = int(roff[-1])
+    check(torch.equal(off, roff) and torch.equal(v[:nnz], rv)
+          and torch.equal(coef[:nnz].view(torch.int32), rcoef.view(torch.int32)),
+          f"bwd_h's buckets equal the plain bucketing bit for bit at {what}")
+    return nnz
+
+
 def _bound(flops, peak_flops, nbytes):
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -335,9 +385,13 @@ def train_kernel_rows(name, h, mask, w, bias, g):
     Bounds: argmax forward, 2 * unmasked * D * V bf16 operations at 989
     TFLOP/s against h + mask + w + bias + out (fp32) + idx (int32) bytes at
     3.35 TB/s. bwd_w: 2 * nnz * D fp32 FMA operations at 67 TFLOP/s, nnz the
-    (b, v) with g * mask[b, idx] != 0, against g + idx + mask + h + dw (fp32)
-    + dbias bytes. bwd_h: the same operations against g + idx + mask + w +
-    dh (fp32) bytes."""
+    (b, v) with coef = g * mask[b, idx] != 0, against the bytes it must
+    move: g + idx + mask read whole, the h rows of the (b, l) that some
+    nonzero coef names, dw (bf16, every row) + dbias written. bwd_h: the same
+    operations against g + idx + mask, the w rows of the v that carry a
+    nonzero coef in some doc, and dh (bf16). bwd_h's time covers both its
+    parts (the counting sort and the reduce); bucket_ms is the counting sort
+    alone."""
     from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
 
     B, L, D = h.shape
@@ -346,14 +400,18 @@ def train_kernel_rows(name, h, mask, w, bias, g):
     dw, dbias = mp.maxpool_head_bwd_w(g, idx, mask, h)
     dh = mp.maxpool_head_bwd_h(g, idx, mask, w)
     torch.cuda.synchronize()
+    check(dw.dtype == dh.dtype == torch.bfloat16 and dbias.dtype == torch.float32,
+          "the backward kernels write dw and dh in bf16, dbias in fp32")
     err_f = _close(pooled, mp.maxpool_head_reference(h, mask, w, bias), f"argmax forward at {name}")
     check(bool(((idx >= 0) & (idx < L)).all()), f"argmax positions in range at {name}")
     # near-ties may pick another position than the plain argmax: compare values
     _close(value_at(h, mask, w, bias, idx), pooled, f"logit at the kernel's argmax at {name}")
     rdw, rdbias = mp.maxpool_head_bwd_w_reference(g, idx, mask, h)
-    err_w = max(_close(dw, rdw, f"bwd_w dw at {name}"), _close(dbias, rdbias, f"bwd_w dbias at {name}"))
+    err_w = max(_close_bf16(dw, rdw, f"bwd_w dw at {name}"),
+                _close(dbias, rdbias, f"bwd_w dbias at {name}"))
     rdh = mp.maxpool_head_bwd_h_reference(g, idx, mask, w)
-    err_h = _close(dh, rdh, f"bwd_h at {name}")
+    err_h = _close_bf16(dh, rdh, f"bwd_h at {name}")
+    nnz = check_buckets(g, idx, mask, name)
     dead = ~mask.bool().any(dim=1)
     check(bool((pooled[dead] == 0).all()) and bool((dh[mask == 0] == 0).all()),
           f"masked positions pool to 0 and get no gradient at {name}")
@@ -366,20 +424,24 @@ def train_kernel_rows(name, h, mask, w, bias, g):
     # much (a softmax's rows sum to 0), so they are held to the plain
     # version fed the same bf16-rounded g
     g16 = g.to(torch.bfloat16).float()
-    _close(library_bwd_w(g, idx, mask, h)[0], mp.maxpool_head_bwd_w_reference(g16, idx, mask, h)[0],
-           "the library yardstick computes the same dw")
-    _close(library_bwd_h(g, idx, mask, w), mp.maxpool_head_bwd_h_reference(g16, idx, mask, w),
-           "the library yardstick computes the same dh")
+    _close_bf16(library_bwd_w(g, idx, mask, h)[0],
+                mp.maxpool_head_bwd_w_reference(g16, idx, mask, h)[0],
+                "the library yardstick computes the same dw")
+    _close_bf16(library_bwd_h(g, idx, mask, w), mp.maxpool_head_bwd_h_reference(g16, idx, mask, w),
+                "the library yardstick computes the same dh")
     torch.cuda.empty_cache()
 
     unmasked = float(mask.sum())
-    nnz = float(((g * mask.gather(1, idx.long()).float()) != 0).sum())
+    nz = (g * mask.gather(1, idx.long())) != 0
+    rows_v = int(nz.any(dim=0).sum())  # w rows that bwd_h must read
+    rows_bl = int((torch.zeros(B, L, dtype=torch.int32, device=g.device)
+                   .scatter_add_(1, idx.long(), nz.int()) > 0).sum())  # h rows for bwd_w
     fwd_bound = _bound(2.0 * unmasked * D * V, PEAK_BF16_FLOPS,
                        B * L * D * 2 + B * L * 4 + V * D * 2 + V * 4 + B * V * 8)
     w_bound = _bound(2.0 * nnz * D, PEAK_FP32_FLOPS,
-                     B * V * 8 + B * L * 4 + B * L * D * 2 + V * D * 4 + V * 4)
+                     B * V * 8 + B * L * 4 + rows_bl * D * 2 + V * D * 2 + V * 4)
     h_bound = _bound(2.0 * nnz * D, PEAK_FP32_FLOPS,
-                     B * V * 8 + B * L * 4 + V * D * 2 + B * L * D * 4)
+                     B * V * 8 + B * L * 4 + rows_v * D * 2 + B * L * D * 2)
     rows = {
         "maxpool_head_argmax": dict(
             max_abs_err=err_f, ms=cuda_ms(lambda: mp.maxpool_head_argmax(h, mask, w, bias), 20),
@@ -393,33 +455,52 @@ def train_kernel_rows(name, h, mask, w, bias, g):
             bound_ms=w_bound[0], bound_by=w_bound[1]),
         "maxpool_head_bwd_h": dict(
             max_abs_err=err_h, ms=cuda_ms(lambda: mp.maxpool_head_bwd_h(g, idx, mask, w), 20),
-            sort_ms=cuda_ms(lambda: mp.argmax_order(idx), 20),
+            bucket_ms=cuda_ms(lambda: mp.maxpool_head_bwd_buckets(g, idx, mask), 20),
             plain_ms=cuda_ms(lambda: mp.maxpool_head_bwd_h_reference(g, idx, mask, w), 3),
             library_ms=cuda_ms(lambda: library_bwd_h(g, idx, mask, w), 5),
             bound_ms=h_bound[0], bound_by=h_bound[1]),
     }
     for k, r in rows.items():
-        r.update(shape=[B, L, D, V], share_of_bound=r["bound_ms"] / r["ms"], inputs=name)
-        extra = f", of which the argmax sort {r['sort_ms']:.4f} ms" if "sort_ms" in r else ""
+        r.update(shape=[B, L, D, V], share_of_bound=r["bound_ms"] / r["ms"], inputs=name, nnz=nnz,
+                 w_rows_read=rows_v, h_rows_read=rows_bl)
+        extra = (f", of which the counting sort {r['bucket_ms']:.4f} ms" if "bucket_ms" in r
+                 else "")
         print(f"{k} {name} B={B} L={L} D={D} V={V}: max|err| {r['max_abs_err']:.3g}, kernel "
               f"{r['ms']:.4f} ms{extra}, plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), share "
-              f"of bound {r['share_of_bound']:.3f}; nonzero (b, v) gradients {nnz:.0f} of "
-              f"{B * V}; two launches bit-equal", flush=True)
+              f"of bound {r['share_of_bound']:.3f}; nonzero (b, v) gradients {nnz} of "
+              f"{B * V}, in {rows_v} of {V} w rows and {rows_bl} of {B * L} h rows; "
+              "two launches bit-equal", flush=True)
     return rows
+
+
+def skewed_inputs(B, L, D, V, seed, dev):
+    """maxpool_inputs where one position of each doc wins every v: w and
+    bias >= 0, and h is 0 except at that position (b mod L/2, always unmasked), where
+    it is > 0. bwd_h's worst case: one list per doc holds all its
+    nonzero gradients."""
+    h, mask, w, bias = maxpool_inputs(B, L, D, V, seed, dev)
+    w, bias = w.abs(), bias.abs()  # so the hot logit beats a masked position's 0 too
+    win = torch.arange(B, device=dev) % (L // 2)
+    hot = h[torch.arange(B, device=dev), win].abs()
+    h = torch.zeros_like(h)
+    h[torch.arange(B, device=dev), win] = hot
+    return h, mask, w, bias
 
 
 def phase_train_kernels(dev, shapes):
     """Synthetic inputs at the training shapes: holey masks, an all-masked
     row, an upstream gradient with about half its entries 0 (as relu
-    leaves it)."""
+    leaves it); then the first shape again with skewed inputs (one position
+    of each doc wins every v)."""
     out = []
-    for i, (B, L, D, V) in enumerate(shapes):
-        h, mask, w, bias = holey_inputs(B, L, D, V, seed=100 + i, dev=dev)
+    cases = [(s, holey_inputs, "synthetic") for s in shapes] + [(shapes[0], skewed_inputs, "skewed")]
+    for i, ((B, L, D, V), make, name) in enumerate(cases):
+        h, mask, w, bias = make(B, L, D, V, seed=100 + i, dev=dev)
         gen = torch.Generator(device=dev).manual_seed(i)
         g = torch.randn(B, V, device=dev, generator=gen)
         g = g * (torch.rand(B, V, device=dev, generator=gen) < 0.5)
-        out.append(train_kernel_rows("synthetic", h, mask, w, bias, g))
+        out.append(train_kernel_rows(name, h, mask, w, bias, g))
         del h, mask, w, bias, g
         torch.cuda.empty_cache()
     return out
@@ -448,9 +529,11 @@ def _counters():
     from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
 
     kernels = {f.__name__: f for f in (mp.maxpool_head, mp.maxpool_head_argmax,
-                                       mp.maxpool_head_bwd_w, mp.maxpool_head_bwd_h)}
+                                       mp.maxpool_head_bwd_w, mp.maxpool_head_bwd_buckets,
+                                       mp.maxpool_head_bwd_h)}
     plains = {f.__name__: f for f in (mp.maxpool_head_reference, mp.maxpool_head_argmax_reference,
                                       mp.maxpool_head_bwd_w_reference,
+                                      mp.bucket_by_argmax_reference,
                                       mp.maxpool_head_bwd_h_reference)}
     return kernels, plains
 
@@ -709,6 +792,7 @@ def grad_check(trainer, dev):
           + ", ".join(f"{k} {r:.3g} (|g| {n:.3g})" for k, (r, n) in top)
           + f"; worst among tensors with |g| > 1e-3 G: {above:.3g} (tolerance {GRAD_TOL} + "
           f"{GRAD_FLOOR} G, G = {big:.3g})", flush=True)
+    check(above <= GRAD_WORST, f"worst relative train-step gradient error {above:.3g} <= {GRAD_WORST}")
 
     # what in a (non-logging) train step makes the host wait for the card:
     # one more step of the loop's own train_step under CUDA's sync check
@@ -723,6 +807,7 @@ def grad_check(trainer, dev):
              if str(w.message).startswith("called a synchronizing")]
     print(f"host syncs in one train step (CUDA's sync check, which its own notice calls a "
           f"prototype that may miss some): {len(syncs)} {sorted(set(syncs))}", flush=True)
+    check(not syncs, "no host sync in a non-logging train step")
     return captured, above, np_batch
 
 
@@ -730,9 +815,10 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
     """Where a train step's time goes: `n` more steps of the loop's own
     train_step under torch.profiler. Prints the device operations' time by
     name (user annotations, which span other operations, left out), their
-    count per step, and the card's busy share of `step_ms`, the step time
+    count per step, the card's busy share of `step_ms`, the step time
     measured without the profiler (whose own host overhead inflates the
-    wall time it sees)."""
+    wall time it sees), and the head's kernels' device time a step, by
+    kernel (the forward; bwd_w; bwd_h's count, scan, scatter and reduce)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -755,8 +841,16 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
           "by device time: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / n / 1e3:.4f} ms x{e.count // n}"
                       for e in top), flush=True)
+    head = {}
+    for e in on_card:
+        found = re.search(r"maxpool_head_kernel<[^>]*>|bwd_\w+|bucket_\w+", e.key)
+        if found:
+            head[found.group(0)] = head.get(found.group(0), 0.0) + e.self_device_time_total / n / 1e3
+    print("head kernels a train step (torch.profiler device time): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in head.items()), flush=True)
     return {"step_ms": step_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
-            "profiled_step_ms": wall_us / n / 1e3, "ops_per_step": launches / n}
+            "profiled_step_ms": wall_us / n / 1e3, "ops_per_step": launches / n,
+            "head_kernels_ms": head}
 
 
 def main():
@@ -817,6 +911,7 @@ def main():
     batch, cast_ms = main_path_batch(
         model, [docs[i][1] for i in range(training_args.per_device_eval_batch_size)], dev)
     rows = phase_kernels(dev, shapes, batch)
+    ingest_batch = [t.cpu() for t in batch]
     del batch, model
     print(f"kernel phase {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
@@ -856,6 +951,10 @@ def main():
         1 + path["cfg"]["sample_num_one_query"])
     profile = profile_steps(path["trainer"], np_batch, 1e3 * docs_per_step / path["docs_per_s"])
     main_train = train_kernel_rows("main-path batch", *captured["args"], captured["g"])
+    # the head's inputs on the main path, for compare_head_kernels.py
+    torch.save({"ingest": ingest_batch,
+                "train": [t.cpu() for t in captured["args"] + (captured["g"],)]},
+               os.path.join(OUT, "main_batches.pt"))
     print(f"gradient check and main-path train rows {time.time() - t0:.1f} s", flush=True)
 
     # 7. the exact scan of the trained checkpoint's index against brute force
@@ -931,7 +1030,8 @@ def main():
             "share_of_bound": r["share_of_bound"], "shape": r["shape"],
             "inputs": "main-path batch",
             "launches_per_train_step": path["train"][0][name] / path["steps"],
-            **({"sort_ms": r["sort_ms"]} if "sort_ms" in r else {}),
+            **({"bucket_ms": r["bucket_ms"]} if "bucket_ms" in r else {}),
+            "nnz": r["nnz"],
             "all_shapes": [t[name] for t in train_rows] + [r],
         })
     print("train path: " + json.dumps({

@@ -16,8 +16,11 @@ Training goes through `MaxPoolHead`, a `torch.autograd.Function`: its
 forward is the same kernel's argmax variant (`maxpool_head_argmax`, which
 also returns the position of each maximum), its backward two gather-reduce
 kernels (`csrc/maxpool_head_bwd.cu`): `maxpool_head_bwd_w` for the decoder
-and bias gradients, `maxpool_head_bwd_h` for the hidden states'. Each kernel
-has its plain version beside it, which the wrappers take on the CPU only.
+and bias gradients, `maxpool_head_bwd_h` for the hidden states' (a counting
+sort of the nonzero gradients by argmax position, `maxpool_head_bwd_buckets`
+on its own, then a reduce over those lists). On the card both write their
+gradients in bf16, the dtype of the h and w they take. Each kernel has its
+plain version beside it, which the wrappers take on the CPU only.
 The raw wrappers raise on an input that requires grad while grad mode is
 on: outside the Function the kernels would return a tensor with no
 gradient.
@@ -116,6 +119,27 @@ def maxpool_head_bwd_h_reference(g, idx, mask, w):
     return torch.matmul(s, w.to(s.dtype))
 
 
+def bucket_by_argmax_reference(g, idx, mask):
+    """Plain version of bwd_h's counting sort: the nonzero coefficients
+    coef = g[b, v] * mask[b, idx[b, v]], listed per (doc, argmax position)
+    in increasing v. Returns (offsets [B*L + 1] int32, v [nnz] int32,
+    coef [nnz] in g's dtype): list b*L + l is entries offsets[b*L + l] up to
+    offsets[b*L + l + 1]."""
+    bucket_by_argmax_reference.calls += 1
+    B, V = g.shape
+    L = mask.shape[1]
+    pos = idx.long()
+    coef = g * mask.gather(1, pos).to(g.dtype)
+    nz = (coef != 0).reshape(-1)
+    key = (torch.arange(B, device=g.device)[:, None] * L + pos).reshape(-1)[nz]
+    order = torch.sort(key, stable=True).indices  # within a list, (b, v) order: increasing v
+    counts = torch.bincount(key, minlength=B * L)
+    offsets = torch.zeros(B * L + 1, dtype=torch.int32, device=g.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    v = torch.arange(V, device=g.device).expand(B, V).reshape(-1)[nz]
+    return offsets, v[order].to(torch.int32), coef.reshape(-1)[nz][order]
+
+
 def check_kernel_args(h, mask, w, bias, max_dim):
     """Raise on what the kernel cannot take: shapes, dtypes, devices,
     contiguity, D not a multiple of 8 or above `max_dim`, and an h or w that
@@ -142,10 +166,9 @@ def check_kernel_args(h, mask, w, bias, max_dim):
     _check_width(D, max_dim, (("h", h), ("w", w)))
 
 
-def check_bwd_args(g, idx, mask, x, max_dim):
-    """The backward kernels' checks: g fp32 [B, V], idx and mask int32, x
-    (h [B, L, D] or w [V, D]) bf16, 16-byte aligned, D a multiple of 8 and at
-    most `max_dim`."""
+def check_bucket_args(g, idx, mask):
+    """The checks of every backward kernel: g fp32 [B, V], idx int32 [B, V],
+    mask int32 [B, L], contiguous, on one device, none empty."""
     if g.dim() != 2 or idx.shape != g.shape or mask.dim() != 2 or mask.shape[0] != g.shape[0]:
         raise ValueError(
             f"maxpool_head backward wants g, idx [B,V] and mask [B,L], got "
@@ -153,11 +176,27 @@ def check_bwd_args(g, idx, mask, x, max_dim):
     if g.dtype != torch.float32 or idx.dtype != torch.int32 or mask.dtype != torch.int32:
         raise TypeError(f"maxpool_head backward takes fp32 g and int32 idx and mask, got "
                         f"{g.dtype}, {idx.dtype}, {mask.dtype}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"maxpool_head backward kernels take bf16 h and w, got {x.dtype}")
-    _check_layout(g, (("g", g), ("idx", idx), ("mask", mask), ("h/w", x)))
+    _check_layout(g, (("g", g), ("idx", idx), ("mask", mask)))
     if min(g.shape) == 0 or mask.shape[1] == 0:
         raise ValueError("maxpool_head backward: empty batch, sequence or vocab")
+
+
+def check_bwd_args(g, idx, mask, x, max_dim):
+    """The gradient kernels' checks: those of `check_bucket_args`, and x
+    (h [B, L, D] or w [V, D]) bf16 of the batch's B and L or V rows, on g's
+    device, contiguous, 16-byte aligned, D a multiple of 8 and at most
+    `max_dim`."""
+    check_bucket_args(g, idx, mask)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"maxpool_head backward kernels take bf16 h and w, got {x.dtype}")
+    if x.dim() == 3 and tuple(x.shape[:2]) != tuple(mask.shape):
+        raise ValueError(f"maxpool_head backward: h {tuple(x.shape)} disagrees with mask "
+                         f"{tuple(mask.shape)} on B or L")
+    if x.dim() == 2 and x.shape[0] != g.shape[1]:
+        raise ValueError(f"maxpool_head backward: w has {x.shape[0]} rows, g {g.shape[1]} columns")
+    if x.dim() not in (2, 3):
+        raise ValueError(f"maxpool_head backward wants h [B,L,D] or w [V,D], got {tuple(x.shape)}")
+    _check_layout(g, (("h/w", x),))
     _check_width(x.shape[-1], max_dim, (("h/w", x),))
 
 
@@ -218,8 +257,12 @@ def _bwd_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.maxpool_head_bwd_w.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.maxpool_head_bwd_w.restype = i
+        lib.maxpool_head_bwd_buckets.argtypes = [p, p, p, p, p, p, i, i, i, p]
+        lib.maxpool_head_bwd_buckets.restype = i
         lib.maxpool_head_bwd_h.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.maxpool_head_bwd_h.restype = i
+        lib.maxpool_head_bwd_workspace_bytes.argtypes = [i, i, i, i]
+        lib.maxpool_head_bwd_workspace_bytes.restype = ctypes.c_longlong
         lib.maxpool_head_bwd_max_dim.argtypes = []
         lib.maxpool_head_bwd_max_dim.restype = i
         lib._argtypes_set = True
@@ -286,9 +329,9 @@ def maxpool_head_argmax(h, mask, w, bias):
 
 
 def maxpool_head_bwd_w(g, idx, mask, h):
-    """(dw [V, D], dbias [V]) fp32 from the upstream gradient g [B, V] fp32
-    and the forward's argmax: the bwd_w kernel on a CUDA tensor, the plain
-    version on the CPU."""
+    """(dw [V, D], dbias [V] fp32) from the upstream gradient g [B, V] fp32
+    and the forward's argmax: the bwd_w kernel on a CUDA tensor (dw in bf16,
+    h's dtype), the plain version on the CPU (dw in fp32)."""
     _check_no_grad(g, h)
     if _device(g) == "cpu":
         return maxpool_head_bwd_w_reference(g, idx, mask, h)
@@ -296,9 +339,7 @@ def maxpool_head_bwd_w(g, idx, mask, h):
     check_bwd_args(g, idx, mask, h, lib.maxpool_head_bwd_max_dim())
     B, L, D = h.shape
     V = g.shape[1]
-    if h.shape[0] != B or g.shape[0] != B or mask.shape[1] != L:
-        raise ValueError("maxpool_head_bwd_w: h, g and mask disagree on B or L")
-    dw = torch.empty((V, D), dtype=torch.float32, device=g.device)
+    dw = torch.empty((V, D), dtype=torch.bfloat16, device=g.device)
     dbias = torch.empty((V,), dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         rc = lib.maxpool_head_bwd_w(g.data_ptr(), idx.data_ptr(), mask.data_ptr(), h.data_ptr(),
@@ -308,18 +349,43 @@ def maxpool_head_bwd_w(g, idx, mask, h):
     return dw, dbias
 
 
-def argmax_order(idx: torch.Tensor):
-    """Each doc's vocab ids ordered by argmax position, and those positions
-    (both int32 [B, V]): the runs bwd_h reduces. A stable sort, so a run
-    keeps increasing v. It does no arithmetic of the gradient."""
-    keys, order = torch.sort(idx, dim=1, stable=True)
-    return keys.contiguous(), order.to(torch.int32).contiguous()
+def _workspace(lib, B, L, D, V, device):
+    n = lib.maxpool_head_bwd_workspace_bytes(B, L, D, V)
+    if n < 0:
+        raise ValueError(f"maxpool_head backward cannot take B={B}, L={L}, V={V}")
+    return torch.empty((n,), dtype=torch.uint8, device=device)
+
+
+def maxpool_head_bwd_buckets(g, idx, mask):
+    """bwd_h's counting sort on its own: (offsets [B*L + 1] int32, v int32,
+    coef fp32), the nonzero g[b, v] * mask[b, idx[b, v]] listed per (doc,
+    argmax position) in increasing v, as `bucket_by_argmax_reference`
+    returns them. On a CUDA tensor v and coef hold B*V entries, of which the
+    first offsets[-1] are the lists (nnz is not read back to the host)."""
+    _check_no_grad(g)
+    if _device(g) == "cpu":
+        return bucket_by_argmax_reference(g, idx, mask)
+    lib = _bwd_lib()
+    check_bucket_args(g, idx, mask)
+    B, V = g.shape
+    L = mask.shape[1]
+    offsets = torch.empty((B * L + 1,), dtype=torch.int32, device=g.device)
+    entries = torch.empty((B * V, 2), dtype=torch.int32, device=g.device)
+    work = _workspace(lib, B, L, 0, V, g.device)
+    with torch.cuda.device(g.device):
+        rc = lib.maxpool_head_bwd_buckets(g.data_ptr(), idx.data_ptr(), mask.data_ptr(),
+                                          offsets.data_ptr(), entries.data_ptr(),
+                                          work.data_ptr(), B, L, V, _stream(g))
+    _raise_on(rc, "maxpool_head_bwd_buckets")
+    maxpool_head_bwd_buckets.launches += 1
+    return offsets, entries[:, 0], entries[:, 1].view(torch.float32)
 
 
 def maxpool_head_bwd_h(g, idx, mask, w):
-    """dh [B, L, D] fp32 from the upstream gradient g [B, V] fp32 and the
-    forward's argmax: the bwd_h kernel on a CUDA tensor (after
-    `argmax_order`), the plain version on the CPU."""
+    """dh [B, L, D] from the upstream gradient g [B, V] fp32 and the
+    forward's argmax: on a CUDA tensor the counting sort and the reduce over
+    its lists (dh in bf16, w's dtype), the plain version on the CPU (dh in
+    fp32)."""
     _check_no_grad(g, w)
     if _device(g) == "cpu":
         return maxpool_head_bwd_h_reference(g, idx, mask, w)
@@ -327,14 +393,11 @@ def maxpool_head_bwd_h(g, idx, mask, w):
     check_bwd_args(g, idx, mask, w, lib.maxpool_head_bwd_max_dim())
     B, V = g.shape
     L, D = mask.shape[1], w.shape[1]
-    if w.shape[0] != V:
-        raise ValueError(f"maxpool_head_bwd_h: w has {w.shape[0]} rows, g {V} columns")
-    keys, order = argmax_order(idx)
-    dh = torch.empty((B, L, D), dtype=torch.float32, device=g.device)
+    dh = torch.empty((B, L, D), dtype=torch.bfloat16, device=g.device)
+    work = _workspace(lib, B, L, D, V, g.device)
     with torch.cuda.device(g.device):
-        rc = lib.maxpool_head_bwd_h(g.data_ptr(), keys.data_ptr(), order.data_ptr(),
-                                    mask.data_ptr(), w.data_ptr(), dh.data_ptr(), B, L, D, V,
-                                    _stream(g))
+        rc = lib.maxpool_head_bwd_h(g.data_ptr(), idx.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                                    dh.data_ptr(), work.data_ptr(), B, L, D, V, _stream(g))
     _raise_on(rc, "maxpool_head_bwd_h")
     maxpool_head_bwd_h.launches += 1
     return dh
@@ -344,8 +407,9 @@ class MaxPoolHead(torch.autograd.Function):
     """The head with a gradient: forward `maxpool_head_argmax`, backward
     `maxpool_head_bwd_w` and `maxpool_head_bwd_h`. The gradients come back
     in the inputs' dtypes: with bf16 h and w (the cast copies of fp32
-    parameters) dh and dw are rounded to bf16 and flow on through the casts,
-    as in the JAX package's `astype` chain."""
+    parameters) dh and dw are rounded to bf16 (by the kernels themselves on
+    the card) and flow on through the casts, as in the JAX package's
+    `astype` chain."""
 
     @staticmethod
     def forward(ctx, h, mask, w, bias):
@@ -377,8 +441,10 @@ def maxpool_head_train(h, mask, w, bias) -> torch.Tensor:
 
 # plain integer counters: a wrapper counts the launches of its kernel, a
 # plain version its calls (chip_smoke.py shows from them which ran)
-for _f in (maxpool_head, maxpool_head_argmax, maxpool_head_bwd_w, maxpool_head_bwd_h):
+for _f in (maxpool_head, maxpool_head_argmax, maxpool_head_bwd_w, maxpool_head_bwd_buckets,
+           maxpool_head_bwd_h):
     _f.launches = 0
 for _f in (maxpool_head_reference, maxpool_head_argmax_reference,
-           maxpool_head_bwd_w_reference, maxpool_head_bwd_h_reference):
+           maxpool_head_bwd_w_reference, bucket_by_argmax_reference,
+           maxpool_head_bwd_h_reference):
     _f.calls = 0

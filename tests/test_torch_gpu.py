@@ -154,6 +154,17 @@ def _rel_ok(got, ref, tol=1e-3):
     return bool(((got - ref).abs() <= tol * ref.abs().clamp_min(1.0)).all())
 
 
+def _bf16_ok(got, ref, tol=1e-3):
+    """A bf16 kernel output against the fp32 plain version: the kernel sums
+    in fp32 in another order than the plain matmul (tol, as `_rel_ok`), then
+    rounds once to the nearest bf16, which moves a value by at most half a
+    bf16 ulp: 2^-8 of the rounded value."""
+    assert got.dtype == torch.bfloat16
+    got = got.float()
+    return bool(((got - ref).abs() <= tol * ref.abs().clamp_min(1.0)
+                 + 2.0 ** -8 * got.abs()).all())
+
+
 @pytest.mark.parametrize("B,L,D,V,holey", [
     (45, 64, 256, 30592, False),
     (6, 600, 256, 30592, True),
@@ -183,8 +194,8 @@ def test_training_kernels_match_plain_versions(cuda, B, L, D, V, holey):
     dead = ~mask.bool().any(dim=1)
     assert bool((pooled[dead] == 0).all())
     rdw, rdbias = mp.maxpool_head_bwd_w_reference(g, idx, mask, h)
-    assert _rel_ok(dw, rdw) and _rel_ok(dbias, rdbias)
-    assert _rel_ok(dh, mp.maxpool_head_bwd_h_reference(g, idx, mask, w))
+    assert _bf16_ok(dw, rdw) and _rel_ok(dbias, rdbias)
+    assert _bf16_ok(dh, mp.maxpool_head_bwd_h_reference(g, idx, mask, w))
     assert bool((dh[dead] == 0).all()) and bool((dh[mask == 0] == 0).all())
     assert torch.equal(mp.maxpool_head_argmax(h, mask, w, bias)[1], idx)
     assert torch.equal(mp.maxpool_head_bwd_w(g, idx, mask, h)[0], dw)
@@ -204,3 +215,100 @@ def test_head_function_on_the_card_matches_plain_autograd(cuda):
     (mp.maxpool_head_reference(hp, mask, wp, bp) * G).sum().backward()
     for got, ref in ((hk.grad, hp.grad), (wk.grad, wp.grad), (bk.grad, bp.grad)):
         assert _rel_ok(got.float(), ref, tol=1e-2)
+
+
+# ---- the backward kernels' own cases: bwd_h's counting sort, skew, zeros ---
+
+
+def _bwd_case(case, B, L, D, V, seed, device):
+    """(g, idx, mask, h, w) for the backward kernels alone, with idx made
+    directly (any position in [0, L)) rather than by the forward."""
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.normal(size=(B, L, D)).astype(np.float32)).to(device, torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(V, D)) * 0.05).astype(np.float32)).to(
+        device, torch.bfloat16)
+    lens = rng.integers(L // 2, L + 1, size=B)
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    idx = rng.integers(0, L, size=(B, V)).astype(np.int32)
+    g = rng.normal(size=(B, V)).astype(np.float32)
+    g *= rng.random((B, V)) < 0.5
+    if case == "skew":  # one position wins every v of each doc
+        idx[:] = (np.arange(B) % (L // 2))[:, None]
+    elif case == "g_zero":
+        g[:] = 0.0
+    elif case == "g_dense":  # no zero at all: nnz = B * V
+        g = rng.normal(size=(B, V)).astype(np.float32)
+        g[g == 0] = 1.0
+        mask[:] = 1
+    elif case == "masked_doc":
+        mask[1] = 0
+    return (torch.from_numpy(g).to(device), torch.from_numpy(idx).to(device),
+            torch.from_numpy(mask).to(device), h, w)
+
+
+# (case, B, L, D, V): the train step's shape; the worst skew; g all zero; g
+# with no zero; an all-masked doc; L = 600 (above 512, positions in one
+# window); D = 768 and 1024; a ragged vocab edge
+_BWD_CASES = [
+    ("random", 45, 64, 256, 30592),
+    ("skew", 45, 64, 256, 30592),
+    ("g_zero", 8, 64, 256, 4096),
+    ("g_dense", 8, 64, 256, 30592),
+    ("masked_doc", 6, 128, 256, 30592),
+    ("random", 6, 600, 256, 30592),
+    ("skew", 4, 600, 768, 30592),
+    ("random", 5, 200, 768, 30592),
+    ("masked_doc", 4, 70, 1024, 777),
+]
+
+
+@pytest.mark.parametrize("case,B,L,D,V", _BWD_CASES)
+def test_bwd_buckets_equal_plain_bucketing(cuda, case, B, L, D, V):
+    """bwd_h's counting sort on the card lists the same entries in the same
+    order with the same bits as the plain version; one counted launch."""
+    g, idx, mask, _, _ = _bwd_case(case, B, L, D, V, seed=B + L, device=cuda)
+    before = mp.maxpool_head_bwd_buckets.launches
+    off, v, coef = mp.maxpool_head_bwd_buckets(g, idx, mask)
+    torch.cuda.synchronize()
+    assert mp.maxpool_head_bwd_buckets.launches == before + 1
+    roff, rv, rcoef = mp.bucket_by_argmax_reference(g, idx, mask)
+    nnz = int(roff[-1])
+    assert torch.equal(off, roff)
+    assert torch.equal(v[:nnz], rv)
+    assert torch.equal(coef[:nnz].view(torch.int32), rcoef.view(torch.int32))
+    if case == "g_zero":
+        assert nnz == 0
+    if case == "g_dense":
+        assert nnz == B * V
+
+
+@pytest.mark.parametrize("case,B,L,D,V", _BWD_CASES)
+def test_bwd_kernels_match_plain_versions(cuda, case, B, L, D, V):
+    """bwd_w and bwd_h against their plain versions (bf16 outputs, see
+    `_bf16_ok`), masked positions exactly 0, two launches bit-equal."""
+    g, idx, mask, h, w = _bwd_case(case, B, L, D, V, seed=B * L + D, device=cuda)
+    dw, dbias = mp.maxpool_head_bwd_w(g, idx, mask, h)
+    dh = mp.maxpool_head_bwd_h(g, idx, mask, w)
+    torch.cuda.synchronize()
+    assert dw.dtype == dh.dtype == torch.bfloat16 and dbias.dtype == torch.float32
+    rdw, rdbias = mp.maxpool_head_bwd_w_reference(g, idx, mask, h)
+    assert _bf16_ok(dw, rdw) and _rel_ok(dbias, rdbias)
+    assert _bf16_ok(dh, mp.maxpool_head_bwd_h_reference(g, idx, mask, w))
+    assert bool((dh[mask == 0] == 0).all())
+    if case == "g_zero":
+        assert not dw.any() and not dbias.any() and not dh.any()
+    dw2, dbias2 = mp.maxpool_head_bwd_w(g, idx, mask, h)
+    assert torch.equal(dw2, dw) and torch.equal(dbias2, dbias)
+    assert torch.equal(mp.maxpool_head_bwd_h(g, idx, mask, w), dh)
+
+
+def test_bwd_kernels_reject_what_they_cannot_take(cuda):
+    g, idx, mask, h, w = _bwd_case("random", 2, 8, 32, 64, seed=0, device=cuda)
+    with pytest.raises(ValueError):
+        mp.maxpool_head_bwd_h(g, idx, mask, w[:40])  # w rows != V
+    with pytest.raises(ValueError):
+        mp.maxpool_head_bwd_w(g, idx, mask, h[:, :5].contiguous())  # h's L != mask's
+    with pytest.raises(TypeError):
+        mp.maxpool_head_bwd_buckets(g.double(), idx, mask)
+    with pytest.raises(ValueError):
+        mp.maxpool_head_bwd_buckets(g, idx, mask.cpu())

@@ -67,12 +67,21 @@ def test_port_sources_never_name_jax():
                             or s.startswith("from opensearch_sparse_model_tuning_sample_tpu")), (f, s)
 
 
-def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py runs on the card's machine, which has no JAX."""
-    for line in open(os.path.join(REPO, "chip_smoke.py")).read().splitlines():
+def _assert_imports_no_jax(script):
+    for line in open(os.path.join(REPO, script)).read().splitlines():
         s = line.strip()
         is_import = s.startswith(("import ", "from "))
         assert not (is_import and ("jax" in s or "sample_tpu" in s)), s
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on the card's machine, which has no JAX."""
+    _assert_imports_no_jax("chip_smoke.py")
+
+
+def test_compare_head_kernels_imports_no_jax():
+    """compare_head_kernels.py runs on the card's machine too."""
+    _assert_imports_no_jax("compare_head_kernels.py")
 
 
 @pytest.mark.parametrize("request_", [None, "cuda"])
