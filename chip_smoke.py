@@ -4,8 +4,9 @@ with one CUDA card (an NVIDIA H100).
 It builds every kernel of the ported slices from the sources in this
 checkout (one nvcc per source, all at once), holds each kernel against its
 plain PyTorch version on the card at the shapes the main path gives it (and
-on the main path's own batches), times ablation builds of the ingest head
-kernel to show where its time goes, and drives the main path once through
+on the main path's own batches; the training forward's argmax also on exact
+integer ties), times ablation builds of the head's two forward kernels to
+show where their time goes, and drives the main path once through
 the entry points a user calls, at the full `mini` width on the
 `synthetic-rich` task: `cli.mine` -> `cli.train_ir` (the
 `config_infonce_synthetic` recipe, 50 steps from a seeded random init) ->
@@ -210,13 +211,47 @@ _EPILOGUE = (
     "        run[mt][1] = fmaxf(run[mt][1], acc[mt][2]);\n      }\n      continue;\n"
     "      // accumulator register 4j + 2hh + e: vocab row warp*16 + g + 8hh of",
 )
+# in `chunk_products` (both kernels') and `produce`; in this order, as the
+# last release's text lies inside the one before it
 _H = [
-    ("        mbar_wait(full + s * 8, ph);\n", ""),
-    ("          if (lane == 0) mbar_arrive(empty + prev * 8);\n", ""),
+    ("0);\n    mbar_wait(full + s * 8, ph);\n", "0);\n"),
     ("      if (lane == 0) mbar_arrive(empty + prev * 8);\n", ""),
+    ("  if (lane == 0) mbar_arrive(empty + prev * 8);\n", ""),
     ("  for (int b = p; b < B; b += kConsumerWGs) {", "  for (int b = p; b < 0; b += kConsumerWGs) {"),
 ]
-ABLATIONS = {"kernel": [], "no_epilogue": [_EPILOGUE], "no_h": _H, "mma_only": [_EPILOGUE] + _H}
+# the training forward's chunk epilogue (bias, mask, chunk max, position
+# search, running max and index) cut to one max per row
+_ARGMAX_EPILOGUE = (
+    "  // training epilogue: register 4j + 2hh + e is row warp*16 + g + 8hh of",
+    "#pragma unroll\n  for (int mt = 0; mt < MT; ++mt) {\n"
+    "    run[mt][0] = fmaxf(run[mt][0], acc[mt][0]);\n"
+    "    run[mt][1] = fmaxf(run[mt][1], acc[mt][2]);\n  }\n  return;\n"
+    "  // training epilogue: register 4j + 2hh + e is row warp*16 + g + 8hh of",
+)
+# the ingest kernel held to a 128-row vocab tile, as the training forward
+# was when it was a flag on the ingest kernel
+_MT2 = ("constexpr int kIngestMaxMT = 4;", "constexpr int kIngestMaxMT = 2;")
+# name: (entry point, edits); "ingest" is maxpool_head_bf16, "argmax" the
+# training forward maxpool_head_argmax_bf16
+ABLATIONS = {
+    "kernel": ("ingest", []),
+    "no_epilogue": ("ingest", [_EPILOGUE]),
+    "no_h": ("ingest", _H),
+    "mma_only": ("ingest", [_EPILOGUE] + _H),
+    "ingest_mt2": ("ingest", [_MT2]),
+    "argmax": ("argmax", []),
+    "argmax_no_epilogue": ("argmax", [_ARGMAX_EPILOGUE]),
+    "argmax_no_turns": ("argmax", [("const bool take_turns = stages >= kblocks;",
+                                    "const bool take_turns = false;")]),
+    "argmax_turns_always": ("argmax", [("const bool take_turns = stages >= kblocks;",
+                                        "const bool take_turns = true;")]),
+    "argmax_no_search": ("argmax", [(
+        "        if (acc[mt][4 * (i >> 1) + 2 * hh + (i & 1)] == cm) p = 8 * (i >> 1) + (i & 1);\n",
+        "")]),
+}
+INGEST_ABLATIONS = ("kernel", "no_epilogue", "no_h", "mma_only")
+ARGMAX_ABLATIONS = ("kernel", "ingest_mt2", "argmax", "argmax_no_epilogue", "argmax_no_turns",
+                    "argmax_turns_always", "argmax_no_search")
 
 
 def _ablation_source(edits):
@@ -234,15 +269,19 @@ def _build_ablations(out_dir):
     from opensearch_sparse_model_tuning_sample_torch.ops.kernel_build import NVCC_FLAGS, _nvcc
 
     os.makedirs(out_dir, exist_ok=True)
+    sources = {name: _ablation_source(edits) for name, (_, edits) in ABLATIONS.items()}
+    first = {}  # one build per distinct source ("kernel" and "argmax" share one)
+    for name, src in sources.items():
+        first.setdefault(src, name)
     procs = {}
-    for name, edits in ABLATIONS.items():
+    for src, name in first.items():
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
-            f.write(_ablation_source(edits))
+            f.write(src)
         procs[name] = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(out_dir, f"{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
+    built = {}
     for name, proc in procs.items():
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
@@ -251,40 +290,65 @@ def _build_ablations(out_dir):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.maxpool_head_bf16.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.maxpool_head_bf16.restype = i
-        libs[name] = lib
-    return libs
+        lib.maxpool_head_argmax_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.maxpool_head_argmax_bf16.restype = i
+        built[name] = lib
+    return {name: built[first[src]] for name, src in sources.items()}
 
 
-def phase_ablation(dev, shapes):
-    """Where the head kernel's time goes: the kernel as built and three
-    copies with a part taken out, each with the port's nvcc flags, timed at
-    `shapes` (best of two passes, order A B C D D C B A). The copies compute
-    wrong results on purpose; only their times mean anything:
-      no_epilogue  the per-chunk epilogue (bias, mask, running max) cut to
-                   one max per row: what the epilogue costs;
+def ablation_times(libs, names, h, mask, w, bias):
+    """Best of two passes (order A B C C B A) of each named copy on these
+    inputs, ms."""
+    B, L, D = h.shape
+    V = w.shape[0]
+    out = torch.empty(B, V, device=h.device)
+    idx = torch.empty(B, V, dtype=torch.int32, device=h.device)
+
+    def launch(name):
+        lib, stream = libs[name], torch.cuda.current_stream().cuda_stream
+        if ABLATIONS[name][0] == "argmax":
+            rc = lib.maxpool_head_argmax_bf16(h.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                                              bias.data_ptr(), out.data_ptr(), idx.data_ptr(),
+                                              B, L, D, V, stream)
+        else:
+            rc = lib.maxpool_head_bf16(h.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                                       bias.data_ptr(), out.data_ptr(), B, L, D, V, stream)
+        check(rc == 0, f"ablation launch of {name}: CUDA error {rc}")
+
+    best = {}
+    for name in list(names) + list(names)[::-1]:
+        ms = cuda_ms(lambda: launch(name), iters=20)
+        best[name] = min(best.get(name, ms), ms)
+    torch.cuda.synchronize()
+    print(f"ablation B={B} L={L} D={D} V={V}: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in best.items()), flush=True)
+    return best
+
+
+def phase_ablation(dev, libs, shapes, names):
+    """Where the head kernels' time goes: each kernel as built and copies
+    with a part taken out or changed, each with the port's nvcc flags, timed
+    at `shapes`. The copies compute wrong results on purpose; only their
+    times mean anything:
+      no_epilogue  the ingest kernel's per-chunk epilogue (bias, mask,
+                   running max) cut to one max per row: what it costs;
       no_h         no h box loaded or waited for (the products read a stale
                    ring): what streaming h through the rings costs;
-      mma_only     both: the wgmma issue and the w tile load alone."""
-    libs = _build_ablations(os.path.join(HERE, "build", "maxpool_ablation"))
+      mma_only     both: the wgmma issue and the w tile load alone;
+      ingest_mt2   the ingest kernel at a 128-row vocab tile: against
+                   `kernel`, what the smaller tile costs;
+      argmax       the training forward as built: against `kernel`, what
+                   the argmax costs;
+      argmax_no_epilogue  its chunk epilogue cut to one max per row;
+      argmax_no_turns     its warpgroups issue without taking turns;
+      argmax_turns_always  turns also where a ring holds less than a
+                   chunk (at D = 768: against `argmax`, why they are off);
+      argmax_no_search    its epilogue without the position search."""
     times = {}
     for i, (B, L, D, V) in enumerate(shapes):
         h, mask, w, bias = maxpool_inputs(B, L, D, V, seed=i, dev=dev)
-        out = torch.empty(B, V, device=dev)
-
-        def launch(lib):
-            rc = lib.maxpool_head_bf16(h.data_ptr(), mask.data_ptr(), w.data_ptr(),
-                                       bias.data_ptr(), out.data_ptr(), B, L, D, V,
-                                       torch.cuda.current_stream().cuda_stream)
-            check(rc == 0, f"ablation launch: CUDA error {rc}")
-
-        best = {}
-        for name in list(libs) + list(libs)[::-1]:
-            ms = cuda_ms(lambda: launch(libs[name]), iters=20)
-            best[name] = min(best.get(name, ms), ms)
-        torch.cuda.synchronize()
-        print(f"ablation B={B} L={L} D={D} V={V}: "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in best.items()), flush=True)
-        times[f"{B}x{L}x{D}x{V}"] = best
+        times[f"{B}x{L}x{D}x{V}"] = ablation_times(libs, names, h, mask, w, bias)
+        del h, mask, w, bias
     return times
 
 
@@ -403,6 +467,8 @@ def train_kernel_rows(name, h, mask, w, bias, g):
     check(dw.dtype == dh.dtype == torch.bfloat16 and dbias.dtype == torch.float32,
           "the backward kernels write dw and dh in bf16, dbias in fp32")
     err_f = _close(pooled, mp.maxpool_head_reference(h, mask, w, bias), f"argmax forward at {name}")
+    check(torch.equal(pooled, mp.maxpool_head(h, mask, w, bias)),
+          f"the training forward's out is the ingest kernel's bit for bit at {name}")
     check(bool(((idx >= 0) & (idx < L)).all()), f"argmax positions in range at {name}")
     # near-ties may pick another position than the plain argmax: compare values
     _close(value_at(h, mask, w, bias, idx), pooled, f"logit at the kernel's argmax at {name}")
@@ -504,6 +570,79 @@ def phase_train_kernels(dev, shapes):
         del h, mask, w, bias, g
         torch.cuda.empty_cache()
     return out
+
+
+def tie_inputs(case, B, L, D, V, seed, dev):
+    """h, w in {-1, 0, 1} and an integer bias: every logit is a small
+    integer, exact in fp32 in any order, so ties are everywhere and the
+    plain argmax is the exact answer. holey: holey_inputs' mask; chunk_tie:
+    equal rows at positions 3 and 70 above the rest; quad_tie: equal rows
+    at 2, 5 and 33, held by three lanes of a quad; negative: every logit
+    < 0, so a masked position's 0 wins (row 0 a hole at 5, row 1 padded from
+    40, row 2 all masked)."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(-1, 2, size=(B, L, D))
+    w = rng.integers(-1, 2, size=(V, D))
+    bias = rng.integers(-2, 3, size=V)
+    mask = torch.ones(B, L, dtype=torch.int32)
+    if case == "holey":
+        mask = holey_inputs(B, L, 8, 8, seed, "cpu")[1]
+    elif case == "chunk_tie":
+        h[:, 3] = h[:, 70] = 32 * rng.integers(-1, 2, size=(B, D))
+    elif case == "quad_tie":
+        h[:, 2] = h[:, 5] = h[:, 33] = 32 * rng.integers(-1, 2, size=(B, D))
+    elif case == "negative":
+        h, w = np.abs(h), np.abs(w)
+        bias = -(D + 1) - np.abs(bias)
+        mask[0, 5] = 0
+        mask[1, 40:] = 0
+        mask[2] = 0
+    return (torch.from_numpy(h).to(dev, torch.bfloat16), mask.to(dev),
+            torch.from_numpy(w).to(dev, torch.bfloat16),
+            torch.from_numpy(bias).to(dev, torch.float32))
+
+
+# (case, B, L, D, V): the train step's shape; L = 100 (not a multiple of 64)
+# with the unpadded vocab (a partial last tile); L = 512 (eight chunks); the
+# two built ties; masked zeros over negative logits; D = 768
+TIE_CASES = [("random", 45, 64, 256, 30592), ("random", 45, 100, 256, 30522),
+             ("holey", 45, 512, 256, 30592), ("chunk_tie", 45, 128, 256, 30592),
+             ("quad_tie", 45, 64, 256, 30592), ("negative", 8, 100, 256, 30522),
+             ("random", 8, 512, 768, 30592)]
+
+
+def phase_argmax_ties(dev):
+    """The training forward on exact integer logits: idx equals the plain
+    argmax exactly, out equals the plain version and the ingest kernel bit
+    for bit, and two launches agree bit for bit."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
+
+    for i, (case, B, L, D, V) in enumerate(TIE_CASES):
+        h, mask, w, bias = tie_inputs(case, B, L, D, V, seed=200 + i, dev=dev)
+        pooled, idx = mp.maxpool_head_argmax(h, mask, w, bias)
+        want, want_idx = mp.maxpool_head_argmax_reference(h, mask, w, bias)
+        what = f"{case} [{B}, {L}, {D}, {V}]"
+        check(torch.equal(idx, want_idx), f"training forward idx equals the plain argmax at {what}")
+        check(torch.equal(pooled, want) and torch.equal(pooled, mp.maxpool_head(h, mask, w, bias)),
+              f"training forward out equals the plain version and the ingest kernel at {what}")
+        again = mp.maxpool_head_argmax(h, mask, w, bias)
+        check(torch.equal(again[0], pooled) and torch.equal(again[1], idx),
+              f"two launches of the training forward agree bit for bit at {what}")
+        if case == "chunk_tie":
+            check(int((idx == 3).sum()) > B * V // 4 and not bool((idx == 70).any()),
+                  "the earlier chunk keeps a tie")
+        if case == "quad_tie":
+            check(int((idx == 2).sum()) > B * V // 4 and not bool(((idx == 5) | (idx == 33)).any()),
+                  "the quad keeps the smallest tied position")
+        if case == "negative":
+            check(bool((idx[0] == 5).all() and (idx[1] == 40).all() and (idx[2] == 0).all())
+                  and not bool(pooled[:3].any()), "a masked position's 0 beats negative logits")
+        del h, mask, w, bias, pooled, idx, want, want_idx, again
+    torch.cuda.empty_cache()
+    print(f"training forward on {len(TIE_CASES)} exact-tie cases ("
+          + ", ".join(f"{c} [{B}, {L}, {D}, {V}]" for c, B, L, D, V in TIE_CASES)
+          + "): idx equals the plain argmax, out the plain version's and the ingest kernel's, "
+          "two launches bit-equal", flush=True)
 
 
 def smoke_recipe(dev):
@@ -843,7 +982,7 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
                       for e in top), flush=True)
     head = {}
     for e in on_card:
-        found = re.search(r"maxpool_head_kernel<[^>]*>|bwd_\w+|bucket_\w+", e.key)
+        found = re.search(r"maxpool_head(?:_argmax)?_kernel<[^>]*>|bwd_\w+|bucket_\w+", e.key)
         if found:
             head[found.group(0)] = head.get(found.group(0), 0.0) + e.self_device_time_total / n / 1e3
     print("head kernels a train step (torch.profiler device time): "
@@ -914,17 +1053,24 @@ def main():
     ingest_batch = [t.cpu() for t in batch]
     del batch, model
     print(f"kernel phase {time.time() - t0:.1f} s", flush=True)
+    # the training forward's ablations at the train step's L = 64 bucket, the
+    # longest, L = 512 (eight chunks a doc), and D = 768 (2-stage rings); its
+    # main-path batch later
+    train_shapes = [(45, 64, 256, 30592), (45, 128, 256, 30592), (45, 512, 256, 30592),
+                    (8, 512, 768, 30592)]
     t0 = time.time()
-    ablation = phase_ablation(dev, shapes)
+    libs = _build_ablations(os.path.join(HERE, "build", "maxpool_ablation"))
+    ablation = phase_ablation(dev, libs, shapes, INGEST_ABLATIONS)
+    ablation_argmax = phase_ablation(dev, libs, [train_shapes[i] for i in (0, 2, 3)],
+                                     ARGMAX_ABLATIONS)
     print(f"ablation phase {time.time() - t0:.1f} s", flush=True)
 
     # 4. the training kernels against their plain versions: the train step's
     # doc batch is 15 queries x (1 pos + 2 negs) = 45 docs at L = 64; 128 and
     # 512 are the longer buckets; D = 768 the base width
     t0 = time.time()
-    train_shapes = [(45, 64, 256, 30592), (45, 128, 256, 30592), (45, 512, 256, 30592),
-                    (8, 512, 768, 30592)]
     train_rows = phase_train_kernels(dev, train_shapes)
+    phase_argmax_ties(dev)
     print(f"train-kernel phase {time.time() - t0:.1f} s", flush=True)
 
     # 5. the main path: mine -> train -> evaluate, through the entry points
@@ -951,6 +1097,8 @@ def main():
         1 + path["cfg"]["sample_num_one_query"])
     profile = profile_steps(path["trainer"], np_batch, 1e3 * docs_per_step / path["docs_per_s"])
     main_train = train_kernel_rows("main-path batch", *captured["args"], captured["g"])
+    ablation_argmax["main-path batch"] = ablation_times(libs, ARGMAX_ABLATIONS,
+                                                        *captured["args"])
     # the head's inputs on the main path, for compare_head_kernels.py
     torch.save({"ingest": ingest_batch,
                 "train": [t.cpu() for t in captured["args"] + (captured["g"],)]},
@@ -1031,6 +1179,7 @@ def main():
             "inputs": "main-path batch",
             "launches_per_train_step": path["train"][0][name] / path["steps"],
             **({"bucket_ms": r["bucket_ms"]} if "bucket_ms" in r else {}),
+            **({"ablation_ms": ablation_argmax} if name.endswith("argmax") else {}),
             "nnz": r["nnz"],
             "all_shapes": [t[name] for t in train_rows] + [r],
         })

@@ -19,7 +19,8 @@ Every time comes from `cuda_ms` of the `chip_smoke.py` beside this script,
 twice: with the stream asleep on the card while the host queues the runs
 (device time), and without (host-paced: a kernel shorter than its wrapper's
 Python then reads the host's launch rate). Each output is held against its
-checkout's plain version. The last line is a JSON object
+checkout's plain version (the training forward's values, and the logit at
+each position it names). The last line is a JSON object
 {"runs": [{"root", "ms", "host_paced_ms", "max_abs_err"}, ...]}; before it,
 the card's name and power limit.
 """
@@ -58,7 +59,7 @@ def time_root(root, inputs):
     ih, imask, iw, ibias = (t.to(dev) for t in saved["ingest"])
     h, mask, w, bias, g = (t.to(dev) for t in saved["train"])
     with torch.no_grad():
-        _, idx = mp.maxpool_head_argmax(h, mask, w, bias)
+        pooled, idx = mp.maxpool_head_argmax(h, mask, w, bias)
         fns = {
             "maxpool_head": lambda: mp.maxpool_head(ih, imask, iw, ibias),
             "maxpool_head_argmax": lambda: mp.maxpool_head_argmax(h, mask, w, bias),
@@ -73,6 +74,14 @@ def time_root(root, inputs):
             "maxpool_head": cs._close(fns["maxpool_head"](),
                                       mp.maxpool_head_reference(ih, imask, iw, ibias),
                                       f"maxpool_head of {root}"),
+            # the values against the plain head, and the logit at each
+            # argmax against the value (near-ties may name another position
+            # than the plain argmax)
+            "maxpool_head_argmax": max(
+                cs._close(pooled, mp.maxpool_head_reference(h, mask, w, bias),
+                          f"maxpool_head_argmax of {root}"),
+                cs._close(cs.value_at(h, mask, w, bias, idx), pooled,
+                          f"the logit at maxpool_head_argmax's positions of {root}")),
             "maxpool_head_bwd_w": cs._close_bf16(fns["maxpool_head_bwd_w_to_bf16"](),
                                                  mp.maxpool_head_bwd_w_reference(g, idx, mask, h)[0],
                                                  f"bwd_w of {root}"),

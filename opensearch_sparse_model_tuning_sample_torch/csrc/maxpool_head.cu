@@ -65,15 +65,10 @@
 // cudaGetLastError(). The TMA descriptors are encoded on the host for every
 // launch through the driver entry point (no -lcuda at link time).
 //
-// Training variant (kArgmax, `maxpool_head_argmax_bf16`): the same kernel
-// also writes idx[b, v], the position l that gave out[b, v], for the
-// backward (csrc/maxpool_head_bwd.cu). Among equal maxima the smallest
-// position wins; a masked chunk that is skipped reports its first position
-// (masked, so it carries no gradient). The running index costs registers
-// beside the running max: at the 256-row tile ptxas spills (168 registers,
-// 160 bytes), at the 128-row tile it does not (159), so the argmax variant
-// takes at most 128 rows (kArgmaxMaxMT). The ingest instantiation
-// (kArgmax = false) is unchanged.
+// The training forward (`maxpool_head_argmax_bf16`, which also writes the
+// position of each maximum) is a kernel of its own below,
+// `maxpool_head_argmax_kernel`: the same rings, products and tiles, in a
+// warp-specialised block of three warpgroups with `setmaxnreg`.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -90,7 +85,7 @@ constexpr int kConsumerWGs = 2;               // warpgroups, one ring each
 constexpr int kThreads = kConsumerWGs * 128 + kConsumerWGs * 32;  // + a producer warp per ring
 constexpr int kMaxStages = 8;
 constexpr int kMaxSmem = 232448;              // dynamic shared memory a block may use
-constexpr int kArgmaxMaxMT = 2;               // the argmax variant's tile: at most 128 rows
+constexpr int kIngestMaxMT = 4;               // the ingest kernel's tile: at most 256 rows
 
 struct Plan {
   int mt;       // m64 tiles per warpgroup (TV = 64 * mt); 0 if D does not fit
@@ -105,7 +100,7 @@ Plan make_plan(int D, int max_mt = 4) {
   for (int mt = 4; mt >= 1; mt /= 2) {
     if (mt > max_mt) continue;
     const size_t fixed = 1024 /* alignment slack */ + (size_t)p.kblocks * mt * 64 * kBoxK * 2 +
-                         (size_t)p.kblocks * 8 /* w barriers */;
+                         (size_t)p.kblocks * 8 /* w barriers */ + 16 /* turn barriers */;
     if (fixed + 2 * per_stage > (size_t)kMaxSmem) continue;
     const size_t stages = ((size_t)kMaxSmem - fixed) / per_stage;
     p.mt = mt;
@@ -233,12 +228,14 @@ struct Smem {
   uint32_t w_bar;  // kblocks barriers
   uint32_t full;   // 2 * stages barriers
   uint32_t empty;  // 2 * stages barriers
+  uint32_t turn;   // 2 barriers: the training forward's turns (below)
 };
 
 // One producer warp: the h boxes of every live chunk of docs p, p + 2, ...
 // into ring p.
-__device__ void produce(int p, const Smem& sm, int stages, int kblocks, const CUtensorMap* hmap,
-                        const int32_t* __restrict__ mask, int B, int L) {
+__device__ __forceinline__ void produce(int p, const Smem& sm, int stages, int kblocks,
+                                        const CUtensorMap* hmap, const int32_t* __restrict__ mask,
+                                        int B, int L) {
   const int lane = threadIdx.x & 31;
   const uint32_t ring = sm.ring + p * stages * kBoxBytes;
   const uint32_t full = sm.full + p * stages * 8, empty = sm.empty + p * stages * 8;
@@ -264,14 +261,58 @@ __device__ void produce(int p, const Smem& sm, int stages, int kblocks, const CU
     for (int kb = 0; kb < kblocks; ++kb) mbar_wait(sm.w_bar + kb * 8, 0);
 }
 
-// One consumer warpgroup: docs wg, wg + 2, ... against all TV rows.
-template <int MT, bool kArgmax>
+// The products of one live chunk of a doc: acc[mt] = the w tile's rows mt
+// against the chunk's 64 positions, over every K box of the consumer's
+// ring, each box handed back to the producer as soon as its products are
+// done (wait_group 1 while the next box's run). `issued()` runs once the
+// last box's products are issued; returns with all of them done.
+template <int MT, class Issued>
+__device__ __forceinline__ void chunk_products(float (&acc)[MT][32], const Smem& sm, uint32_t ring,
+                                               uint32_t full, uint32_t empty, int stages,
+                                               int kblocks, int& s, int& ph, Issued issued) {
+  constexpr uint32_t kTileBytes = 64 * MT * kBoxK * 2;  // one K box of the w tile
+  const int lane = threadIdx.x & 31;
+  int prev = 0;
+  for (int kb = 0; kb < kblocks; ++kb) {
+    mbar_wait(sm.w_bar + kb * 8, 0);
+    mbar_wait(full + s * 8, ph);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+    wgmma_fence();
+    const uint32_t a_box = sm.w + kb * kTileBytes;
+    const uint32_t b_box = ring + s * kBoxBytes;
+#pragma unroll
+    for (int kk = 0; kk < kBoxK / 16; ++kk) {
+      const uint64_t bd = smem_desc(b_box + kk * 32);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        wgmma_m64n64k16(acc[mt], smem_desc(a_box + mt * 64 * 128 + kk * 32), bd,
+                        (kb | kk) != 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+    if (kb > 0) {
+      wgmma_wait<1>();  // the previous box's products are done
+      if (lane == 0) mbar_arrive(empty + prev * 8);
+    }
+    prev = s;
+    if (++s == stages) { s = 0; ph ^= 1; }
+  }
+  issued();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
+  if (lane == 0) mbar_arrive(empty + prev * 8);
+}
+
+// One consumer warpgroup of the ingest kernel: docs wg, wg + 2, ... against
+// all TV rows.
+template <int MT>
 __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
                         const int32_t* __restrict__ mask, const float* __restrict__ bias,
-                        float* __restrict__ out, int32_t* __restrict__ idx_out, int B, int L,
-                        int V) {
+                        float* __restrict__ out, int B, int L, int V) {
   constexpr int TV = 64 * MT;
-  constexpr uint32_t kTileBytes = TV * kBoxK * 2;  // one K box of the w tile
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // accumulator row g (and g+8), columns 2t, 2t+1
   const int v0 = blockIdx.x * TV;
@@ -296,12 +337,8 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
 
   for (int b = wg; b < B; b += kConsumerWGs) {
     float run[MT][2];
-    int arg[MT][2];  // position of run (argmax variant only)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      run[mt][0] = run[mt][1] = -INFINITY;
-      arg[mt][0] = arg[mt][1] = 0;
-    }
+    for (int mt = 0; mt < MT; ++mt) run[mt][0] = run[mt][1] = -INFINITY;
     const int32_t* mrow = mask + (size_t)b * L;
 
     for (int l0 = 0; l0 < L; l0 += kNc) {
@@ -313,50 +350,10 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            if constexpr (kArgmax) {
-              if (0.f > run[mt][hh]) {
-                run[mt][hh] = 0.f;
-                arg[mt][hh] = l0;
-              }
-            } else {
-              run[mt][hh] = fmaxf(run[mt][hh], 0.f);
-            }
-          }
+          for (int hh = 0; hh < 2; ++hh) run[mt][hh] = fmaxf(run[mt][hh], 0.f);
         continue;
       }
-
-      int prev = 0;
-      for (int kb = 0; kb < kblocks; ++kb) {
-        mbar_wait(sm.w_bar + kb * 8, 0);
-        mbar_wait(full + s * 8, ph);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
-        wgmma_fence();
-        const uint32_t a_box = sm.w + kb * kTileBytes;
-        const uint32_t b_box = ring + s * kBoxBytes;
-#pragma unroll
-        for (int kk = 0; kk < kBoxK / 16; ++kk) {
-          const uint64_t bd = smem_desc(b_box + kk * 32);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            wgmma_m64n64k16(acc[mt], smem_desc(a_box + mt * 64 * 128 + kk * 32), bd,
-                            (kb | kk) != 0);
-        }
-        wgmma_commit();
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
-        if (kb > 0) {
-          wgmma_wait<1>();  // the previous box's products are done
-          if (lane == 0) mbar_arrive(empty + prev * 8);
-        }
-        prev = s;
-        if (++s == stages) { s = 0; ph ^= 1; }
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
-      if (lane == 0) mbar_arrive(empty + prev * 8);
+      chunk_products<MT>(acc, sm, ring, full, empty, stages, kblocks, s, ph, [] {});
 
       // accumulator register 4j + 2hh + e: vocab row warp*16 + g + 8hh of
       // each m64 tile, position l0 + 8j + 2t + e
@@ -373,16 +370,7 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh) {
               const float x = (acc[mt][4 * j + 2 * hh + e] + bias_r[mt][hh]) * m;
-              if constexpr (kArgmax) {
-                // a thread visits its positions in increasing order, so a
-                // strict > keeps the first of equal maxima
-                if (present && x > run[mt][hh]) {
-                  run[mt][hh] = x;
-                  arg[mt][hh] = l0 + c;
-                }
-              } else {
-                if (present) run[mt][hh] = fmaxf(run[mt][hh], x);
-              }
+              if (present) run[mt][hh] = fmaxf(run[mt][hh], x);
             }
         }
     }
@@ -393,36 +381,18 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
       for (int hh = 0; hh < 2; ++hh) {
         float r = run[mt][hh];
         const int v = v0 + mt * 64 + warp * 16 + g + hh * 8;
-        if constexpr (kArgmax) {
-          int a = arg[mt][hh];
-#pragma unroll
-          for (int off = 1; off <= 2; off *= 2) {
-            const float ro = __shfl_xor_sync(0xffffffffu, r, off);
-            const int ao = __shfl_xor_sync(0xffffffffu, a, off);
-            if (ro > r || (ro == r && ao < a)) {
-              r = ro;
-              a = ao;
-            }
-          }
-          if (t == 0 && v < V) idx_out[(size_t)b * V + v] = a;
-        } else {
-          r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
-          r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
-        }
+        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
         if (t == 0 && v < V) out[(size_t)b * V + v] = r;
       }
   }
 }
 
-template <int MT, bool kArgmax>
-__global__ void __launch_bounds__(kThreads, 1)
-maxpool_head_kernel(const __grid_constant__ CUtensorMap hmap,
-                    const __grid_constant__ CUtensorMap wmap,
-                    const int32_t* __restrict__ mask, const float* __restrict__ bias,
-                    float* __restrict__ out, int32_t* __restrict__ idx_out, int B, int L, int V,
-                    int kblocks, int stages) {
+// Shared memory carve-up and the block's w tile, loaded once by thread 0.
+template <int MT>
+__device__ __forceinline__ Smem block_setup(unsigned char* smem_raw, const CUtensorMap* wmap,
+                                            int kblocks, int stages) {
   constexpr int TV = 64 * MT;
-  extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   Smem sm;
   sm.w = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
@@ -430,28 +400,268 @@ maxpool_head_kernel(const __grid_constant__ CUtensorMap hmap,
   sm.w_bar = sm.ring + kConsumerWGs * stages * kBoxBytes;
   sm.full = sm.w_bar + kblocks * 8;
   sm.empty = sm.full + kConsumerWGs * stages * 8;
-
-  const int warp = threadIdx.x >> 5;
+  sm.turn = sm.empty + kConsumerWGs * stages * 8;
   if (threadIdx.x == 0) {
     for (int kb = 0; kb < kblocks; ++kb) mbar_init(sm.w_bar + kb * 8, 1);
     for (int i = 0; i < kConsumerWGs * stages; ++i) {
       mbar_init(sm.full + i * 8, 1);
       mbar_init(sm.empty + i * 8, 4);  // one arrival per consumer warp
     }
+    for (int i = 0; i < kConsumerWGs; ++i) mbar_init(sm.turn + i * 8, 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     // the block's w tile, once
     const uint32_t w_bytes = TV * kBoxK * 2;
     for (int kb = 0; kb < kblocks; ++kb) {
       mbar_expect_tx(sm.w_bar + kb * 8, w_bytes);
-      tma_load_2d(sm.w + kb * w_bytes, &wmap, kb * kBoxK, blockIdx.x * TV, sm.w_bar + kb * 8);
+      tma_load_2d(sm.w + kb * w_bytes, wmap, kb * kBoxK, blockIdx.x * TV, sm.w_bar + kb * 8);
     }
   }
   __syncthreads();
+  return sm;
+}
 
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+maxpool_head_kernel(const __grid_constant__ CUtensorMap hmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const int32_t* __restrict__ mask, const float* __restrict__ bias,
+                    float* __restrict__ out, int B, int L, int V, int kblocks, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = block_setup<MT>(smem_raw, &wmap, kblocks, stages);
+  const int warp = threadIdx.x >> 5;
   if (warp >= kConsumerWGs * 4)
     produce(warp - kConsumerWGs * 4, sm, stages, kblocks, &hmap, mask, B, L);
   else
-    consume<MT, kArgmax>(warp >> 2, sm, stages, kblocks, mask, bias, out, idx_out, B, L, V);
+    consume<MT>(warp >> 2, sm, stages, kblocks, mask, bias, out, B, L, V);
+}
+
+// ---- the training forward -------------------------------------------------
+//
+// out as above and idx[b, v] int32, the position l that gave out[b, v], for
+// the backward (csrc/maxpool_head_bwd.cu). Among equal maxima the smallest
+// position wins; a masked chunk that is skipped reports its first position
+// (masked, so it carries no gradient); an all-masked row pools to 0 at
+// position 0. The products and the values are the ingest kernel's, in the
+// same order, so out equals maxpool_head's bit for bit.
+//
+// Design. The running index costs registers beside the running max: in the
+// ingest kernel's 320-thread block, under ptxas's cap of 168 registers a
+// thread, the 256-row tile spilled 160 bytes, which held the argmax to a
+// 128-row tile while it was a flag on that kernel: twice the blocks, each
+// re-reading all of h from L2, half the products per h box, and 1.81 waves
+// on 132 SMs at V = 30592. This kernel is warp-specialised into three full
+// warpgroups: two consumer warpgroups (docs in ping-pong, as in the ingest
+// kernel) and one producer warpgroup whose first two warps feed one ring
+// each. `setmaxnreg` moves registers from the producers (40 a thread) to
+// the consumers (232), so a consumer holds the 256-row tile's 128
+// accumulators, the running max and index and the bias with room to spare.
+// Every warp of every warpgroup executes its warpgroup's `setmaxnreg` (a
+// partial warpgroup hangs it). The consumers take turns at issuing their
+// products (see consume_argmax), so that they do not issue, and then run
+// their epilogues, in step.
+//
+// Epilogue per chunk, two passes over the thread's 16 positions of each of
+// its 2*MT rows: (1) x = (acc + bias) * mask in place and the chunk
+// maximum by fmaxf; (2) the first of the thread's positions that holds
+// that maximum (a compare and a select each, from the last to the first),
+// then one compare with the running max, whose strict > keeps an earlier
+// chunk's tie. At the doc's end the quad (shfl_xor 1, 2) takes
+// the larger value, on equal values the smaller position.
+
+constexpr int kArgmaxThreads = (kConsumerWGs + 1) * 128;  // + a producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// the registers the block starts with (ptxas's cap for 384 threads, 168)
+// are what the warpgroups hold after the transfer
+static_assert(128 * kProducerRegs + kConsumerWGs * 128 * kConsumerRegs == kArgmaxThreads * 168,
+              "setmaxnreg must move registers within the block's allocation");
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// One chunk's epilogue of the training forward (see above). A position at
+// or past L (mask 0, h read as zeros) gets a finite x but no say in the
+// chunk maximum; it comes after every present one in the thread's order,
+// so the search, which takes the first match, never names it.
+template <int MT>
+__device__ __forceinline__ void argmax_chunk(float (&acc)[MT][32], float (&run)[MT][2],
+                                             int (&arg)[MT][2], const float (&bias_r)[MT][2],
+                                             float m0, float m1, int l0, int t, int nvalid) {
+  float cmax[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) cmax[mt][0] = cmax[mt][1] = -INFINITY;
+  // training epilogue: register 4j + 2hh + e is row warp*16 + g + 8hh of
+  // each m64 tile at position l0 + 8j + 2t + e
+#pragma unroll
+  for (int j = 0; j < kNc / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + 2 * t + e;
+      const float m = __shfl_sync(0xffffffffu, j < 4 ? m0 : m1, c & 31);
+      const bool present = c < nvalid;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float& x = acc[mt][4 * j + 2 * hh + e];
+          x = (x + bias_r[mt][hh]) * m;
+          if (present) cmax[mt][hh] = fmaxf(cmax[mt][hh], x);
+        }
+    }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float cm = cmax[mt][hh];
+      int p = 0;  // 8j + e of the thread's first position that holds cm
+#pragma unroll
+      for (int i = kNc / 4 - 1; i >= 0; --i)
+        if (acc[mt][4 * (i >> 1) + 2 * hh + (i & 1)] == cm) p = 8 * (i >> 1) + (i & 1);
+      if (cm > run[mt][hh]) {
+        run[mt][hh] = cm;
+        arg[mt][hh] = l0 + 2 * t + p;
+      }
+    }
+}
+
+// One consumer warpgroup of the training forward: docs wg, wg + 2, ...
+// Turns: warpgroup wg issues a chunk's products only when it holds the
+// turn (barrier turn[wg], one arrival from each warp of the other), and
+// hands it over as soon as they are issued, before its own epilogue. So
+// the two alternate on the tensor cores and each epilogue runs under the
+// other's products; without the turn they fall into step and both
+// epilogues are exposed. Each takes one turn per chunk, a skipped one too,
+// and warpgroup 1 makes up an odd B with a doc of empty turns, so both take
+// ceil(B/2) * ceil(L/64) turns; warpgroup 0 takes the first, and warpgroup
+// 1 hands on none after its last. Turns only where a ring holds a whole
+// chunk's boxes (stages >= kblocks: D <= 256 at the 256-row tile): with
+// fewer stages the holder's issue waits on its own loads while the other
+// warpgroup may not issue, so the two no longer overlap their loads. At
+// D = 768 (2 stages, 12 boxes a chunk) turns cost more than they save;
+// chip_smoke's ablations `argmax_no_turns` and `argmax_turns_always` time
+// both sides.
+template <int MT>
+__device__ __forceinline__ void consume_argmax(int wg, const Smem& sm, int stages, int kblocks,
+                                               const int32_t* __restrict__ mask,
+                                               const float* __restrict__ bias,
+                                               float* __restrict__ out,
+                                               int32_t* __restrict__ idx_out, int B, int L,
+                                               int V) {
+  constexpr int TV = 64 * MT;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int v0 = blockIdx.x * TV;
+
+  float bias_r[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int v = v0 + mt * 64 + warp * 16 + g + hh * 8;
+      bias_r[mt][hh] = v < V ? bias[v] : 0.f;
+    }
+
+  const uint32_t ring = sm.ring + wg * stages * kBoxBytes;
+  const uint32_t full = sm.full + wg * stages * 8, empty = sm.empty + wg * stages * 8;
+  int s = 0, ph = 0;
+  float acc[MT][32];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] = 0.f;
+
+  const uint32_t my_turn = sm.turn + wg * 8, your_turn = sm.turn + (wg ^ 1) * 8;
+  const int B2 = B + (B & 1);  // B rounded up to even: doc B (if odd) is empty turns
+  const bool take_turns = stages >= kblocks;
+  int turns = 0;
+  if (take_turns && wg == 1 && lane == 0) mbar_arrive(your_turn);  // 0 takes the first turn
+
+  for (int b = wg; b < B2; b += kConsumerWGs) {
+    const bool real = b < B;
+    float run[MT][2];
+    int arg[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      run[mt][0] = run[mt][1] = -INFINITY;
+      arg[mt][0] = arg[mt][1] = 0;
+    }
+    const int32_t* mrow = mask + (size_t)b * L;
+
+    for (int l0 = 0; l0 < L; l0 += kNc) {
+      const int la = l0 + lane, lb = l0 + 32 + lane;
+      const float m0 = real && la < L ? (float)mrow[la] : 0.f;
+      const float m1 = real && lb < L ? (float)mrow[lb] : 0.f;
+      const bool hand_on = take_turns && (wg == 0 || b + kConsumerWGs < B2 || l0 + kNc < L);
+      auto pass_turn = [&] {
+        if (hand_on && lane == 0) mbar_arrive(your_turn);
+      };
+      if (take_turns) mbar_wait(my_turn, turns++ & 1);
+      if (!__any_sync(0xffffffffu, m0 != 0.f || m1 != 0.f)) {
+        pass_turn();
+        // every position here is masked and contributes exactly 0, at l0
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            if (0.f > run[mt][hh]) {
+              run[mt][hh] = 0.f;
+              arg[mt][hh] = l0;
+            }
+        continue;
+      }
+      chunk_products<MT>(acc, sm, ring, full, empty, stages, kblocks, s, ph, pass_turn);
+      argmax_chunk<MT>(acc, run, arg, bias_r, m0, m1, l0, t, L - l0);
+    }
+
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float r = run[mt][hh];
+        int a = arg[mt][hh];
+#pragma unroll
+        for (int off = 1; off <= 2; off *= 2) {
+          const float ro = __shfl_xor_sync(0xffffffffu, r, off);
+          const int ao = __shfl_xor_sync(0xffffffffu, a, off);
+          if (ro > r || (ro == r && ao < a)) {
+            r = ro;
+            a = ao;
+          }
+        }
+        const int v = v0 + mt * 64 + warp * 16 + g + hh * 8;
+        if (real && t == 0 && v < V) {
+          out[(size_t)b * V + v] = r;
+          idx_out[(size_t)b * V + v] = a;
+        }
+      }
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kArgmaxThreads, 1)
+maxpool_head_argmax_kernel(const __grid_constant__ CUtensorMap hmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           const int32_t* __restrict__ mask, const float* __restrict__ bias,
+                           float* __restrict__ out, int32_t* __restrict__ idx_out, int B, int L,
+                           int V, int kblocks, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = block_setup<MT>(smem_raw, &wmap, kblocks, stages);
+  // one branch per role that never joins the other: ptxas then knows each
+  // path's register count from its setmaxnreg
+  const int wg = threadIdx.x >> 7;
+  if (wg == kConsumerWGs) {
+    setmaxnreg_dec<kProducerRegs>();
+    const int p = (threadIdx.x >> 5) & 3;  // warps 2 and 3 of the producers have no ring
+    if (p < kConsumerWGs) produce(p, sm, stages, kblocks, &hmap, mask, B, L);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    consume_argmax<MT>(wg, sm, stages, kblocks, mask, bias, out, idx_out, B, L, V);
+  }
 }
 
 // ---- host side ------------------------------------------------------------
@@ -493,14 +703,25 @@ bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
 template <int MT, bool kArgmax>
 int launch(const CUtensorMap& hmap, const CUtensorMap& wmap, const void* mask, const void* bias,
            void* out, void* idx, int B, int L, int V, const Plan& plan, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(maxpool_head_kernel<MT, kArgmax>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)plan.smem);
-  if (err != cudaSuccess) return (int)err;
   constexpr int TV = 64 * MT;
-  maxpool_head_kernel<MT, kArgmax><<<(V + TV - 1) / TV, kThreads, plan.smem, stream>>>(
-      hmap, wmap, static_cast<const int32_t*>(mask), static_cast<const float*>(bias),
-      static_cast<float*>(out), static_cast<int32_t*>(idx), B, L, V, plan.kblocks, plan.stages);
+  const int grid = (V + TV - 1) / TV;
+  const int32_t* m = static_cast<const int32_t*>(mask);
+  const float* bi = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(out);
+  cudaError_t err;
+  if constexpr (kArgmax) {
+    err = cudaFuncSetAttribute(maxpool_head_argmax_kernel<MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+    if (err != cudaSuccess) return (int)err;
+    maxpool_head_argmax_kernel<MT><<<grid, kArgmaxThreads, plan.smem, stream>>>(
+        hmap, wmap, m, bi, o, static_cast<int32_t*>(idx), B, L, V, plan.kblocks, plan.stages);
+  } else {
+    err = cudaFuncSetAttribute(maxpool_head_kernel<MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+    if (err != cudaSuccess) return (int)err;
+    maxpool_head_kernel<MT><<<grid, kThreads, plan.smem, stream>>>(
+        hmap, wmap, m, bi, o, B, L, V, plan.kblocks, plan.stages);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -511,7 +732,7 @@ int dispatch(const void* h, const void* mask, const void* w, const void* bias, v
   // TMA reads from 16-byte aligned addresses with 16-byte aligned row strides
   if (reinterpret_cast<uintptr_t>(h) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorMisalignedAddress;
-  const Plan plan = make_plan(D, kArgmax ? kArgmaxMaxMT : 4);
+  const Plan plan = make_plan(D, kArgmax ? 4 : kIngestMaxMT);
   if (!plan.mt) return (int)cudaErrorInvalidValue;
 
   CUtensorMap hmap, wmap;

@@ -13,12 +13,13 @@ decoder matrix, an fp32 bias added after the fp32-accumulated product, and
 a masked position that contributes exactly 0.
 
 Training goes through `MaxPoolHead`, a `torch.autograd.Function`: its
-forward is the same kernel's argmax variant (`maxpool_head_argmax`, which
-also returns the position of each maximum), its backward two gather-reduce
-kernels (`csrc/maxpool_head_bwd.cu`): `maxpool_head_bwd_w` for the decoder
-and bias gradients, `maxpool_head_bwd_h` for the hidden states' (a counting
-sort of the nonzero gradients by argmax position, `maxpool_head_bwd_buckets`
-on its own, then a reduce over those lists). On the card both write their
+forward is the training-forward kernel of the same source
+(`maxpool_head_argmax`: the same values, and the position of each maximum,
+from a warp-specialised block that holds the same vocab tile), its backward
+two gather-reduce kernels (`csrc/maxpool_head_bwd.cu`): `maxpool_head_bwd_w`
+for the decoder and bias gradients, `maxpool_head_bwd_h` for the hidden
+states' (a counting sort of the nonzero gradients by argmax position,
+`maxpool_head_bwd_buckets` on its own, then a reduce over those lists). On the card both write their
 gradients in bf16, the dtype of the h and w they take. Each kernel has its
 plain version beside it, which the wrappers take on the CPU only.
 The raw wrappers raise on an input that requires grad while grad mode is
@@ -307,8 +308,8 @@ def maxpool_head(
 
 def maxpool_head_argmax(h, mask, w, bias):
     """The training forward: (pooled [B, V] fp32, idx [B, V] int32, the
-    position of each maximum). The kernel's argmax variant on a CUDA
-    tensor, the plain version on the CPU."""
+    smallest position of each maximum). The training-forward kernel on a
+    CUDA tensor, the plain version on the CPU."""
     _check_no_grad(h, w, bias)
     if _device(h) == "cpu":
         return maxpool_head_argmax_reference(h, mask, w, bias)

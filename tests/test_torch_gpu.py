@@ -202,6 +202,90 @@ def test_training_kernels_match_plain_versions(cuda, B, L, D, V, holey):
     assert torch.equal(mp.maxpool_head_bwd_h(g, idx, mask, w), dh)
 
 
+def _tie_case(case, B, L, D, V, seed, device):
+    """h, w in {-1, 0, 1} and an integer bias: every logit is a small
+    integer, exact in fp32 whatever the order of the sums, so ties are
+    everywhere and the plain argmax on the card is the exact answer.
+    chunk_tie: equal rows at positions 3 and 70 (two chunks) above the rest;
+    quad_tie: equal rows at positions 2, 5 and 33, held by three lanes of a
+    quad; negative: every logit < 0, so a masked position's 0 wins (one hole
+    in row 0 at 5, row 1 padded from 40, row 2 all masked)."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(-1, 2, size=(B, L, D))
+    w = rng.integers(-1, 2, size=(V, D))
+    bias = rng.integers(-2, 3, size=V)
+    mask = np.ones((B, L), np.int32)
+    if case == "holey":
+        mask = _holey_mask(B, L, seed)
+    elif case == "chunk_tie":
+        h[:, 3] = h[:, 70] = 32 * rng.integers(-1, 2, size=(B, D))
+    elif case == "quad_tie":
+        h[:, 2] = h[:, 5] = h[:, 33] = 32 * rng.integers(-1, 2, size=(B, D))
+    elif case == "negative":
+        h, w = np.abs(h), np.abs(w)
+        bias = -(D + 1) - np.abs(bias)
+        mask[0, 5] = 0
+        mask[1, 40:] = 0
+        mask[2] = 0
+    return (torch.from_numpy(h).to(device, torch.bfloat16), torch.from_numpy(mask).to(device),
+            torch.from_numpy(w).to(device, torch.bfloat16),
+            torch.from_numpy(bias).to(device, torch.float32))
+
+
+# (case, B, L, D, V): the train step's shape; L = 100, not a multiple of 64,
+# with the unpadded vocab (a partial last tile); L = 512, eight chunks
+# carrying the running max and index, one of them fully masked; ties across
+# chunks and across a quad's lanes; masked zeros over negative logits; the
+# base width D = 768 (128-row tile) and D = 1024 (64 rows)
+@pytest.mark.parametrize("case,B,L,D,V", [
+    ("random", 45, 64, 256, 30592),
+    ("random", 6, 100, 256, 30522),
+    ("holey", 6, 512, 256, 30592),
+    ("chunk_tie", 5, 128, 256, 30592),
+    ("quad_tie", 5, 64, 256, 4096),
+    ("negative", 4, 100, 256, 777),
+    ("random", 4, 512, 768, 30592),
+    ("holey", 5, 200, 1024, 300),
+])
+def test_training_forward_takes_the_first_of_tied_maxima(cuda, case, B, L, D, V):
+    """On exact integer logits the kernel's idx equals the plain argmax (the
+    smallest position of each maximum) and its out equals the plain version
+    and the ingest kernel bit for bit; two launches are bit-equal."""
+    h, mask, w, bias = _tie_case(case, B, L, D, V, seed=B + L + D, device=cuda)
+    pooled, idx = mp.maxpool_head_argmax(h, mask, w, bias)
+    want, want_idx = mp.maxpool_head_argmax_reference(h, mask, w, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_idx)
+    assert torch.equal(pooled, want)
+    assert torch.equal(pooled, maxpool_head(h, mask, w, bias))
+    again, again_idx = mp.maxpool_head_argmax(h, mask, w, bias)
+    assert torch.equal(again, pooled) and torch.equal(again_idx, idx)
+    if case == "chunk_tie":
+        assert int((idx == 3).sum()) > B * V // 4 and not bool((idx == 70).any())
+    if case == "quad_tie":
+        assert int((idx == 2).sum()) > B * V // 4
+        assert not bool(((idx == 5) | (idx == 33)).any())
+    if case == "negative":
+        assert bool((idx[0] == 5).all() and (idx[1] == 40).all() and (idx[2] == 0).all())
+        assert not bool(pooled[:3].any()) and bool((pooled[3] < 0).all())
+
+
+@pytest.mark.parametrize("B,L,D,V", [
+    (45, 64, 256, 30592), (45, 128, 256, 30592), (45, 512, 256, 30592), (8, 512, 768, 30592),
+    (7, 100, 256, 30522),
+])
+def test_training_forward_values_equal_the_ingest_kernel(cuda, B, L, D, V):
+    """Random inputs with holey masks: the training forward's out is the
+    ingest kernel's bit for bit (the same products in the same order), and
+    the logit at its argmax is that value."""
+    h, mask, w, bias = _inputs(B, L, D, V, seed=7 * B + L, device=cuda,
+                               mask=_holey_mask(B, L, seed=L) if L >= 128 else None)
+    pooled, idx = mp.maxpool_head_argmax(h, mask, w, bias)
+    assert torch.equal(pooled, maxpool_head(h, mask, w, bias))
+    assert bool(((idx >= 0) & (idx < L)).all())
+    assert _rel_ok(_value_at(h, mask, w, bias, idx), pooled)
+
+
 def test_head_function_on_the_card_matches_plain_autograd(cuda):
     """MaxPoolHead on CUDA tensors (the kernels) against torch autograd of
     the plain head on the same bf16 inputs: the kernels' gradients are
