@@ -10,11 +10,16 @@ show where their time goes, and drives the main path once through
 the entry points a user calls, at the full `mini` width on the
 `synthetic-rich` task: `cli.mine` -> `cli.train_ir` (the
 `config_infonce_synthetic` recipe, 50 steps from a seeded random init) ->
-`cli.evaluate_beir` on the exported `checkpoint-50`. It checks what comes
-out, that every kernel of the path ran (launch counts, read around the path)
-and that no plain version did, and that one whole train step's gradients
-with the kernels equal those with the plain head. Any failed check exits
-non-zero. The last lines of output are the `kernels` JSON line, the card's
+`cli.evaluate_beir` on the exported `checkpoint-50`, then the serving path:
+`cli.serve` (in this process, on a thread) over the evaluation's 20 000-doc
+index and a 131 072-doc synthetic index, with a write loop of raw-text
+`_bulk` requests (the ingest kernel), a 64-client token burst, text searches
+(inference-free and full forward) and two-phase searches, each response held
+to the same search in process. It checks what comes out, that every kernel
+of each path ran (launch counts, read around each path) and that no plain
+version did, and that one whole train step's gradients with the kernels
+equal those with the plain head. Any failed check exits non-zero. The last
+lines of output are the `serve:` line, the `kernels` JSON line, the card's
 name and power limit, and `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
@@ -29,10 +34,16 @@ import json
 import logging
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -992,6 +1003,350 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
             "head_kernels_ms": head}
 
 
+# the serving phase: bench.py's 128K headline corpus (bench.py:115-130) on
+# the exact scan; raw-text _bulk requests of 50 docs; the token burst of
+# 64 clients x 8 requests of make_queries(512, 30522, n_terms=6, seed=3)
+BIG_DOCS, BIG_VOCAB = 131072, 30522
+N_TEXT_BULKS, BULK_DOCS = 20, 50
+BURST_CLIENTS, BURST_PER_CLIENT = 64, 8
+N_TEXT_QUERIES = 8
+# a token search on the card against the same search in process: the same
+# sums, maybe reduced in another order at another batch shape
+TOKENS_RTOL = 1e-6
+# a text search: the same encoder forward at the same shape, then as above
+TEXT_RTOL = 1e-5
+
+
+def http(base, method, path, body=None, raw=None):
+    """(status, JSON body) of one request."""
+    data = raw if raw is not None else (None if body is None else json.dumps(body).encode())
+    req = urllib.request.Request(base + path, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def search_body(spec, size=10):
+    return {"query": {"neural_sparse": {"text_sparse": spec}}, "size": size}
+
+
+def bulk_lines(index, docs):
+    lines = []
+    for doc_id, source in docs:
+        lines += [json.dumps({"index": {"_index": index, "_id": doc_id}}), json.dumps(source)]
+    return ("\n".join(lines) + "\n").encode()
+
+
+def ok_search(base, index, spec, size=10, suffix=""):
+    code, resp = http(base, "POST", f"/{index}/_search{suffix}", search_body(spec, size))
+    check(code == 200, f"search on {index}{suffix}: {code} {resp}")
+    check("ext" not in resp, "an exact engine's response carries no exactness ext")
+    return resp
+
+
+def hits_of(resp):
+    return {h["_id"]: h["_score"] for h in resp["hits"]["hits"]}
+
+
+def check_same_hits(resp, ref, what, rtol):
+    """A response's hits against the same search in process ({doc_id:
+    score}): the same ids in the same order (a swap only between scores
+    within rtol), scores within rtol."""
+    got = [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+    want = sorted(ref.items(), key=lambda kv: -kv[1])
+    check(len(got) == len(want) == resp["hits"]["total"]["value"],
+          f"{what}: {len(got)} hits, in process {len(want)}")
+    for (gi, gs), (wi, ws) in zip(got, want):
+        check(abs(gs - ws) <= rtol * abs(ws), f"{what}: score {gs}, in process {ws}")
+        check(gi == wi or abs(ref.get(gi, float("inf")) - ws) <= rtol * abs(ws),
+              f"{what}: {gi} in place of {wi}")
+
+
+def build_big_index(dev):
+    """bench.py's 128K corpus (make_corpus(131072, 30522, avg_terms=110,
+    seed=1, l_max=128)) on the exact scan (`auto` would resolve to the
+    inverted engine at this size), saved in format 2 for the server."""
+    from bench import make_corpus
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+
+    path = os.path.join(OUT, "serve", "big.index")
+    toks, ws = make_corpus(BIG_DOCS, BIG_VOCAB, avg_terms=110, seed=1, l_max=128)
+    idx = SparseIndex(BIG_VOCAB, IndexConfig(engine="sparse", l_max=128, block_docs=2048),
+                      device=dev)
+    idx.add_topk([str(i) for i in range(BIG_DOCS)], toks, ws)
+    idx.finalize()
+    idx.save(path)
+    return path
+
+
+def doc_mode_copy(index_dir):
+    """The evaluation's saved index with two_phase_mode "doc" in its saved
+    config, so the server holds an index in each two-phase mode."""
+    path = os.path.join(OUT, "serve", "rich-doc.index")
+    os.makedirs(path, exist_ok=True)
+    for f in ("index.npz", "doc_ids.json"):
+        shutil.copy(os.path.join(index_dir, f), path)
+    with open(os.path.join(index_dir, "meta.json")) as f:
+        meta = json.load(f)
+    meta["cfg"]["two_phase_mode"] = "doc"
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    return path
+
+
+def start_server(argv):
+    """`cli.serve.main(argv)` on a daemon thread of this process (so the
+    launch counters stay readable) on a free port; waits for /_health."""
+    from opensearch_sparse_model_tuning_sample_torch.cli import serve as serve_cli
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    failed = []
+
+    def run():
+        try:
+            serve_cli.main(argv + ["--port", str(port)])
+        except (Exception, SystemExit) as e:  # noqa: BLE001 — reported below
+            failed.append(e)
+
+    threading.Thread(target=run, daemon=True, name="cli.serve").start()
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        check(not failed, f"cli.serve failed: {failed[:1]!r}")
+        try:
+            if http(base, "GET", "/_health") == (200, {"status": "green"}):
+                return base
+        except OSError:
+            time.sleep(0.2)
+    raise RuntimeError("check failed: cli.serve never answered /_health")
+
+
+def drive_server(base, texts, query_texts, q_tok, q_w, vocab):
+    """Everything the serving phase sends, through HTTP only; returns what
+    came back for the checks in process (check_serving)."""
+    rec = {"text_bulks": [], "text": [], "full_forward": 0}
+    # -- the write loop: raw-text _bulk requests, one of text_sparse docs,
+    # _refresh, then a second round (reopen) of both kinds
+    code, resp = http(base, "PUT", "/live", {"settings": {"index": {"engine": "sparse"}}})
+    check(code == 200 and resp["acknowledged"], f"PUT /live: {code} {resp}")
+    rare = [vocab[20000 + i] for i in range(20)]  # one token of its own per text_sparse doc
+
+    def text_bulk(first):
+        docs = [(f"t{first + i}", {"text": texts[first + i]}) for i in range(BULK_DOCS)]
+        code, resp = http(base, "POST", "/_bulk", raw=bulk_lines("live", docs))
+        check(code == 200 and resp["errors"] is False and len(resp["items"]) == BULK_DOCS,
+              f"text _bulk from doc {first}: {code}")
+        rec["text_bulks"].append([s["text"] for _, s in docs])
+
+    def sparse_bulk(prefix, toks):
+        docs = [(f"{prefix}{i}", {"text_sparse": {t: 50.0, "the": 1.0}}) for i, t in enumerate(toks)]
+        code, resp = http(base, "POST", "/_bulk", raw=bulk_lines("live", docs))
+        check(code == 200 and resp["errors"] is False, f"text_sparse _bulk {prefix}: {code}")
+
+    t0 = time.perf_counter()
+    for b in range(N_TEXT_BULKS):
+        text_bulk(b * BULK_DOCS)
+    sparse_bulk("s", rare[:10])
+    check(http(base, "POST", "/live/_refresh")[0] == 200, "_refresh")
+    text_bulk(N_TEXT_BULKS * BULK_DOCS)  # after the refresh: reopen
+    sparse_bulk("u", rare[10:])
+    rec["ingest_s"] = time.perf_counter() - t0
+    n_live = (N_TEXT_BULKS + 1) * BULK_DOCS + 20
+    check(http(base, "GET", "/")[1]["indexes"]["live"] == n_live, f"/live holds {n_live} docs")
+    for prefix, toks in (("s", rare[:10]), ("u", rare[10:])):
+        for i, t in enumerate(toks):
+            top = ok_search(base, "live", {"query_tokens": {t: 1.0}}, size=3)["hits"]["hits"]
+            check(top and top[0]["_id"] == f"{prefix}{i}", f"{prefix}{i} is found by its own token")
+    # one raw-text doc of each round, searched by its own full-forward rep
+    # (the _encode route), among all docs that share a term with it
+    for doc in ("t5", f"t{N_TEXT_BULKS * BULK_DOCS + 5}"):
+        code, emb = http(base, "POST", "/_encode",
+                         {"texts": [texts[int(doc[1:])]], "inf_free": False})
+        check(code == 200, f"_encode: {code}")
+        rec["full_forward"] += 1
+        top = dict(sorted(emb["embeddings"][0].items(), key=lambda kv: -kv[1])[:32])
+        hits = hits_of(ok_search(base, "live", {"query_tokens": top}, size=n_live))
+        check(doc in hits, f"{doc} is searchable after the second round")
+
+    # -- the token burst on big: 64 clients, 8 requests each, size 10
+    bodies = [search_body({"query_tokens": {vocab[int(t)]: float(w)
+                                            for t, w in zip(q_tok[i], q_w[i]) if w > 0}})
+              for i in range(len(q_tok))]
+    for i in range(8):  # warm-up
+        ok_search(base, "big", bodies[i]["query"]["neural_sparse"]["text_sparse"])
+
+    def client(c):
+        out = []
+        for r in range(BURST_PER_CLIENT):
+            i = c * BURST_PER_CLIENT + r
+            t = time.perf_counter()
+            code, resp = http(base, "POST", "/big/_search", bodies[i])
+            out.append((i, code, resp, time.perf_counter() - t))
+        return out
+
+    stats0 = http(base, "GET", "/_stats")[1]["search_microbatch"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(BURST_CLIENTS) as ex:
+        burst = sorted(x for part in ex.map(client, range(BURST_CLIENTS)) for x in part)
+    rec["burst_s"] = time.perf_counter() - t0
+    stats1 = http(base, "GET", "/_stats")[1]["search_microbatch"]
+    for i, code, resp, _ in burst:
+        check(code == 200 and "ext" not in resp, f"burst request {i}: {code}")
+    rec["burst"] = burst
+    rec["burst_stats"] = {k: stats1[k] - stats0[k] for k in ("requests", "engine_calls", "batches")}
+    rec["burst_stats"]["max_batch_seen"] = stats1["max_batch_seen"]
+
+    # -- text searches on rich, one at a time (a batch of 1, as in process),
+    # exact then two-phase through a pipeline on an index in each mode
+    for inf_free in (True, False):
+        for t in query_texts:
+            resp = ok_search(base, "rich", {"query_text": t, "inf_free": inf_free})
+            rec["text"].append(("rich", t, inf_free, False, resp))
+            rec["full_forward"] += not inf_free
+    code, _ = http(base, "PUT", "/_search/pipeline/p", {"request_processors": [
+        {"neural_sparse_two_phase_processor": {"tag": "neural-sparse"}}]})
+    check(code == 200, "PUT /_search/pipeline/p")
+    for index in ("rich", "richdoc"):
+        for inf_free in (True, False):
+            for t in query_texts:
+                resp = ok_search(base, index, {"query_text": t, "inf_free": inf_free},
+                                 suffix="?search_pipeline=p")
+                rec["text"].append((index, t, inf_free, True, resp))
+                rec["full_forward"] += not inf_free
+    code, resp = http(base, "POST", "/rich/_search?search_pipeline=nope",
+                      search_body({"query_text": query_texts[0]}))
+    check(code == 400, f"an unknown search pipeline gets a 400 ({code})")
+    return rec
+
+
+def check_serving(dev, rec, dirs, ckpt):
+    """The responses against the same searches in process, on second copies
+    of the saved indexes and the checkpoint's encoder; the burst's top-10
+    against brute force on 32 queries; the ingest kernel against its plain
+    version on one served bulk's texts."""
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import SparseIndex
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+
+    big = SparseIndex.load(dirs["big"], device=dev)
+    q_tok, q_w = rec["q_tok"], rec["q_w"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = big.search_tokens(q_tok, q_w, k=10)  # ends in the copy to the host
+    engine = {"in_process_qps": len(q_tok) / (time.perf_counter() - t0)}
+    engine.update(engine_call_profile(big, q_tok[:64], q_w[:64]))
+    for i, _, resp, _ in rec["burst"]:
+        check_same_hits(resp, ref[i], f"burst request {i}", TOKENS_RTOL)
+    qd = np.zeros((32, BIG_VOCAB), np.float32)
+    for i in range(32):
+        np.add.at(qd[i], q_tok[i][q_w[i] > 0], q_w[i][q_w[i] > 0])
+    n_bf = brute_force_check(dirs["big"], torch.from_numpy(qd).to(dev),
+                             [hits_of(rec["burst"][i][2]) for i in range(32)], BIG_VOCAB, dev)
+    del big
+    torch.cuda.empty_cache()
+
+    model = se.build_model(model_name_or_path=ckpt,
+                           idf_path=os.path.join(HERE, "assets", "idf.npz"), device=dev)
+    enc = se.BatchEncoder(model, max_length=512, do_count=False)
+    local = {name: SparseIndex.load(dirs[name], device=dev) for name in ("rich", "richdoc")}
+    exact = {}
+    overlap = {}
+    for index, text, inf_free, two_phase, resp in rec["text"]:
+        reps = enc.encode_batch_device([text], inf_free=inf_free)
+        want = local[index].search(reps, k=10, two_phase=two_phase)[0]
+        check_same_hits(resp, want, f"{index} text search (inf_free={inf_free}, "
+                        f"two_phase={two_phase})", TEXT_RTOL)
+        if not two_phase:
+            exact[(text, inf_free)] = set(want)
+        else:
+            ex = exact[(text, inf_free)]
+            key = f"{local[index].cfg.two_phase_mode}, inf_free={inf_free}"
+            overlap.setdefault(key, []).append(len(ex & set(want)) / max(len(ex), 1))
+    enc_err = encoder_check(model, rec["text_bulks"][0], 256, dev)
+    return {"brute_force_hits": n_bf, "encoder_check_err": enc_err,
+            "two_phase_overlap": {k: float(np.mean(v)) for k, v in overlap.items()},
+            "engine": engine}
+
+
+def engine_call_profile(index, q_tok, q_w, n=3):
+    """One search_tokens call of len(q_tok) queries, in process: its host
+    time (mean of n, each ending in the copy to the host) and, from
+    torch.profiler over n more, the card's busy time a call and the device
+    operations a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    index.search_tokens(q_tok, q_w, k=10)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        index.search_tokens(q_tok, q_w, k=10)
+    call_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            index.search_tokens(q_tok, q_w, k=10)
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / n / 1e3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
+    return {"queries_per_call": len(q_tok), "call_ms": call_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / call_ms, "ops_per_call": sum(e.count for e in on_card) / n,
+            "top_ops_ms": {e.key[:50]: e.self_device_time_total / n / 1e3 for e in top}}
+
+
+def phase_serve(dev, ckpt, index_dir, texts, query_texts):
+    """The serving path through `cli.serve`'s entry point on the card. The
+    counters are set to 0 just before the server starts and read when the
+    last request has come back, before any check in process."""
+    from bench import make_queries
+    from opensearch_sparse_model_tuning_sample_torch.models.tokenizer import load_tokenizer
+
+    t0 = time.time()
+    dirs = {"rich": index_dir, "richdoc": doc_mode_copy(index_dir), "big": build_big_index(dev)}
+    torch.cuda.empty_cache()
+    build_s = time.time() - t0
+    tok = load_tokenizer(None)
+    vocab = [tok.convert_id_to_token(i) for i in range(BIG_VOCAB)]
+    check(len(set(vocab)) == BIG_VOCAB and all(tok.vocab[v] == i for i, v in enumerate(vocab)),
+          "vocab strings name the token ids one to one")
+    q_tok, q_w = make_queries(BURST_CLIENTS * BURST_PER_CLIENT, BIG_VOCAB, n_terms=6, seed=3)
+
+    reset_counters()
+    base = start_server(["--index", f"rich={dirs['rich']}", "--index", f"richdoc={dirs['richdoc']}",
+                         "--index", f"big={dirs['big']}", "--model", ckpt,
+                         "--batch-window-ms", "5", "--max-batch", "128"])
+    rec = drive_server(base, texts, query_texts, q_tok, q_w, vocab)
+    torch.cuda.synchronize()
+    launches, plain = read_counters()
+    drive_s = time.time() - t0 - build_s
+    rec.update(q_tok=q_tok, q_w=q_w)
+    n_text_bulks = len(rec["text_bulks"])
+    print(f"serve: maxpool_head launches {launches['maxpool_head']} for {n_text_bulks} text _bulk "
+          f"requests + {rec['full_forward']} full-forward encodes; plain calls {plain}", flush=True)
+    check(launches["maxpool_head"] >= n_text_bulks + rec["full_forward"],
+          "the ingest kernel ran for every text _bulk and full-forward query")
+    check(not any(plain.values()), f"no plain version ran in the serving path: {plain}")
+    out = check_serving(dev, rec, dirs, ckpt)
+    lat = np.array([x[3] for x in rec["burst"]]) * 1e3
+    out.update(
+        launches=launches["maxpool_head"], text_bulks=n_text_bulks,
+        full_forward=rec["full_forward"], ingest_docs_per_s=n_text_bulks * BULK_DOCS / rec["ingest_s"],
+        burst_requests=len(rec["burst"]), burst_qps=len(rec["burst"]) / rec["burst_s"],
+        p50_ms=float(np.percentile(lat, 50)), p95_ms=float(np.percentile(lat, 95)),
+        stats=rec["burst_stats"], text_searches=len(rec["text"]), build_s=build_s,
+        drive_s=drive_s, check_s=time.time() - t0 - build_s - drive_s)
+    print(f"serve: {len(rec['burst'])} token searches on the {BIG_DOCS}-doc index equal the "
+          f"search in process; top-10 equals brute force for 32 ({out['brute_force_hits']} hits); "
+          f"{out['text_searches']} text searches on rich equal the search in process; "
+          f"two-phase top-10 overlap with exact {out['two_phase_overlap']}; encoder check on a "
+          f"served bulk max |err| {out['encoder_check_err']:.3g}", flush=True)
+    print(f"serve: the engine alone, in process: {out['engine']}", flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1131,6 +1486,19 @@ def main():
     print(f"ingest {rate.docs_per_s:.1f} docs/s, search {avg['qps']:.1f} q/s, "
           f"NDCG@10 {avg['NDCG@10']:.5f} after {TRAIN_STEPS} steps from random init; "
           f"train {path['docs_per_s']:.1f} docs/s; card {card}", flush=True)
+    del index, q
+    torch.cuda.empty_cache()
+
+    # 8. the serving path: cli.serve over this index and a 131 072-doc one
+    t0 = time.time()
+    serve_out = phase_serve(dev, path["ckpt"], index_dir, [docs[i][1] for i in range(1100)],
+                            [qd[i][1] for i in range(N_TEXT_QUERIES)])
+    serve_out.update(seconds=time.time() - t0, card=card)
+    print(f"serving phase {serve_out['seconds']:.1f} s (indexes {serve_out['build_s']:.1f}, "
+          f"requests {serve_out['drive_s']:.1f}, checks {serve_out['check_s']:.1f}); token burst "
+          f"{serve_out['burst_qps']:.1f} q/s, p50 {serve_out['p50_ms']:.2f} ms, p95 "
+          f"{serve_out['p95_ms']:.2f} ms, /_stats {serve_out['stats']} (host clock, card {card})",
+          flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     main_row = rows[-1]  # the eval's own first batch
@@ -1140,6 +1508,7 @@ def main():
         "source": "opensearch_sparse_model_tuning_sample_torch/csrc/maxpool_head.cu",
         "replaces": "opensearch_sparse_model_tuning_sample_tpu/ops/pallas_maxpool.py:99",
         "launches": launches,
+        "serve_launches": serve_out["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -1187,6 +1556,7 @@ def main():
         "steps": path["steps"], "train_docs_per_s": path["docs_per_s"],
         "full_step_grad_worst_rel_err": grad_worst, "profile": profile,
         "log": path["trainer"].log_history, "ndcg_at_10": avg["NDCG@10"]}))
+    print("serve: " + json.dumps(serve_out))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

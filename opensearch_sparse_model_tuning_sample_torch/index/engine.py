@@ -10,11 +10,14 @@
     correctness oracle for small corpora.
 
 Both are plain torch ops (the JAX package wrote them as `lax` loops, not
-Pallas kernels). Not ported yet, each raising NotImplementedError that names
-its ROADMAP item: the inverted engine (and "auto" above `auto_threshold`,
-which resolves to it), two-phase search, a device mesh, and `search_tokens`.
-Saved indexes use the JAX package's format 2, so an index saved by either
-package loads in the other.
+Pallas kernels). The serving surface is here too: `search_tokens` (the
+`neural_sparse` token->weight query), two-phase search on the scan, `reopen`
+for the add -> refresh -> add loop, and the async handle API the server
+calls (on the exact engines it resolves synchronously). Not ported yet, each
+raising NotImplementedError that names its ROADMAP item: the inverted engine
+(and "auto" above `auto_threshold`, which resolves to it, with its token
+fast path and packed fetches) and a device mesh. Saved indexes use the JAX
+package's format 2, so an index saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -38,6 +41,16 @@ _TODO_INVERTED = "the inverted engine is not ported yet (ROADMAP: port queue, in
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _select(s: torch.Tensor, i: torch.Tensor, k: int):
+    """Top-k of scores s [Bq, n] with their ids i: descending, ties to the
+    lower column, which is `lax.top_k`'s order. A stable sort, not
+    `torch.topk` (whose tie order is unspecified), so a two-phase candidate
+    pool holds the same docs as the JAX package's where phase-1 scores tie
+    (at 0, mostly)."""
+    s, order = torch.sort(s, dim=1, descending=True, stable=True)
+    return s[:, :k], torch.gather(i, 1, order[:, :k])
 
 
 def _load_weights(blob) -> np.ndarray:
@@ -133,6 +146,14 @@ class SparseIndex:
         self._ids_arr: Optional[np.ndarray] = None
         self._docs_dev: Optional[torch.Tensor] = None
         self._tok_dev: Optional[torch.Tensor] = None
+        # per-query exactness flags of the last search, as the JAX package
+        # keeps them. Only its inverted engine sets them; the scan and dense
+        # engines leave them None (exact by construction, except two-phase,
+        # which is approximate with no certificate), so a server built on
+        # them puts no exactness `ext` in its responses.
+        self.last_certified: Optional[np.ndarray] = None
+        self.last_escalated: Optional[np.ndarray] = None
+        self.last_scan_escalated: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------- ingest
     def add(self, doc_ids: Sequence[str], reps: np.ndarray):
@@ -236,6 +257,27 @@ class SparseIndex:
         logger.info("index finalized: %d docs (padded %d) engine=%s device=%s",
                     n, n_pad, self._engine, self.device)
 
+    def reopen(self):
+        """Back to ingest mode after finalize(): recover the host-side rows of
+        the first n_docs docs from the device tensors (int16 ids to int32,
+        weights through their stored dtype to fp32, the precision search
+        uses), drop the device state, and let add()/add_topk() append. This
+        is the serving surface's _bulk -> _refresh -> search -> _bulk loop.
+        doc_ids stays append-only."""
+        if not self._finalized:
+            return
+        n = self.n_docs
+        if n:
+            w = self._docs_dev[:n].float().cpu().numpy()
+            if self._tok_dev is not None:
+                self._tok_chunks = [self._tok_dev[:n].cpu().numpy().astype(np.int32)]
+                self._w_chunks = [w]
+            else:  # dense engine: the padded [n_pad, V] matrix
+                self._dense_chunks = [w]
+        self._docs_dev = None
+        self._tok_dev = None
+        self._finalized = False
+
     def delete(self):
         """Release all index state (the analog of OpenSearch
         `indices.delete`). The object returns to the empty-ingest state."""
@@ -247,15 +289,31 @@ class SparseIndex:
         self.count_tensor = np.zeros((self.vocab_size,), dtype=np.int64)
 
     # ------------------------------------------------------------- search
-    def _topk_batch(self, q: torch.Tensor, k: int):
-        """Exact top-k of one query batch q [Bq, V] fp32 over every doc
-        block, merged into a running top-k (engine.py local_topk, the exact
-        sparse branch and the dense oracle). Returns (scores, doc idx)."""
+    def _topk_batch(self, q: torch.Tensor, k: int, two_phase: Optional[str] = None):
+        """Top-k of one query batch q [Bq, V] fp32 over every doc block,
+        merged into a running top-k (engine.py make_scan_topk: the sparse
+        scan and the dense oracle). Returns (scores, doc idx).
+
+        `two_phase` ("query" or "doc", sparse engine only; the dense oracle
+        ignores it) makes phase 1 approximate: "query" scores only the query
+        terms with weight >= two_phase_ratio * the row's max, "doc" only each
+        doc's first min(two_phase_terms, l_max) terms (rows are
+        impact-sorted). Phase 1 keeps a pool of k1 = max(min(two_phase_expand
+        * k, block_docs), k) candidates, which phase 2 rescores exactly with
+        the full query and all l_max terms."""
         Bq = q.shape[0]
-        blk = self.cfg.block_docs
+        cfg = self.cfg
+        blk = cfg.block_docs
         docs, toks = self._docs_dev, self._tok_dev
-        best_s = torch.full((Bq, k), float("-inf"), device=q.device)
-        best_i = torch.full((Bq, k), -1, dtype=torch.long, device=q.device)
+        if toks is None:
+            two_phase = None  # the dense oracle is already one exact matmul
+        k1 = max(min(cfg.two_phase_expand * k, blk), k) if two_phase else k
+        q1 = q
+        if two_phase == "query":  # phase 1 sees the high-weight terms only
+            q1 = torch.where(q >= q.amax(dim=1, keepdim=True) * cfg.two_phase_ratio, q, 0.0)
+        n_terms = min(cfg.two_phase_terms, cfg.l_max) if two_phase == "doc" else None
+        best_s = torch.full((Bq, k1), float("-inf"), device=q.device)
+        best_i = torch.full((Bq, k1), -1, dtype=torch.long, device=q.device)
         if toks is None:  # the dense oracle scores the query at the weight dtype
             qc = q.to(docs.dtype).float()
         for b0 in range(0, docs.shape[0], blk):
@@ -264,13 +322,19 @@ class SparseIndex:
             else:
                 # gather the query columns of this block's token ids, then
                 # contract with the block's weights: [Bq, blk, L] -> [Bq, blk]
-                tok = toks[b0:b0 + blk].to(torch.int64)
-                g = torch.index_select(q, 1, tok.reshape(-1)).view(Bq, *tok.shape)
-                s = (g * docs[b0:b0 + blk].float()).sum(dim=-1)
+                tok = toks[b0:b0 + blk, :n_terms].to(torch.int64)
+                g = torch.index_select(q1, 1, tok.reshape(-1)).view(Bq, *tok.shape)
+                s = (g * docs[b0:b0 + blk, :n_terms].float()).sum(dim=-1)
             gidx = torch.arange(b0, b0 + s.shape[1], device=q.device).expand(Bq, -1)
-            best_s, sel = torch.topk(torch.cat([best_s, s], dim=1), k, dim=1)
-            best_i = torch.gather(torch.cat([best_i, gidx], dim=1), 1, sel)
-        return best_s, best_i
+            best_s, best_i = _select(torch.cat([best_s, s], dim=1),
+                                     torch.cat([best_i, gidx], dim=1), k1)
+        if not two_phase:
+            return best_s, best_i
+        # phase 2: the pool rescored exactly; empty slots (id -1) score -inf
+        cand = best_i.clamp(0, docs.shape[0] - 1)
+        g = torch.gather(q, 1, toks[cand].to(torch.int64).view(Bq, -1)).view(Bq, k1, -1)
+        s2 = (g * docs[cand].float()).sum(dim=-1)
+        return _select(torch.where(best_i >= 0, s2, float("-inf")), best_i, k)
 
     @torch.inference_mode()
     def search(
@@ -287,14 +351,14 @@ class SparseIndex:
         `query_prune`: drop query tokens with weight <= prune * max weight
         (reference sparse_embedding_to_query, sparse_encoders.py:184-194).
         `exclude_self`: per-query id whose hit is dropped (search.py:78-80).
+        `two_phase`: approximate phase 1 + exact rescore of a candidate pool
+        (reference use_two_phase, search.py:27-42) in `cfg.two_phase_mode`
+        (see _topk_batch); the dense engine ignores it.
         `full_forward` only routes queries on the inverted engine; the exact
         engines score every query term whatever its width."""
         if not self._finalized:
             raise RuntimeError("call finalize() first")
-        if two_phase:
-            raise NotImplementedError(
-                "two-phase search is not ported yet (ROADMAP: port queue, inverted engine)"
-            )
+        self.last_certified = self.last_escalated = self.last_scan_escalated = None
         if self.n_docs == 0:
             return [dict() for _ in range(q_reps.shape[0])]
         if q_reps.shape[0] == 0:
@@ -307,7 +371,8 @@ class SparseIndex:
             q = torch.where(q > thresh, q, 0.0)
         k_eff = min(k + (1 if exclude_self is not None else 0), self.n_docs)
         Bq = self.cfg.query_batch
-        parts = [self._topk_batch(q[i:i + Bq], k_eff) for i in range(0, q.shape[0], Bq)]
+        mode = self.cfg.two_phase_mode if two_phase else None
+        parts = [self._topk_batch(q[i:i + Bq], k_eff, mode) for i in range(0, q.shape[0], Bq)]
         s_np = torch.cat([p[0] for p in parts]).cpu().numpy()
         i_np = torch.cat([p[1] for p in parts]).cpu().numpy()
         return self._collect_results(s_np, i_np, q.shape[0], k, exclude_self)
@@ -317,6 +382,7 @@ class SparseIndex:
         """Score/id arrays -> per-query {doc_id: score} maps (drops pad ids,
         non-positive scores, and the per-query self hit)."""
         if self._ids_arr is None or len(self._ids_arr) != len(self.doc_ids):
+            # doc_ids is append-only across reopen(); rebuild on growth
             self._ids_arr = np.asarray(self.doc_ids, dtype=object)
         valid = (i_np[:n_q] >= 0) & (i_np[:n_q] < self.n_docs) & (s_np[:n_q] > 0)
         ends = np.cumsum(valid.sum(axis=1)).tolist()
@@ -334,10 +400,109 @@ class SparseIndex:
             start = end
         return results
 
-    def search_tokens(self, q_tokens, q_weights, k: int = 10, **kw):
-        raise NotImplementedError(
-            "search_tokens is not ported yet (ROADMAP: port queue, serving slice)"
-        )
+    @torch.inference_mode()
+    def search_tokens(
+        self,
+        q_tokens: np.ndarray,  # [B, q_len] int32 token ids (0-padded)
+        q_weights: np.ndarray,  # [B, q_len] f32 weights (0 = inactive)
+        k: int = 10,
+        **kw,
+    ) -> List[Dict[str, float]]:
+        """Search from (token, weight) pairs: the serving path's entry, the
+        analog of the reference's `neural_sparse` query body of token->weight
+        maps (sparse_encoders.py:184-194). The dense [B, V] query is built on
+        the device (`_token_query`), so only the (B, q_len) pairs cross from
+        the host. `kw` as search()."""
+        q_tokens = np.ascontiguousarray(q_tokens, dtype=np.int32)
+        q_weights = np.ascontiguousarray(q_weights, dtype=np.float32)
+        if self._tokens_fast_eligible(q_tokens, q_weights, kw):
+            return self.resolve_hits(self._search_tokens_dispatch(
+                q_tokens, q_weights, k, kw.get("query_prune", 0.0), kw.get("exclude_self")))
+        if "full_forward" not in kw and q_tokens.shape[1] <= self.cfg.query_terms:
+            # at most q_len active terms, within the lookup budget
+            kw["full_forward"] = False
+        return self.search(self._token_query(q_tokens, q_weights), k=k, **kw)
+
+    def _token_query(self, q_tokens: np.ndarray, q_weights: np.ndarray) -> torch.Tensor:
+        """[B, V] fp32 query on the device from (token, weight) slots with
+        one accumulating scatter, so duplicate ids in a row sum. Ids index as
+        the JAX package's `.at[].add(mode="drop")` does: a negative id counts
+        from the end (-1 is V - 1), and an id still outside [0, V) is
+        dropped, here by masking it before the scatter (an out-of-range index
+        would raise on the CPU and trip a device-side assert on the card).
+        Weights <= 0 add nothing."""
+        V = self.vocab_size
+        tok = torch.from_numpy(q_tokens).to(self.device, torch.int64)
+        w = torch.from_numpy(q_weights).to(self.device)
+        tok = torch.where(tok < 0, tok + V, tok)
+        keep = (tok >= 0) & (tok < V) & (w > 0)
+        q = torch.zeros(tok.shape[0], V, device=self.device)
+        return q.scatter_add_(1, torch.where(keep, tok, 0), torch.where(keep, w, 0.0))
+
+    def _tokens_fast_eligible(self, q_tokens: np.ndarray, q_weights: np.ndarray,
+                              kw: dict) -> bool:
+        """The JAX package's routing predicate for the inverted engine's
+        token-entry fast path: a finalized inverted index, slot width within
+        `query_terms`, no two-phase, no unknown kwargs, and no duplicate
+        active token id in a row. The exact engines never qualify."""
+        if not (
+            self._finalized
+            and self._engine == "inverted"
+            and q_tokens.shape[1] <= self.cfg.query_terms
+            and not kw.get("two_phase", False)
+            and kw.get("full_forward", None) in (None, False)
+            and not set(kw) - {"query_prune", "exclude_self", "two_phase", "full_forward"}
+            and self.n_docs > 0
+            and q_tokens.shape[0] > 0
+        ):
+            return False
+        srt = np.sort(np.where(q_weights > 0, q_tokens, -1), axis=1)
+        return not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any())
+
+    def _search_tokens_dispatch(self, q_tok, q_w, k, query_prune, exclude_self) -> dict:
+        raise NotImplementedError(f"the token fast path: {_TODO_INVERTED}")
+
+    def search_tokens_async(self, q_tokens: np.ndarray, q_weights: np.ndarray,
+                            k: int = 10, **kw) -> dict:
+        """search_tokens as a handle for resolve_hits(). Only the inverted
+        engine's fast path dispatches without waiting; everywhere else
+        (every exact engine) the call degrades to a synchronous search whose
+        results and flags ride the handle, so callers need one code path."""
+        q_tokens = np.ascontiguousarray(q_tokens, dtype=np.int32)
+        q_weights = np.ascontiguousarray(q_weights, dtype=np.float32)
+        if self._tokens_fast_eligible(q_tokens, q_weights, kw):
+            return self._search_tokens_dispatch(
+                q_tokens, q_weights, k, kw.get("query_prune", 0.0), kw.get("exclude_self"))
+        results = self.search_tokens(q_tokens, q_weights, k=k, **kw)
+        return {
+            "sync_results": results,
+            "flags": (self.last_certified, self.last_escalated, self.last_scan_escalated),
+        }
+
+    def resolve_hits(self, handle: dict) -> List[Dict[str, float]]:
+        """The results of a search_tokens_async handle; sets the last_* flags
+        as the synchronous call did."""
+        if "sync_results" not in handle:
+            raise NotImplementedError(f"packed fetches: {_TODO_INVERTED}")
+        (self.last_certified, self.last_escalated,
+         self.last_scan_escalated) = handle["flags"]
+        return handle["sync_results"]
+
+    def resolve_hits_many(self, handles: Sequence[dict]) -> List[List[Dict[str, float]]]:
+        """resolve_hits over a window of handles, in order. The last_* flags
+        become the row-wise concatenation of the handles' flags (None if any
+        handle lacks them)."""
+        out = [self.resolve_hits(h) for h in handles]
+
+        def _cat(col):
+            vals = [h["flags"][col] for h in handles]
+            if not vals or any(v is None for v in vals):
+                return None
+            return np.concatenate(vals)
+
+        self.last_certified, self.last_escalated, self.last_scan_escalated = (
+            _cat(0), _cat(1), _cat(2))
+        return out
 
     # -------------------------------------------------------- persistence
     def save(self, path: str):

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -127,6 +127,32 @@ def _topk_rows(rep: torch.Tensor, k: int):
 # ---------------------------------------------------------------------------
 
 
+def sparse_embedding_to_query(
+    token_weight_map: Dict[str, float],
+    field_name: str = "text_sparse",
+    query_prune: float = 0,
+) -> Dict:
+    """The OpenSearch `neural_sparse` query body of a {token: weight} map
+    (reference sparse_encoders.py:184-194), for clients that still send
+    queries to an OpenSearch cluster; the native path is
+    `SparseIndex.search_tokens`."""
+    if query_prune > 0:
+        thresh = max(token_weight_map.values()) * query_prune
+        token_weight_map = {t: w for t, w in token_weight_map.items() if w > thresh}
+    return {"neural_sparse": {field_name: {"query_tokens": token_weight_map}}}
+
+
+def sparse_to_token_weight_dicts(reps: np.ndarray, tokenizer) -> List[Dict[str, float]]:
+    """Dense [B, V] -> one {token: weight} map per row, nonzero entries only
+    (reference SparsePostProcessor, sparse_encoders.py:130-150, without its
+    sentinel at index 0)."""
+    out = []
+    for row in reps:
+        (idx,) = np.nonzero(row)
+        out.append({tokenizer.convert_id_to_token(i): float(row[i]) for i in idx})
+    return out
+
+
 class BatchEncoder:
     """Tokenize -> forward on the device -> sparse reps; accumulates the
     per-token activation counts for the FLOPS statistic on the device
@@ -205,6 +231,11 @@ class BatchEncoder:
 
     def encode_batch(self, texts: List[str], inf_free: bool = False) -> np.ndarray:
         return self.encode_batch_device(texts, inf_free=inf_free).cpu().numpy()
+
+    def encode(self, texts: List[str], inf_free: bool = False) -> List[Dict[str, float]]:
+        """{token: weight} maps of `texts` (the serving `_encode` route)."""
+        reps = self.encode_batch(texts, inf_free=inf_free)
+        return sparse_to_token_weight_dicts(reps, self.model.tokenizer)
 
     @torch.inference_mode()
     def encode_chunk_device(self, texts: List[str], inf_free: bool = False,

@@ -396,3 +396,52 @@ def test_bwd_kernels_reject_what_they_cannot_take(cuda):
         mp.maxpool_head_bwd_buckets(g.double(), idx, mask)
     with pytest.raises(ValueError):
         mp.maxpool_head_bwd_buckets(g, idx, mask.cpu())
+
+
+def _index_pair(cuda, mode, n_docs=3000, V=2000, seed=0):
+    """The same corpus indexed on the CPU and on the card (bf16 weights,
+    l_max 64, two-phase on 8 terms a doc or terms >= 0.4 max)."""
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, V, size=(n_docs, 64)).astype(np.int32)
+    w = np.sort(rng.gamma(2.0, 1.0, size=(n_docs, 64)).astype(np.float32), axis=1)[:, ::-1]
+    out = []
+    for dev in ("cpu", cuda):
+        idx = SparseIndex(V, IndexConfig(engine="sparse", l_max=64, block_docs=512,
+                                         query_batch=16, two_phase_mode=mode,
+                                         two_phase_terms=8), device=dev)
+        idx.add_topk([f"d{i}" for i in range(n_docs)], tok, np.ascontiguousarray(w))
+        idx.finalize()
+        out.append(idx)
+    q_tok = rng.integers(0, V, size=(40, 8)).astype(np.int32)
+    q_w = rng.gamma(2.0, 1.0, size=(40, 8)).astype(np.float32)
+    q_tok[:, 1] = q_tok[:, 0]  # duplicates sum
+    q_w[::4, 7] = 0.0
+    return out, q_tok, q_w
+
+
+def _same_hits(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert list(g) == list(r)  # one sum order per doc on both devices up to fp32 noise
+        np.testing.assert_allclose(list(g.values()), list(r.values()), rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["query", "doc"])
+def test_search_tokens_and_two_phase_on_the_card_equal_the_cpu(cuda, mode):
+    (cpu, card), q_tok, q_w = _index_pair(cuda, mode)
+    for kw in (dict(), dict(two_phase=True), dict(query_prune=0.3)):
+        _same_hits(card.search_tokens(q_tok, q_w, k=10, **kw),
+                   cpu.search_tokens(q_tok, q_w, k=10, **kw))
+    assert card.last_certified is None
+
+
+def test_out_of_range_token_ids_on_the_card_do_not_assert(cuda):
+    (cpu, card), q_tok, q_w = _index_pair(cuda, "query")
+    q_tok[:, 2] = 2000 + np.arange(40)  # >= V
+    q_tok[:, 3] = -5000  # below -V
+    got = card.search_tokens(q_tok, q_w, k=10)
+    torch.cuda.synchronize()  # a device-side assert would surface here
+    _same_hits(got, cpu.search_tokens(q_tok, q_w, k=10))
+    assert torch.ones(1, device=cuda).item() == 1.0  # the context still works

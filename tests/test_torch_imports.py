@@ -2,11 +2,16 @@
 jax nor the JAX package, and its entry points run on the card unless the
 caller asks for the CPU."""
 
+import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
+import time
+import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,7 +37,7 @@ def test_port_has_the_slice_modules():
                  "ops.activations", "index.engine", "eval.beir",
                  "cli.evaluate_beir", "ops.losses", "ops.flops", "data.datasets",
                  "data.collator", "data.loader", "train.trainer", "cli.train_ir",
-                 "mine.hard_negatives", "cli.mine"):
+                 "mine.hard_negatives", "cli.mine", "cli.serve", "cli.search"):
         assert f"{port.__name__}.{name}" in mods, name
 
 
@@ -125,3 +130,70 @@ def test_device_knob_is_a_cli_flag(tmp_path, monkeypatch, argv, expect):
 ])
 def test_dtype_strings(name, dtype):
     assert dev_mod.resolve_dtype(name) is dtype
+
+
+def _tiny_index(path):
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+
+    idx = SparseIndex(30522, IndexConfig(engine="sparse", l_max=8, block_docs=8), device="cpu")
+    toks = np.array([[1996, 4248, 0], [2829, 4419, 1996]], np.int32)  # the quick / brown fox the
+    idx.add_topk(["a", "b"], toks, np.array([[2.0, 1.0, 0.0], [1.5, 1.0, 0.5]], np.float32))
+    idx.finalize()
+    idx.save(str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("cli", ["serve", "search"])
+def test_serving_clis_raise_without_a_card(tmp_path, monkeypatch, cli):
+    import importlib
+
+    main = importlib.import_module(f"{port.__name__}.cli.{cli}").main
+    argv = (["--index", f"x={tmp_path}"] if cli == "serve"
+            else ["--index", str(tmp_path), "--queries", str(tmp_path / "q.txt")])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv + ["--device", "cuda"])
+
+
+def test_cli_search_runs_on_the_cpu_on_request(tmp_path, capsys):
+    from opensearch_sparse_model_tuning_sample_torch.cli import search
+
+    (tmp_path / "q.txt").write_text("q1\tthe quick fox\n")
+    search.main(["--index", _tiny_index(tmp_path / "idx"), "--queries", str(tmp_path / "q.txt"),
+                 "--arch", "tiny", "--device", "cpu", "--trec", str(tmp_path / "run.trec")])
+    out = json.loads(capsys.readouterr().out)
+    assert out["qid"] == "q1" and sorted(out["hits"]) == ["a", "b"]
+    top = max(out["hits"], key=out["hits"].get)
+    assert (tmp_path / "run.trec").read_text().startswith(f"q1 Q0 {top} 1 ")
+
+
+def test_cli_serve_starts_as_a_module_on_the_cpu_on_request(tmp_path):
+    """`python -m ...cli.serve --device cpu` serves: health, a token search."""
+    cmd = [sys.executable, "-m", f"{port.__name__}.cli.serve", "--index",
+           f"t={_tiny_index(tmp_path / 'idx')}", "--arch", "tiny", "--port", "0",
+           "--device", "cpu", "--batch-window-ms", "0"]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        url = None
+        while url is None and time.monotonic() < deadline:
+            line = proc.stderr.readline()
+            assert line or proc.poll() is None, "the server exited"
+            found = re.search(r"serving 1 index\(es\) on (http://\S+)", line)
+            url = found.group(1) if found else None
+        assert url, "the server never said where it listens"
+        with urllib.request.urlopen(url + "/_health", timeout=30) as r:
+            assert json.loads(r.read()) == {"status": "green"}
+        body = json.dumps({"query": {"neural_sparse": {"text_sparse": {
+            "query_tokens": {"fox": 1.0, "the": 0.5}}}}, "size": 5}).encode()
+        req = urllib.request.Request(url + "/t/_search", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            hits = json.loads(r.read())["hits"]["hits"]
+        assert [h["_id"] for h in hits] == ["b", "a"]
+        assert hits[0]["_score"] == pytest.approx(1.0 + 0.25) and hits[1]["_score"] == 1.0
+    finally:
+        proc.kill()
+        proc.communicate(timeout=30)

@@ -130,10 +130,9 @@ def test_delete_returns_to_empty_ingest():
     assert len(t.search(q[:2], k=3)) == 2
 
 
-@pytest.mark.parametrize("case", ["inverted", "auto_above_threshold", "two_phase",
-                                  "mesh", "search_tokens"])
+@pytest.mark.parametrize("case", ["inverted", "auto_above_threshold", "mesh"])
 def test_not_ported_paths_raise(case):
-    ids, docs, q = _corpus(n_docs=20, seed=5)
+    ids, docs, _ = _corpus(n_docs=20, seed=5)
     if case == "inverted":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SparseIndex(V, IndexConfig(engine="inverted"), device="cpu")
@@ -145,14 +144,5 @@ def test_not_ported_paths_raise(case):
     t = SparseIndex(V, IndexConfig(engine="auto", auto_threshold=10, l_max=32,
                                    block_docs=16), device="cpu")
     t.add(ids, docs)
-    if case == "auto_above_threshold":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t.finalize()
-        return
-    t.cfg.auto_threshold = 1000
-    t.finalize()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "two_phase":
-            t.search(q, k=5, two_phase=True)
-        else:
-            t.search_tokens(np.zeros((1, 4), np.int32), np.zeros((1, 4), np.float32))
+        t.finalize()
