@@ -12,15 +12,20 @@ the entry points a user calls, at the full `mini` width on the
 `config_infonce_synthetic` recipe, 50 steps from a seeded random init) ->
 `cli.evaluate_beir` on the exported `checkpoint-50`, then the serving path:
 `cli.serve` (in this process, on a thread) over the evaluation's 20 000-doc
-index and a 131 072-doc synthetic index, with a write loop of raw-text
-`_bulk` requests (the ingest kernel), a 64-client token burst, text searches
-(inference-free and full forward) and two-phase searches, each response held
-to the same search in process. It checks what comes out, that every kernel
-of each path ran (launch counts, read around each path) and that no plain
-version did, and that one whole train step's gradients with the kernels
-equal those with the plain head. Any failed check exits non-zero. The last
-lines of output are the `serve:` line, the `kernels` JSON line, the card's
-name and power limit, and `{"ok": true, "device": {...}}`.
+index and a 131 072-doc synthetic index built with the default engine
+("auto": the inverted engine with exact escalation at that size), with a
+write loop of raw-text `_bulk` requests (the ingest kernel), a 64-client
+token burst, text searches (inference-free and full forward) and two-phase
+searches, each response held to the same search in process and the burst's
+top-10 to the exact scan; then `cli.evaluate_beir` again on the inverted
+engine with exact escalation, its metrics held to the scan evaluation's and
+its incrementally built postings to one build of the same rows. It checks
+what comes out, that every kernel of each path ran (launch counts, read
+around each path) and that no plain version did, and that one whole train
+step's gradients with the kernels equal those with the plain head. Any
+failed check exits non-zero. The last lines of output are the `serve:` and
+`inverted eval:` lines, the `kernels` JSON line, the card's name and power
+limit, and `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
 `output/chip_smoke/` (there too `main_batches.pt`, the head's inputs on the
@@ -1067,19 +1072,62 @@ def check_same_hits(resp, ref, what, rtol):
 
 def build_big_index(dev):
     """bench.py's 128K corpus (make_corpus(131072, 30522, avg_terms=110,
-    seed=1, l_max=128)) on the exact scan (`auto` would resolve to the
-    inverted engine at this size), saved in format 2 for the server."""
+    seed=1, l_max=128)) with the default engine, "auto": above 65 536 docs
+    it resolves to the inverted engine with exact escalation, its postings
+    built on the incremental build's thread by the native library. Saved
+    in format 2 for the server."""
     from bench import make_corpus
+    from opensearch_sparse_model_tuning_sample_torch.index import inverted
     from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
 
     path = os.path.join(OUT, "serve", "big.index")
     toks, ws = make_corpus(BIG_DOCS, BIG_VOCAB, avg_terms=110, seed=1, l_max=128)
-    idx = SparseIndex(BIG_VOCAB, IndexConfig(engine="sparse", l_max=128, block_docs=2048),
-                      device=dev)
+    idx = SparseIndex(BIG_VOCAB, IndexConfig(l_max=128, block_docs=2048), device=dev)
+    t0 = time.perf_counter()
     idx.add_topk([str(i) for i in range(BIG_DOCS)], toks, ws)
     idx.finalize()
+    build_s = time.perf_counter() - t0
+    check(idx.cfg.engine == "auto" and idx._engine == "inverted" and idx._exact_escalate,
+          f"auto resolves to the inverted engine with exact escalation ({idx._engine})")
+    check(idx.postings_source == "incremental", f"big postings by {idx.postings_source}")
+    check(inverted.BUILDS["native"] > 0 and inverted.BUILDS["numpy"] == 0
+          and inverted.BUILDS["numpy_merge"] == 0,
+          f"the native postings build ran, never the numpy one: {inverted.BUILDS}")
+    print(f"big index: {BIG_DOCS} docs, engine auto -> {idx._engine} (exact escalation "
+          f"{idx._exact_escalate}), postings {tuple(idx._post_docs.shape)} by the "
+          f"{idx.postings_source} build, native library {inverted.BUILDS}; add + finalize "
+          f"{build_s:.2f} s", flush=True)
     idx.save(path)
     return path
+
+
+def scan_twin(index, dev):
+    """The exact `sparse` scan over the same stored rows as `index`."""
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+
+    n = index.n_docs
+    scan = SparseIndex(index.vocab_size, IndexConfig(
+        engine="sparse", l_max=index.cfg.l_max, block_docs=index.cfg.block_docs,
+        query_batch=index.cfg.query_batch, weight_dtype=index.cfg.weight_dtype), device=dev)
+    scan.doc_ids = list(index.doc_ids)
+    scan._tok_chunks = [index._tok_dev[:n].cpu().numpy().astype(np.int32)]
+    scan._w_chunks = [index._docs_dev[:n].float().cpu().numpy()]
+    scan.finalize()
+    return scan
+
+
+def check_same_topk(got, want, what, rtol=1e-5):
+    """Per-query top-k maps against the exact scan's: ids equal in order
+    but where two scores tie exactly, scores within rtol."""
+    n_hits = 0
+    for qi, (g, w) in enumerate(zip(got, want)):
+        gl, wl = list(g.items()), list(w.items())
+        check(len(gl) == len(wl), f"{what} query {qi}: {len(gl)} hits, scan {len(wl)}")
+        for (gi, gs), (wi, ws) in zip(gl, wl):
+            check(abs(gs - ws) <= rtol * abs(ws), f"{what} query {qi}: score {gs}, scan {ws}")
+            check(gi == wi or w.get(gi) == ws, f"{what} query {qi}: {gi} in place of {wi}")
+        n_hits += len(gl)
+    return n_hits
 
 
 def doc_mode_copy(index_dir):
@@ -1178,7 +1226,9 @@ def drive_server(base, texts, query_texts, q_tok, q_w, vocab):
                                             for t, w in zip(q_tok[i], q_w[i]) if w > 0}})
               for i in range(len(q_tok))]
     for i in range(8):  # warm-up
-        ok_search(base, "big", bodies[i]["query"]["neural_sparse"]["text_sparse"])
+        code, resp = http(base, "POST", "/big/_search", bodies[i])
+        check(code == 200 and resp["ext"]["exactness"]["certified"] is True,
+              f"warm-up search on big: {code}")
 
     def client(c):
         out = []
@@ -1196,7 +1246,8 @@ def drive_server(base, texts, query_texts, q_tok, q_w, vocab):
     rec["burst_s"] = time.perf_counter() - t0
     stats1 = http(base, "GET", "/_stats")[1]["search_microbatch"]
     for i, code, resp, _ in burst:
-        check(code == 200 and "ext" not in resp, f"burst request {i}: {code}")
+        check(code == 200 and resp.get("ext", {}).get("exactness", {}).get("certified") is True,
+              f"burst request {i}: {code}, certified {resp.get('ext')}")
     rec["burst"] = burst
     rec["burst_stats"] = {k: stats1[k] - stats0[k] for k in ("requests", "engine_calls", "batches")}
     rec["burst_stats"]["max_batch_seen"] = stats1["max_batch_seen"]
@@ -1233,12 +1284,22 @@ def check_serving(dev, rec, dirs, ckpt):
     from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
 
     big = SparseIndex.load(dirs["big"], device=dev)
+    check(big._engine == "inverted" and big._exact_escalate,
+          "the saved big index loads as the inverted engine with exact escalation")
+    scan = scan_twin(big, dev)
     q_tok, q_w = rec["q_tok"], rec["q_w"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref = big.search_tokens(q_tok, q_w, k=10)  # ends in the copy to the host
-    engine = {"in_process_qps": len(q_tok) / (time.perf_counter() - t0)}
-    engine.update(engine_call_profile(big, q_tok[:64], q_w[:64]))
+    ref = big.search_tokens(q_tok, q_w, k=10)
+    cert, esc, scan_esc = big.last_certified, big.last_escalated, big.last_scan_escalated
+    check(cert is not None and cert.all(), "every burst query is certified")
+    want = scan.search_tokens(q_tok, q_w, k=10)
+    n_scan = check_same_topk(ref, want, "inverted vs exact scan")
+    engine = {
+        "certified_share": float(1.0 - esc.mean()),  # by the base pass alone
+        "deep_escalations": int((esc & ~scan_esc).sum()),
+        "scan_escalations": int(scan_esc.sum()),
+        "inverted": engine_call_profile(big, q_tok, q_w),
+        "scan": engine_call_profile(scan, q_tok, q_w),
+    }
     for i, _, resp, _ in rec["burst"]:
         check_same_hits(resp, ref[i], f"burst request {i}", TOKENS_RTOL)
     qd = np.zeros((32, BIG_VOCAB), np.float32)
@@ -1246,7 +1307,17 @@ def check_serving(dev, rec, dirs, ckpt):
         np.add.at(qd[i], q_tok[i][q_w[i] > 0], q_w[i][q_w[i] > 0])
     n_bf = brute_force_check(dirs["big"], torch.from_numpy(qd).to(dev),
                              [hits_of(rec["burst"][i][2]) for i in range(32)], BIG_VOCAB, dev)
-    del big
+    print(f"serve: big inverted top-10 equals the exact scan for all {len(q_tok)} queries "
+          f"({n_scan} hits); certified share {engine['certified_share']:.4f} by the base pass, "
+          f"escalations {engine['deep_escalations']} to the deep tier and "
+          f"{engine['scan_escalations']} to the scan, all certified after", flush=True)
+    for name in ("inverted", "scan"):
+        e = engine[name]
+        print(f"serve: engine alone ({name}), {len(q_tok)} queries: {e['qps']:.1f} q/s, "
+              f"{e['syncs_per_call']:g} host syncs a call; a 64-query call {e['call_ms']:.2f} ms, "
+              f"card busy {e['busy_ms']:.2f} ms ({e['busy_share']:.3f}), "
+              f"{e['ops_per_call']:.0f} device operations; top: {e['top_ops_ms']}", flush=True)
+    del big, scan
     torch.cuda.empty_cache()
 
     model = se.build_model(model_name_or_path=ckpt,
@@ -1272,14 +1343,23 @@ def check_serving(dev, rec, dirs, ckpt):
             "engine": engine}
 
 
-def engine_call_profile(index, q_tok, q_w, n=3):
-    """One search_tokens call of len(q_tok) queries, in process: its host
-    time (mean of n, each ending in the copy to the host) and, from
-    torch.profiler over n more, the card's busy time a call and the device
-    operations a call."""
+def engine_call_profile(index, q_tok, q_w, n=3, per_call=64):
+    """The engine alone, in process: q/s of search_tokens over all of q_tok
+    in one call (mean of n, each ending in the copy to the host) and the
+    host syncs such a call makes; then one call of `per_call` queries: its
+    host time (mean of n) and, from torch.profiler over n more, the card's
+    busy time a call, the device operations a call and the top five."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    index.search_tokens(q_tok, q_w, k=10)
+    syncs = index.host_syncs
+    t0 = time.perf_counter()
+    for _ in range(n):
+        index.search_tokens(q_tok, q_w, k=10)
+    qps = n * len(q_tok) / (time.perf_counter() - t0)
+    out = {"queries": len(q_tok), "qps": qps, "syncs_per_call": (index.host_syncs - syncs) / n}
+    q_tok, q_w = q_tok[:per_call], q_w[:per_call]
     index.search_tokens(q_tok, q_w, k=10)
     t0 = time.perf_counter()
     for _ in range(n):
@@ -1292,9 +1372,10 @@ def engine_call_profile(index, q_tok, q_w, n=3):
                and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in on_card) / n / 1e3
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:5]
-    return {"queries_per_call": len(q_tok), "call_ms": call_ms, "busy_ms": busy_ms,
-            "busy_share": busy_ms / call_ms, "ops_per_call": sum(e.count for e in on_card) / n,
-            "top_ops_ms": {e.key[:50]: e.self_device_time_total / n / 1e3 for e in top}}
+    out.update(queries_per_call=len(q_tok), call_ms=call_ms, busy_ms=busy_ms,
+               busy_share=busy_ms / call_ms, ops_per_call=sum(e.count for e in on_card) / n,
+               top_ops_ms={e.key[:50]: e.self_device_time_total / n / 1e3 for e in top})
+    return out
 
 
 def phase_serve(dev, ckpt, index_dir, texts, query_texts):
@@ -1343,7 +1424,85 @@ def phase_serve(dev, ckpt, index_dir, texts, query_texts):
           f"{out['text_searches']} text searches on rich equal the search in process; "
           f"two-phase top-10 overlap with exact {out['two_phase_overlap']}; encoder check on a "
           f"served bulk max |err| {out['encoder_check_err']:.3g}", flush=True)
-    print(f"serve: the engine alone, in process: {out['engine']}", flush=True)
+    return out
+
+
+def phase_inverted_eval(dev, path):
+    """`cli.evaluate_beir` of the 50-step checkpoint on synthetic-rich with
+    `--index_engine inverted --index_exact_escalate true`, through its entry
+    point. Its metrics must equal the scan evaluation's from this run; its
+    index must be built by the incremental build on the card, with
+    postings bit-equal to one build_postings of the rows it was fed; the
+    ingest kernel must run for every batch and no plain version at all."""
+    from opensearch_sparse_model_tuning_sample_torch.cli import evaluate_beir
+    from opensearch_sparse_model_tuning_sample_torch.eval import beir
+    from opensearch_sparse_model_tuning_sample_torch.index import inverted
+
+    ckpt = path["ckpt"]
+    argv = ["evaluate_beir", path["path"], "--index_engine", "inverted",
+            "--index_exact_escalate", "true", "--output_dir", os.path.join(OUT, "inverted_eval"),
+            "--model_name_or_path", ckpt, "--tokenizer_name", ckpt]
+    captured, fed = {}, []
+    inc = inverted.IncrementalPostingsBuilder
+    orig = (beir.ingest, inc.feed, inc.finish, sys.argv)
+
+    def ingest(*a, **kw):
+        captured["index"] = orig[0](*a, **kw)
+        return captured["index"]
+
+    def feed(self, toks, ws, off):
+        fed.append((off, toks.copy(), ws.copy()))
+        return orig[1](self, toks, ws, off)
+
+    def finish(self):
+        captured["postings"] = orig[2](self)
+        return captured["postings"]
+
+    builds = dict(inverted.BUILDS)
+    beir.ingest, inc.feed, inc.finish, sys.argv = ingest, feed, finish, argv
+    t0 = time.time()
+    reset_counters()
+    try:
+        avg = evaluate_beir.main()
+    finally:
+        beir.ingest, inc.feed, inc.finish, sys.argv = orig
+    launches, plain = read_counters()
+    seconds = time.time() - t0
+    index = captured["index"]
+    n = index.n_docs
+    check(index._engine == "inverted" and index._exact_escalate,
+          "the eval's index is the inverted engine with exact escalation")
+    check(index.postings_source == "incremental" and index.device.type == "cuda",
+          f"the eval's postings came from the incremental build on the card "
+          f"({index.postings_source}, {index.device})")
+    fed.sort(key=lambda f: f[0])
+    check([f[0] for f in fed] == list(np.cumsum([0] + [len(f[1]) for f in fed[:-1]]))
+          and sum(len(f[1]) for f in fed) == n, "the incremental build took every row once, in order")
+    one = inverted.build_postings(np.concatenate([f[1] for f in fed]),
+                                  np.concatenate([f[2] for f in fed]), index.vocab_size,
+                                  index._build_cap)
+    pd, pw = captured["postings"]
+    check(np.array_equal(pd, one[0]) and np.array_equal(pw.view(np.int32), one[1].view(np.int32)),
+          "incremental postings bit-equal to the one-shot build of the same rows")
+    check(np.array_equal(index._post_docs.cpu().numpy(), one[0]), "the card holds those postings")
+    check(inverted.BUILDS["numpy"] == builds["numpy"], f"no numpy postings build: {inverted.BUILDS}")
+    n_batches = -(-n // path["cfg"]["per_device_eval_batch_size"])
+    check(launches["maxpool_head"] >= n_batches, "the ingest kernel ran for every ingest batch")
+    check(not any(plain.values()), f"no plain version ran in the inverted eval: {plain}")
+    same = {k: (avg[k], path["avg"][k]) for k in path["avg"] if k != "qps"}
+    check(all(a == b for a, b in same.values()), f"inverted eval metrics equal the scan's: {same}")
+    check(avg["certified_frac"] == 1.0, f"every query certified ({avg['certified_frac']})")
+    out = {"seconds": seconds, "docs": n, "postings": list(index._post_docs.shape),
+           "fed_chunks": len(fed), "metrics": {k: v for k, v in avg.items()},
+           "scan_metrics": path["avg"], "launches": launches["maxpool_head"]}
+    print(f"inverted eval: {n} docs, postings {out['postings']} from the incremental build "
+          f"({len(fed)} chunk(s)) bit-equal to one build; metrics equal the scan's "
+          f"(NDCG@10 {avg['NDCG@10']:.5f}); certified_frac {avg['certified_frac']:.4f}, "
+          f"escalated_frac {avg['escalated_frac']:.4f}; search {avg['qps']:.1f} q/s against the "
+          f"scan's {path['avg']['qps']:.1f}; maxpool_head launches {launches['maxpool_head']}; "
+          f"{seconds:.1f} s", flush=True)
+    del captured, index
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1499,6 +1658,9 @@ def main():
           f"{serve_out['burst_qps']:.1f} q/s, p50 {serve_out['p50_ms']:.2f} ms, p95 "
           f"{serve_out['p95_ms']:.2f} ms, /_stats {serve_out['stats']} (host clock, card {card})",
           flush=True)
+
+    # 9. the inverted engine on the evaluation path
+    inv_eval = phase_inverted_eval(dev, path)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     main_row = rows[-1]  # the eval's own first batch
@@ -1557,6 +1719,7 @@ def main():
         "full_step_grad_worst_rel_err": grad_worst, "profile": profile,
         "log": path["trainer"].log_history, "ndcg_at_10": avg["NDCG@10"]}))
     print("serve: " + json.dumps(serve_out))
+    print("inverted eval: " + json.dumps(inv_eval))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

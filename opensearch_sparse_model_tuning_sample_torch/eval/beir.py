@@ -363,10 +363,13 @@ def search(
     query_prune: float = 0.0,
     use_two_phase: bool = False,
 ) -> Dict:
-    """Encode queries, top-k search, FLOPS stats — reference search.py:13-104."""
+    """Encode queries, top-k search, FLOPS stats — reference search.py:13-104.
+    On the inverted engine also the certificate tally: the share of queries
+    certified exact and the share that re-ran (escalated)."""
     qd = KeyValueDataset(queries)
     encoder = get_batch_encoder(model, max_length=max_length, do_count=True)
     run_res: Dict[str, Dict[str, float]] = {}
+    n_cert = n_esc = n_flagged = 0
     t0 = time.time()
     n = len(qd)
     # chunks of a power-of-two count of batches (~4096 rows), so full chunks
@@ -385,6 +388,12 @@ def search(
         # reps rows beyond len(rows) are chunk padding; zip drops their hits
         for (qid, _), h in zip(rows, hits):
             run_res[qid] = h
+        cert = index.last_certified
+        if cert is not None:
+            n_cert += int(cert[:len(rows)].sum())
+            if index.last_escalated is not None:
+                n_esc += int(index.last_escalated[:len(rows)].sum())
+            n_flagged += len(rows)
     qps = n / max(time.time() - t0, 1e-9)
 
     # drop self-hits (mining on train splits, reference search.py:78-80)
@@ -398,8 +407,12 @@ def search(
     d_length = float(count_d.sum())
     logger.info("Index_name: %s, flops: %s, d_length:%s, q_length:%s (%.1f q/s)",
                 index_name, flops, d_length, q_length, qps)
-    return {"run_res": run_res, "flops": flops, "q_length": q_length,
-            "d_length": d_length, "qps": qps}
+    out = {"run_res": run_res, "flops": flops, "q_length": q_length,
+           "d_length": d_length, "qps": qps}
+    if n_flagged:
+        out["certified_frac"] = n_cert / n_flagged
+        out["escalated_frac"] = n_esc / n_flagged
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +474,8 @@ def evaluate_datasets(
         "dataset": [], "flops": [], "NDCG@10": [],
         **{c: [] for c in extra_cols},
         "q_length": [], "d_length": [], "qps": [],
+        # the certificate tally (inverted engine; None elsewhere)
+        "certified_frac": [], "escalated_frac": [],
     }
     for name in datasets:
         corpus, queries, qrels = load_fn(name)
@@ -497,6 +512,8 @@ def evaluate_datasets(
             result[c].append(recall[c])
         for key in ("flops", "q_length", "d_length", "qps"):
             result[key].append(res[key])
+        for key in ("certified_frac", "escalated_frac"):
+            result[key].append(res.get(key))
 
     if not data_args.do_search or not result["dataset"]:
         return {}
@@ -505,8 +522,14 @@ def evaluate_datasets(
         key: sum(result[key]) / len(result[key])
         for key in ["flops", "q_length", "d_length", "NDCG@10", "qps", *extra_cols]
     }
+    cert_vals = [v for v in result["certified_frac"] if v is not None]
+    if cert_vals:  # only inverted-engine runs produce the certificate
+        avg_res["certified_frac"] = sum(cert_vals) / len(cert_vals)
+        esc_vals = [v for v in result["escalated_frac"] if v is not None]
+        avg_res["escalated_frac"] = sum(esc_vals) / len(esc_vals)
     tag = f"_step{step}" if step is not None else ""
-    cols = ["dataset", "flops", "NDCG@10", *extra_cols, "q_length", "d_length", "qps"]
+    cols = ["dataset", "flops", "NDCG@10", *extra_cols, "q_length", "d_length", "qps",
+            "certified_frac", "escalated_frac"]
     with open(os.path.join(eval_dir, f"beir_statistics{tag}.csv"), "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(cols)

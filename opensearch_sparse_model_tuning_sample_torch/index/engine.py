@@ -1,23 +1,30 @@
-"""On-device exact sparse retrieval engine (the port of the JAX package's
-`index/engine.py`, exact engines only).
+"""On-device sparse retrieval engine (the port of the JAX package's
+`index/engine.py`, on one device).
 
   * **sparse engine**: a doc-major forward index — per doc, up to L_max
     (token_id, weight) pairs, impact-sorted. Scoring walks doc blocks,
     gathers the query columns for each block's token ids, contracts them
     with the block's weights, and keeps a running top-k. Memory ∝ nnz;
     exact for any weight distribution.
+  * **inverted engine**: impact-ordered token-major postings
+    (`index/inverted.py`): gather the query terms' top-C postings,
+    sort-merge the partial scores by doc id, rescore the candidates against
+    the doc-major rows, and bound the score of any doc it missed. With
+    exact escalation the rows that the bound does not certify re-run, first
+    through a deep re-lookup of the postings, then through the exact scan.
   * **dense engine**: exact Q @ Dᵀ over the dense [N, V] matrix — the
     correctness oracle for small corpora.
+  * **auto**: the sparse scan below `auto_threshold` docs, the inverted
+    engine with exact escalation from there on.
 
-Both are plain torch ops (the JAX package wrote them as `lax` loops, not
-Pallas kernels). The serving surface is here too: `search_tokens` (the
-`neural_sparse` token->weight query), two-phase search on the scan, `reopen`
-for the add -> refresh -> add loop, and the async handle API the server
-calls (on the exact engines it resolves synchronously). Not ported yet, each
-raising NotImplementedError that names its ROADMAP item: the inverted engine
-(and "auto" above `auto_threshold`, which resolves to it, with its token
-fast path and packed fetches) and a device mesh. Saved indexes use the JAX
-package's format 2, so an index saved by either package loads in the other.
+All of it is torch ops (the JAX package wrote these as XLA ops, not Pallas
+kernels). The serving surface is here too: `search_tokens` (the
+`neural_sparse` token->weight query, with the inverted engine's token-entry
+fast path), two-phase search, `reopen` for the add -> refresh -> add loop,
+and the async handle API the server calls. A device mesh and `merge_saved`
+raise NotImplementedError naming their ROADMAP item. Saved indexes use the
+JAX package's format 2, so an index saved by either package loads in the
+other.
 """
 
 from __future__ import annotations
@@ -27,16 +34,18 @@ import json
 import logging
 import os
 from dataclasses import asdict, dataclass, fields
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device, resolve_dtype
+from . import inverted
 
 logger = logging.getLogger(__name__)
 
-_TODO_INVERTED = "the inverted engine is not ported yet (ROADMAP: port queue, inverted engine)"
+_TODO_DISTRIBUTION = "not ported yet (ROADMAP: port queue, distribution)"
+_MIN_INVERTED_ROWS = 64
 
 
 def _round_up(x: int, m: int) -> int:
@@ -63,11 +72,108 @@ def _load_weights(blob) -> np.ndarray:
     return blob["weights"].astype(np.float32)
 
 
+def _pack_cols(s, i, b=None, e=None) -> torch.Tensor:
+    """Device half of the packed fetch: one int32 matrix holding the scores
+    (bit patterns), the ids, and optionally the missed-score bound (bit
+    pattern) and a per-row int code, so one copy to the host brings all."""
+    cols = [s.float().contiguous().view(torch.int32), i.to(torch.int32)]
+    if b is not None:
+        cols.append(b.float().reshape(-1, 1).contiguous().view(torch.int32))
+    if e is not None:
+        assert b is not None, "the code column rides after the bound column"
+        cols.append(e.to(torch.int32).reshape(-1, 1))
+    return torch.cat(cols, dim=1)
+
+
+def _split_packed(arr, n_q, k, has_b, has_e):
+    """Host half of the packed fetch: an int32 block back into (scores f32,
+    ids int32, bounds f32 | None, codes int32 | None)."""
+    s_np, i_np = arr[:n_q, :k].view(np.float32), arr[:n_q, k:2 * k]
+    if not has_b:
+        return s_np, i_np, None, None
+    b_np = arr[:n_q, 2 * k:2 * k + 1].view(np.float32)[:, 0]
+    if not has_e:
+        return s_np, i_np, b_np, None
+    return s_np, i_np, b_np, arr[:n_q, 2 * k + 1]
+
+
+def _fetch_packed(s, i, n_q, b=None, e=None):
+    """(scores, ids, bounds | None, codes | None) as numpy with one copy to
+    the host."""
+    arr = _pack_cols(s, i, b, e).cpu().numpy()
+    return _split_packed(arr, n_q, s.shape[1], b is not None, e is not None)
+
+
+def _densify_tokens(tok: torch.Tensor, w: torch.Tensor, V: int) -> torch.Tensor:
+    """[B, V] fp32 query from (token, weight) slots with one accumulating
+    scatter, indexed as the JAX package's `.at[].add(mode="drop")`: a
+    negative id counts from the end once (-1 is V - 1), an id still outside
+    [0, V) is dropped (masked here: out of range, torch raises on the CPU
+    and trips a device-side assert on the card). Weights <= 0 add nothing."""
+    tok = tok.long()
+    tok = torch.where(tok < 0, tok + V, tok)
+    keep = (tok >= 0) & (tok < V) & (w > 0)
+    q = torch.zeros(tok.shape[0], V, device=tok.device)
+    return q.scatter_add_(1, torch.where(keep, tok, 0), torch.where(keep, w.float(), 0.0))
+
+
+# a query batch is a dense [n, V] tensor or the token entry's (q_tok, q_w)
+def _first(q) -> torch.Tensor:
+    return q[0] if isinstance(q, tuple) else q
+
+
+def _n_rows(q) -> int:
+    return _first(q).shape[0]
+
+
+def _take_rows(q, idx: torch.Tensor):
+    if isinstance(q, tuple):
+        return tuple(torch.index_select(a, 0, idx) for a in q)
+    return torch.index_select(q, 0, idx)
+
+
+class _InvertedFns(NamedTuple):
+    """One (engine, k, two_phase) instantiation of the inverted search,
+    bound to the index tensors of the finalize that built it (a handle
+    resolved after a reopen still reads its own snapshot)."""
+
+    base: object  # qb -> (scores, ids, bound)
+    deep: Optional[object]  # the deep re-lookup tier, or None
+    scan: object  # dense qb -> (scores, ids): the exact scan
+    escalate: bool
+    is_tok: bool
+    batch: int  # rows per call of base/deep/scan
+    vocab: int
+
+
 @dataclass
 class IndexConfig:
-    """The JAX package's IndexConfig, field for field, so saved metas and
-    shared configs parse. The port runs "sparse", "dense", and "auto" up to
-    `auto_threshold` docs; the inverted-engine knobs are carried, unused."""
+    """The JAX package's IndexConfig, field for field and with its
+    defaults, so saved metas and shared configs parse. Every field is live
+    except `shard_by` (a device mesh is not ported). The inverted knobs:
+
+    * `postings_cap`, `query_terms`: the top-C postings kept per token, and
+      the query term slots of one lookup.
+    * `inverted_rescore(_expand)`: the exact rescore of a pool of expand x k
+      candidates; `refine_expand`: a deeper pool for rows the base pool
+      cannot certify (0 = off).
+    * `postings_ext_cap`, `deep_slots`: tiered read depths (extension rows
+      for tokens whose postings reach past postings_cap, read by the
+      deep_slots terms with the largest bound contribution); 0 = off.
+    * `tail_block_docs`: the block-max tail bound, docs per block (0 = off).
+    * `deep_escalate(_expand)`, `full_deep_query_terms`: the deep re-lookup
+      tier of exact escalation.
+    * `full_query_terms`, `full_postings_cols`, `full_rescore_expand`,
+      `full_merge_shifts`: the full-forward mode for queries wider than
+      query_terms; `full_fallback_scan` sends them to the exact scan
+      instead; `full_exact_escalate` (None = on exactly when the deep tier
+      exists) escalates them.
+    * `incremental_postings` (None = on when the index lives on a CUDA
+      device), `incremental_unit`: the postings build on a host thread
+      during ingest.
+    * `exact_escalate` (None = on exactly when "auto" picks the inverted
+      engine): rows the certificate does not cover re-run until exact.
+    """
 
     engine: str = "auto"
     auto_threshold: int = 65536
@@ -128,13 +234,9 @@ class SparseIndex:
     def __init__(self, vocab_size: int, cfg: Optional[IndexConfig] = None,
                  mesh=None, device: DeviceLike = None):
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet (ROADMAP: port queue, distribution)"
-            )
+            raise NotImplementedError(f"a device mesh is {_TODO_DISTRIBUTION}")
         self.vocab_size = vocab_size
         self.cfg = cfg or IndexConfig()
-        if self.cfg.engine == "inverted":
-            raise NotImplementedError(_TODO_INVERTED)
         self.device = resolve_device(device)
         self.doc_ids: List[str] = []
         self._tok_chunks: List[np.ndarray] = []
@@ -142,18 +244,37 @@ class SparseIndex:
         self._dense_chunks: List[np.ndarray] = []
         self.count_tensor = np.zeros((vocab_size,), dtype=np.int64)
         self._finalized = False
-        self._exact_escalate = bool(self.cfg.exact_escalate)
+        self._exact_escalate = bool(self.cfg.exact_escalate)  # resolved at finalize()
+        self._query_batch = self.cfg.query_batch
         self._ids_arr: Optional[np.ndarray] = None
-        self._docs_dev: Optional[torch.Tensor] = None
-        self._tok_dev: Optional[torch.Tensor] = None
-        # per-query exactness flags of the last search, as the JAX package
-        # keeps them. Only its inverted engine sets them; the scan and dense
+        self._warned_fallback = False
+        self._inc: Optional[inverted.IncrementalPostingsBuilder] = None
+        self._inc_fed = 0
+        # how the last finalize built its postings: "incremental" (the
+        # postings thread), "one-shot", or None (no inverted engine)
+        self.postings_source: Optional[str] = None
+        # copies of device results to the host made by searches, counted
+        # (the escalation ladder reads its row counts there)
+        self.host_syncs = 0
+        self._clear_device()
+        # per-query exactness flags of the last search. The inverted engine
+        # sets them: certified (with escalation on, every row: the rest
+        # re-ran), escalated (the rows that re-ran) and scan_escalated (the
+        # rows that fell through to the exact scan). The scan and dense
         # engines leave them None (exact by construction, except two-phase,
-        # which is approximate with no certificate), so a server built on
-        # them puts no exactness `ext` in its responses.
+        # which is approximate with no certificate).
         self.last_certified: Optional[np.ndarray] = None
         self.last_escalated: Optional[np.ndarray] = None
         self.last_scan_escalated: Optional[np.ndarray] = None
+
+    def _clear_device(self):
+        self._docs_dev: Optional[torch.Tensor] = None
+        self._tok_dev: Optional[torch.Tensor] = None
+        self._post_docs: Optional[torch.Tensor] = None
+        self._post_w: Optional[torch.Tensor] = None
+        self._ext_docs = self._ext_w = self._deep_map = None  # tiered depths
+        self._bm = self._bmap = self._bm_full = self._bmap_full = None  # block maxima
+        self._search_fns: Dict[tuple, _InvertedFns] = {}
 
     # ------------------------------------------------------------- ingest
     def add(self, doc_ids: Sequence[str], reps: np.ndarray):
@@ -187,13 +308,14 @@ class SparseIndex:
             ws = np.pad(ws, ((0, 0), (0, pad)))
         self._tok_chunks.append(toks)
         self._w_chunks.append(ws)
+        self._feed_incremental()
 
     def add_topk(self, doc_ids: Sequence[str], token_idx: np.ndarray, weights: np.ndarray):
         """Add pre-sparsified rows (BatchEncoder.encode_batch_sparse):
         token_idx/weights [B, k] already impact-sorted, zero-padded."""
         if self._finalized:
             raise RuntimeError("index already finalized")
-        if self.cfg.engine not in ("sparse", "auto"):
+        if self.cfg.engine not in ("sparse", "inverted", "auto"):
             raise ValueError("add_topk needs a sparse-format engine")
         self.doc_ids.extend(map(str, doc_ids))
         active = weights > 0
@@ -209,10 +331,79 @@ class SparseIndex:
         ws[:, :m] = np.where(active, weights, 0.0)[:, :m]
         self._tok_chunks.append(toks)
         self._w_chunks.append(ws)
+        self._feed_incremental()
+
+    # ------------------------------------------- incremental postings build
+    def _incremental_applicable(self) -> bool:
+        """The postings thread runs for inverted engines (and "auto" once it
+        has auto_threshold docs) when `incremental_postings` says so; None
+        means on when the index lives on a CUDA device (ingest keeps the
+        card busy and the host idle there)."""
+        inc = self.cfg.incremental_postings
+        if inc is None:
+            inc = self.device.type == "cuda"
+        if not inc:
+            return False
+        if self.cfg.engine == "inverted":
+            return True
+        return self.cfg.engine == "auto" and self.n_docs >= self.cfg.auto_threshold
+
+    def _slice_rows(self, start: int, count: int):
+        """Rows [start, start + count) of the accumulated chunks, as fresh
+        arrays (the postings thread reads them later)."""
+        toks_parts, w_parts = [], []
+        lo, hi, pos = start, start + count, 0
+        for t, w in zip(self._tok_chunks, self._w_chunks):
+            n = t.shape[0]
+            if pos + n > lo and pos < hi:
+                s, e = max(lo - pos, 0), min(hi - pos, n)
+                toks_parts.append(t[s:e])
+                w_parts.append(w[s:e])
+            pos += n
+            if pos >= hi:
+                break
+        return np.concatenate(toks_parts, axis=0), np.concatenate(w_parts, axis=0)
+
+    def _feed_incremental(self, flush: bool = False):
+        """Stream the accumulated rows to the postings thread in incremental_unit
+        chunks (flush=True sends the tail too). Starts the thread lazily:
+        an "inverted" index from its first add, "auto" once it crosses
+        auto_threshold (feeding every row so far)."""
+        if self._inc is None:
+            if not self._incremental_applicable():
+                return
+            self._inc = inverted.IncrementalPostingsBuilder(
+                self.vocab_size, self._build_cap, unit=max(self.cfg.incremental_unit, 1))
+            self._inc_fed = 0
+        unit = self._inc.unit
+        while True:
+            unfed = self.n_docs - self._inc_fed
+            if unfed <= 0 or (unfed < unit and not flush):
+                return
+            take = min(unfed, unit)
+            toks, ws = self._slice_rows(self._inc_fed, take)
+            self._inc.feed(toks, ws, self._inc_fed)
+            self._inc_fed += take
+
+    def _discard_incremental(self):
+        """Join and drop the postings thread (its error, if any, goes with it)."""
+        if self._inc is not None:
+            try:
+                self._inc.finish()
+            except Exception:  # noqa: BLE001 — the build is being discarded
+                pass
+            self._inc = None
+        self._inc_fed = 0
 
     @property
     def n_docs(self) -> int:
         return len(self.doc_ids)
+
+    @property
+    def _build_cap(self) -> int:
+        """Postings depth of the host build: the base cap plus the tiered
+        extension depth (split apart at finalize)."""
+        return self.cfg.postings_cap + max(int(self.cfg.postings_ext_cap), 0)
 
     # ----------------------------------------------------------- finalize
     def finalize(self):
@@ -220,25 +411,25 @@ class SparseIndex:
             return
         self._engine = self.cfg.engine
         if self._engine == "auto":
-            if self.n_docs >= self.cfg.auto_threshold:
-                raise NotImplementedError(
-                    f"engine='auto' resolves to the inverted engine at {self.n_docs} "
-                    f">= auto_threshold={self.cfg.auto_threshold} docs; {_TODO_INVERTED}"
-                )
-            self._engine = "sparse"
+            self._engine = "sparse" if self.n_docs < self.cfg.auto_threshold else "inverted"
+        # None resolves here: an auto-picked inverted engine escalates (auto
+        # keeps the scan's exact contract); explicit engines default off
         self._exact_escalate = (
-            False if self.cfg.exact_escalate is None else bool(self.cfg.exact_escalate)
+            self.cfg.engine == "auto" and self._engine == "inverted"
+            if self.cfg.exact_escalate is None else bool(self.cfg.exact_escalate)
         )
+        self._query_batch = self.cfg.query_batch
         blk = self.cfg.block_docs
         n = self.n_docs
         n_pad = _round_up(max(n, 1), blk)
         wdt = resolve_dtype(self.cfg.weight_dtype)
+        self._clear_device()
+        self.postings_source = None
         if self._engine == "dense":
             D = (np.concatenate(self._dense_chunks, axis=0) if self._dense_chunks
                  else np.zeros((0, self.vocab_size), np.float32))
             D = np.concatenate([D, np.zeros((n_pad - n, self.vocab_size), np.float32)])
             self._docs_dev = torch.from_numpy(D).to(self.device, wdt)
-            self._tok_dev = None
         else:
             L = self.cfg.l_max
             toks = (np.concatenate(self._tok_chunks, axis=0) if self._tok_chunks
@@ -251,11 +442,46 @@ class SparseIndex:
             tok_dtype = np.int16 if self.vocab_size < 2**15 else np.int32
             self._tok_dev = torch.from_numpy(toks.astype(tok_dtype)).to(self.device)
             self._docs_dev = torch.from_numpy(ws).to(self.device, wdt)
+            if self._engine == "inverted":
+                self._finalize_postings(toks, ws, n, n_pad, wdt)
         self._n_pad = n_pad
         self._tok_chunks, self._w_chunks, self._dense_chunks = [], [], []
         self._finalized = True
-        logger.info("index finalized: %d docs (padded %d) engine=%s device=%s",
-                    n, n_pad, self._engine, self.device)
+        logger.info("index finalized: %d docs (padded %d) engine=%s device=%s postings=%s",
+                    n, n_pad, self._engine, self.device, self.postings_source)
+
+    def _finalize_postings(self, toks, ws, n, n_pad, wdt):
+        """The inverted engine's device tensors: postings (finishing the
+        incremental build, or one build), the tiered extension split, and
+        the block maxima at both read depths."""
+        cfg = self.cfg
+        if self._inc is not None:
+            # the thread took chunks during ingest: feed the tail, join
+            self._feed_incremental(flush=True)
+            inc, self._inc, self._inc_fed = self._inc, None, 0
+            pd, pw = inc.finish()
+            self.postings_source = "incremental"
+        else:
+            pd, pw = inverted.build_postings(toks[:n] if n else toks, ws[:n] if n else ws,
+                                             self.vocab_size, self._build_cap)
+            self.postings_source = "one-shot"
+        if cfg.postings_ext_cap > 0:
+            pd, pw, ed, ew, dm = inverted.split_postings(pd, pw, cfg.postings_cap)
+            self._ext_docs = torch.from_numpy(ed).to(self.device)
+            self._ext_w = torch.from_numpy(ew).to(self.device, wdt)
+            self._deep_map = torch.from_numpy(dm).to(self.device)
+        self._post_docs = torch.from_numpy(np.ascontiguousarray(pd)).to(self.device)
+        self._post_w = torch.from_numpy(np.ascontiguousarray(pw)).to(self.device, wdt)
+        if cfg.tail_block_docs > 0:
+            # one per entry mode's shallowest read: postings_cap for the
+            # inf-free and token paths, full_postings_cols for full forward
+            (bm, bmap), (bmf, bmapf) = inverted.build_tail_blockmax_multi(
+                toks[:n] if n else toks, ws[:n] if n else ws, self.vocab_size,
+                (cfg.postings_cap, min(cfg.full_postings_cols, cfg.postings_cap)),
+                n_pad, cfg.tail_block_docs)
+            self._bm, self._bmap = (torch.from_numpy(a).to(self.device) for a in (bm, bmap))
+            self._bm_full, self._bmap_full = (torch.from_numpy(a).to(self.device)
+                                              for a in (bmf, bmapf))
 
     def reopen(self):
         """Back to ingest mode after finalize(): recover the host-side rows of
@@ -263,9 +489,16 @@ class SparseIndex:
         weights through their stored dtype to fp32, the precision search
         uses), drop the device state, and let add()/add_topk() append. This
         is the serving surface's _bulk -> _refresh -> search -> _bulk loop.
-        doc_ids stays append-only."""
+        doc_ids stays append-only. An inverted index seeds the next postings
+        postings build with its merged postings (weights through fp32 as stored),
+        so the next finalize merges only the new rows."""
         if not self._finalized:
             return
+        seed = None
+        if (self._engine == "inverted" and self._post_docs is not None
+                and not self.cfg.postings_ext_cap and self._incremental_applicable()):
+            seed = (self._post_docs.cpu().numpy(), self._post_w.float().cpu().numpy())
+        self._discard_incremental()
         n = self.n_docs
         if n:
             w = self._docs_dev[:n].float().cpu().numpy()
@@ -274,25 +507,32 @@ class SparseIndex:
                 self._w_chunks = [w]
             else:  # dense engine: the padded [n_pad, V] matrix
                 self._dense_chunks = [w]
-        self._docs_dev = None
-        self._tok_dev = None
+        self._clear_device()
         self._finalized = False
+        if seed is not None:
+            self._inc = inverted.IncrementalPostingsBuilder(
+                self.vocab_size, self.cfg.postings_cap,
+                unit=max(self.cfg.incremental_unit, 1), seed=seed)
+            self._inc_fed = n
 
     def delete(self):
         """Release all index state (the analog of OpenSearch
         `indices.delete`). The object returns to the empty-ingest state."""
-        self._docs_dev = None
-        self._tok_dev = None
+        self._clear_device()
         self._finalized = False
         self.doc_ids = []
         self._tok_chunks, self._w_chunks, self._dense_chunks = [], [], []
         self.count_tensor = np.zeros((self.vocab_size,), dtype=np.int64)
+        self._discard_incremental()
 
     # ------------------------------------------------------------- search
-    def _topk_batch(self, q: torch.Tensor, k: int, two_phase: Optional[str] = None):
+    def _topk_batch(self, q: torch.Tensor, k: int, two_phase: Optional[str] = None,
+                    rows=None):
         """Top-k of one query batch q [Bq, V] fp32 over every doc block,
         merged into a running top-k (engine.py make_scan_topk: the sparse
-        scan and the dense oracle). Returns (scores, doc idx).
+        scan and the dense oracle). Returns (scores, doc idx). `rows` =
+        (docs, toks) to scan, the index's own by default; toks None is the
+        dense oracle.
 
         `two_phase` ("query" or "doc", sparse engine only; the dense oracle
         ignores it) makes phase 1 approximate: "query" scores only the query
@@ -304,7 +544,7 @@ class SparseIndex:
         Bq = q.shape[0]
         cfg = self.cfg
         blk = cfg.block_docs
-        docs, toks = self._docs_dev, self._tok_dev
+        docs, toks = rows if rows is not None else (self._docs_dev, self._tok_dev)
         if toks is None:
             two_phase = None  # the dense oracle is already one exact matmul
         k1 = max(min(cfg.two_phase_expand * k, blk), k) if two_phase else k
@@ -336,6 +576,194 @@ class SparseIndex:
         s2 = (g * docs[cand].float()).sum(dim=-1)
         return _select(torch.where(best_i >= 0, s2, float("-inf")), best_i, k)
 
+    def _escalate_for(self, engine: Optional[str], two_phase: bool = False) -> bool:
+        """Whether a search path escalates: full-forward lookups follow
+        `full_exact_escalate` (None = on exactly when the deep tier exists),
+        the other inverted paths the finalize-resolved flag. Query-mode
+        two-phase never escalates: it is the approximate speed knob (its
+        certificates are still computed and exposed)."""
+        if two_phase and self.cfg.two_phase_mode == "query":
+            return False
+        if engine == "inverted_full":
+            if self.cfg.full_exact_escalate is None:
+                return bool(self.cfg.postings_ext_cap and self.cfg.deep_escalate)
+            return bool(self.cfg.full_exact_escalate)
+        return self._exact_escalate
+
+    def _inverted_fns(self, k: int, two_phase: bool, engine: str) -> _InvertedFns:
+        """The inverted search of one (engine, k, two_phase), built once per
+        finalize. "inverted" takes a dense [B, V] query batch, inf-free
+        width; "inverted_full" the full-forward mode; "inverted_tokens" the
+        (q_tok, q_w) slot pair of the serving fast path."""
+        esc = self._escalate_for(engine, two_phase)
+        key = (k, two_phase, engine, esc)
+        fns = self._search_fns.get(key)
+        if fns is not None:
+            return fns
+        cfg = self.cfg
+        is_tok = engine == "inverted_tokens"
+        if engine == "inverted_full":
+            inv_kw = dict(query_terms=cfg.full_query_terms, k=k, rescore=True,
+                          postings_cols=cfg.full_postings_cols,
+                          merge_shifts=cfg.full_merge_shifts,
+                          rescore_expand=cfg.full_rescore_expand,
+                          refine_expand=cfg.refine_expand, select_by_impact=True,
+                          with_bound=True)
+        else:
+            inv_kw = dict(query_terms=cfg.query_terms, k=k, rescore=cfg.inverted_rescore,
+                          rescore_expand=cfg.inverted_rescore_expand,
+                          refine_expand=cfg.refine_expand, with_bound=True,
+                          token_entry=is_tok)
+        ext = None
+        if self._ext_docs is not None:
+            inv_kw["deep_slots"] = cfg.deep_slots
+            ext = (self._ext_docs, self._ext_w, self._deep_map)
+        if two_phase and cfg.two_phase_mode == "query" and inv_kw["rescore"] and not is_tok:
+            # the reference's two-phase: lookup sees only the high-weight
+            # terms; the rescore and the bound see the whole query
+            inv_kw["phase1_ratio"] = cfg.two_phase_ratio
+        bmx = None
+        if self._bm is not None:
+            inv_kw["tail_blockmax"] = True
+            bmx = ((self._bm_full, self._bmap_full) if engine == "inverted_full"
+                   else (self._bm, self._bmap))
+        if engine == "inverted" and inv_kw["rescore"] and "phase1_ratio" not in inv_kw:
+            # the width routing guarantees every active term wins a slot:
+            # the rescore rebuilds the query from the slots
+            inv_kw["match_rescore"] = True
+        tensors = (self._post_docs, self._post_w, self._tok_dev, self._docs_dev)
+        raw = inverted.make_search_fn(*tensors, **inv_kw)
+        deep_raw = None
+        if esc and ext is not None and cfg.deep_escalate:
+            # the deep re-lookup tier: every query term reads its whole
+            # base + extension postings, over a wider pool
+            deep_kw = dict(inv_kw)
+            if engine == "inverted_full":
+                deep_kw["query_terms"] = max(cfg.full_deep_query_terms, inv_kw["query_terms"])
+            deep_kw["deep_slots"] = deep_kw["query_terms"]
+            deep_kw["rescore_expand"] = max(cfg.deep_escalate_expand,
+                                            deep_kw.get("rescore_expand", 4))
+            deep_raw = inverted.make_search_fn(*tensors, **deep_kw)
+        rows = (self._docs_dev, self._tok_dev)
+
+        def base(qb):
+            return raw(qb, *tensors, ext, bmx)
+
+        def deep(qb):
+            return deep_raw(qb, *tensors, ext, bmx)
+
+        def scan(qd):
+            return self._topk_batch(qd, k, None, rows=rows)
+
+        # rows per call: query_batch, but at least _MIN_INVERTED_ROWS: every
+        # row is computed on its own, and each call is a few hundred small
+        # device operations whose launches the host pays for
+        fns = _InvertedFns(base, deep if deep_raw is not None else None, scan, esc, is_tok,
+                           max(self._query_batch, _MIN_INVERTED_ROWS), self.vocab_size)
+        self._search_fns[key] = fns
+        return fns
+
+    @staticmethod
+    def _in_batches(fn, q, batch: int):
+        """fn over q's rows, `batch` rows a call, outputs concatenated. Every
+        row is computed on its own, so the batching changes no answer."""
+        outs = [fn(tuple(a[s:s + batch] for a in q) if isinstance(q, tuple) else q[s:s + batch])
+                for s in range(0, _n_rows(q), batch)]
+        return tuple(torch.cat([o[j] for o in outs]) for j in range(len(outs[0])))
+
+    def _dispatch_inverted(self, q, k_eff: int, two_phase: bool, engine: str) -> dict:
+        """Queue one inverted search of every row of q (a dense [n, V]
+        matrix, or for "inverted_tokens" the slot pair) without waiting:
+        the handle holds the device results. With escalation on, a fourth
+        column marks the rows to escalate: certified by neither the bound
+        nor being all zero (padding rows are exact: nothing to find)."""
+        fns = self._inverted_fns(k_eff, two_phase, engine)
+        s, i, b = self._in_batches(fns.base, q, fns.batch)
+        parts = (s, i, b)
+        if fns.escalate:
+            active = (q[1] > 0) if isinstance(q, tuple) else (q > 0)
+            cert = inverted.certified_mask(s[:, -1], b) | (active.sum(dim=1) == 0)
+            parts += (~cert,)
+        return {"parts": parts, "n_q": _n_rows(q), "q": q, "fns": fns}
+
+    def _escalate_rows(self, fns: _InvertedFns, q_rows, k_eff: int):
+        """The escalation ladder over the rows that need it (q_rows, already
+        compacted): the deep re-lookup first, whose certified rows keep its
+        answer (stage 1); the rest through the exact scan (stage 2). Reads
+        the deep tier's certificate on the host: one copy, and one more for
+        the scan when any row reaches it. Returns numpy (scores, ids,
+        stage)."""
+        n = _n_rows(q_rows)
+        s = np.empty((n, k_eff), np.float32)
+        i = np.empty((n, k_eff), np.int32)
+        stage = np.full(n, 2, np.int32)
+        todo = np.arange(n)
+        if fns.deep is not None:
+            ds, di, db = self._in_batches(fns.deep, q_rows, fns.batch)
+            dcert = inverted.certified_mask(ds[:, -1], db)
+            ds_np, di_np, _, dc_np = _fetch_packed(ds, di, n, db, dcert)
+            self.host_syncs += 1
+            ok = dc_np != 0
+            s[ok], i[ok], stage[ok] = ds_np[ok], di_np[ok], 1
+            todo = np.flatnonzero(~ok)
+        if todo.size:
+            rest = _take_rows(q_rows, torch.from_numpy(todo).to(_first(q_rows).device))
+            qd = _densify_tokens(*rest, fns.vocab) if fns.is_tok else rest
+            es, ei = self._in_batches(fns.scan, qd, fns.batch)
+            es_np, ei_np, _, _ = _fetch_packed(es, ei, todo.size)
+            self.host_syncs += 1
+            s[todo], i[todo] = es_np, ei_np
+        return s, i, stage
+
+    def _resolve_inverted(self, handles: Sequence[dict]):
+        """(scores, ids, bounds, stage codes | None) as numpy for handles of
+        one packed width, with one copy to the host for all of them; then
+        one escalation ladder over every row of theirs that needs it, per
+        search function."""
+        packs = [_pack_cols(*h["parts"]) for h in handles]
+        arr = (torch.cat(packs) if len(packs) > 1 else packs[0]).cpu().numpy()
+        self.host_syncs += 1
+        out, row, ladders = [], 0, {}
+        for h, pk in zip(handles, packs):
+            block = arr[row:row + pk.shape[0]]
+            row += pk.shape[0]
+            s_np, i_np, b_np, e_np = _split_packed(block, h["n_q"], h["parts"][0].shape[1],
+                                                   True, len(h["parts"]) > 3)
+            stage = None
+            if e_np is not None:
+                stage = np.zeros(h["n_q"], np.int32)
+                esc = np.flatnonzero(e_np)
+                if esc.size:
+                    ladders.setdefault(id(h["fns"]), []).append((len(out), esc))
+            out.append([s_np, i_np, b_np, stage])
+        for jobs in ladders.values():
+            h0 = handles[jobs[0][0]]
+            parts = [_take_rows(handles[j]["q"], torch.from_numpy(esc).to(
+                _first(handles[j]["q"]).device)) for j, esc in jobs]
+            q_rows = (tuple(torch.cat(c) for c in zip(*parts)) if isinstance(parts[0], tuple)
+                      else torch.cat(parts))
+            s, i, stage = self._escalate_rows(h0["fns"], q_rows, h0["parts"][0].shape[1])
+            off = 0
+            for j, esc in jobs:
+                o = out[j]
+                o[0][esc], o[1][esc], o[3][esc] = (x[off:off + esc.size] for x in (s, i, stage))
+                off += esc.size
+        return out
+
+    @staticmethod
+    def _flags(s_np, b_np, stage, n_active):
+        """(certified, escalated, scan_escalated) of one resolved search:
+        with escalation, every row is certified and the stage codes say
+        which re-ran; without, the bound's certificate (all-zero rows count
+        as certified where their activity is known)."""
+        if stage is not None:
+            return np.ones(stage.shape[0], dtype=bool), stage != 0, stage >= 2
+        kth = s_np[:, -1] if s_np.shape[1] else np.full(s_np.shape[0], -np.inf, np.float32)
+        cert = inverted.certified_mask(kth, b_np)
+        if n_active is not None:
+            cert = cert | (n_active == 0)
+        return cert, None, None
+
     @torch.inference_mode()
     def search(
         self,
@@ -352,10 +780,15 @@ class SparseIndex:
         (reference sparse_embedding_to_query, sparse_encoders.py:184-194).
         `exclude_self`: per-query id whose hit is dropped (search.py:78-80).
         `two_phase`: approximate phase 1 + exact rescore of a candidate pool
-        (reference use_two_phase, search.py:27-42) in `cfg.two_phase_mode`
-        (see _topk_batch); the dense engine ignores it.
-        `full_forward` only routes queries on the inverted engine; the exact
-        engines score every query term whatever its width."""
+        (reference use_two_phase, search.py:27-42) in `cfg.two_phase_mode`:
+        on the scan see _topk_batch; on the inverted engine "query" mode
+        looks up only the high-weight terms (certified, never escalated).
+        `full_forward` routes the inverted engine: queries wider than
+        `cfg.query_terms` active terms take the full-forward mode (or the
+        exact scan with `cfg.full_fallback_scan`). None decides from the
+        batch (one copy of the active counts to the host); False asserts
+        every row is within query_terms wide. The exact engines score every
+        query term whatever its width."""
         if not self._finalized:
             raise RuntimeError("call finalize() first")
         self.last_certified = self.last_escalated = self.last_scan_escalated = None
@@ -370,12 +803,38 @@ class SparseIndex:
             thresh = q.amax(dim=1, keepdim=True) * query_prune
             q = torch.where(q > thresh, q, 0.0)
         k_eff = min(k + (1 if exclude_self is not None else 0), self.n_docs)
-        Bq = self.cfg.query_batch
+        n_q = q.shape[0]
+        engine = None
+        if self._engine == "inverted":
+            if full_forward is None:
+                active = (q > 0).sum(dim=1).max().item()
+                self.host_syncs += 1
+                full_forward = active > self.cfg.query_terms
+            engine = "inverted"
+            if full_forward:
+                engine = "inverted_full"
+                if self.cfg.full_fallback_scan:
+                    engine = None  # the exact doc-major scan, corpus-linear
+                    if not self._warned_fallback:
+                        self._warned_fallback = True
+                        logger.warning("inverted engine: full_fallback_scan set; wide "
+                                       "queries use the exact doc-major scan")
+        if engine is not None:
+            handle = self._dispatch_inverted(q, k_eff, two_phase, engine)
+            s_np, i_np, b_np, stage = self._resolve_inverted([handle])[0]
+            self.last_certified, self.last_escalated, self.last_scan_escalated = self._flags(
+                s_np, b_np, stage, None)
+            if stage is not None and stage.any():
+                logger.debug("exact_escalate: %d/%d queries re-ran (%d on the exact scan)",
+                             int((stage > 0).sum()), n_q, int((stage >= 2).sum()))
+            return self._collect_results(s_np, i_np, n_q, k, exclude_self)
+        Bq = self._query_batch
         mode = self.cfg.two_phase_mode if two_phase else None
-        parts = [self._topk_batch(q[i:i + Bq], k_eff, mode) for i in range(0, q.shape[0], Bq)]
-        s_np = torch.cat([p[0] for p in parts]).cpu().numpy()
-        i_np = torch.cat([p[1] for p in parts]).cpu().numpy()
-        return self._collect_results(s_np, i_np, q.shape[0], k, exclude_self)
+        parts = [self._topk_batch(q[i:i + Bq], k_eff, mode) for i in range(0, n_q, Bq)]
+        s_np, i_np, _, _ = _fetch_packed(torch.cat([p[0] for p in parts]),
+                                         torch.cat([p[1] for p in parts]), n_q)
+        self.host_syncs += 1
+        return self._collect_results(s_np, i_np, n_q, k, exclude_self)
 
     def _collect_results(self, s_np, i_np, n_q: int, k: int,
                          exclude_self: Optional[Sequence[str]]) -> List[Dict[str, float]]:
@@ -410,9 +869,11 @@ class SparseIndex:
     ) -> List[Dict[str, float]]:
         """Search from (token, weight) pairs: the serving path's entry, the
         analog of the reference's `neural_sparse` query body of token->weight
-        maps (sparse_encoders.py:184-194). The dense [B, V] query is built on
-        the device (`_token_query`), so only the (B, q_len) pairs cross from
-        the host. `kw` as search()."""
+        maps (sparse_encoders.py:184-194). An inverted index takes slot lists
+        of at most `query_terms` as they are (the token-entry fast path: no
+        [B, V] query at all); everywhere else the dense [B, V] query is built
+        on the device (`_token_query`), so only the (B, q_len) pairs cross
+        from the host. `kw` as search()."""
         q_tokens = np.ascontiguousarray(q_tokens, dtype=np.int32)
         q_weights = np.ascontiguousarray(q_weights, dtype=np.float32)
         if self._tokens_fast_eligible(q_tokens, q_weights, kw):
@@ -424,27 +885,18 @@ class SparseIndex:
         return self.search(self._token_query(q_tokens, q_weights), k=k, **kw)
 
     def _token_query(self, q_tokens: np.ndarray, q_weights: np.ndarray) -> torch.Tensor:
-        """[B, V] fp32 query on the device from (token, weight) slots with
-        one accumulating scatter, so duplicate ids in a row sum. Ids index as
-        the JAX package's `.at[].add(mode="drop")` does: a negative id counts
-        from the end (-1 is V - 1), and an id still outside [0, V) is
-        dropped, here by masking it before the scatter (an out-of-range index
-        would raise on the CPU and trip a device-side assert on the card).
-        Weights <= 0 add nothing."""
-        V = self.vocab_size
-        tok = torch.from_numpy(q_tokens).to(self.device, torch.int64)
-        w = torch.from_numpy(q_weights).to(self.device)
-        tok = torch.where(tok < 0, tok + V, tok)
-        keep = (tok >= 0) & (tok < V) & (w > 0)
-        q = torch.zeros(tok.shape[0], V, device=self.device)
-        return q.scatter_add_(1, torch.where(keep, tok, 0), torch.where(keep, w, 0.0))
+        """[B, V] fp32 query on the device from (token, weight) slots
+        (`_densify_tokens`: duplicates sum, out-of-range ids drop)."""
+        return _densify_tokens(torch.from_numpy(q_tokens).to(self.device),
+                               torch.from_numpy(q_weights).to(self.device), self.vocab_size)
 
     def _tokens_fast_eligible(self, q_tokens: np.ndarray, q_weights: np.ndarray,
                               kw: dict) -> bool:
-        """The JAX package's routing predicate for the inverted engine's
-        token-entry fast path: a finalized inverted index, slot width within
-        `query_terms`, no two-phase, no unknown kwargs, and no duplicate
-        active token id in a row. The exact engines never qualify."""
+        """The token-entry fast path's routing predicate: a finalized
+        inverted index, slot width within `query_terms`, no two-phase, no
+        unknown kwargs, and no duplicate active token id in a row (there
+        query_prune would threshold per slot here and per merged weight on
+        the dense path). The exact engines never qualify."""
         if not (
             self._finalized
             and self._engine == "inverted"
@@ -459,14 +911,33 @@ class SparseIndex:
         srt = np.sort(np.where(q_weights > 0, q_tokens, -1), axis=1)
         return not bool(((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any())
 
+    @torch.inference_mode()
     def _search_tokens_dispatch(self, q_tok, q_w, k, query_prune, exclude_self) -> dict:
-        raise NotImplementedError(f"the token fast path: {_TODO_INVERTED}")
+        """Token-entry search, queued on the device without waiting: the
+        slots (pruned, padded to query_terms) go straight into the postings
+        lookup. Token ids index as JAX gathers them (a negative id counts
+        from the end, then clamps into [0, V)); the rescore matches the
+        slots' own ids, so an out-of-range id scores nothing."""
+        T = self.cfg.query_terms
+        n_q, S = q_tok.shape
+        if query_prune > 0:
+            thresh = q_w.max(axis=1, keepdims=True) * query_prune
+            q_w = np.where(q_w > thresh, q_w, 0.0).astype(np.float32)
+        if S < T:  # pad the slot axis to the search's width
+            q_tok = np.pad(q_tok, ((0, 0), (0, T - S)))
+            q_w = np.pad(q_w, ((0, 0), (0, T - S)))
+        dev = (torch.tensor(q_tok, dtype=torch.int32, device=self.device),
+               torch.tensor(q_w, dtype=torch.float32, device=self.device))
+        k_eff = min(k + (1 if exclude_self is not None else 0), self.n_docs)
+        handle = self._dispatch_inverted(dev, k_eff, False, "inverted_tokens")
+        handle.update(k=k, exclude_self=exclude_self, n_active=(q_w > 0).sum(axis=1))
+        return handle
 
     def search_tokens_async(self, q_tokens: np.ndarray, q_weights: np.ndarray,
                             k: int = 10, **kw) -> dict:
-        """search_tokens as a handle for resolve_hits(). Only the inverted
-        engine's fast path dispatches without waiting; everywhere else
-        (every exact engine) the call degrades to a synchronous search whose
+        """search_tokens as a handle for resolve_hits(). The inverted
+        engine's fast path queues its device work and returns at once;
+        everywhere else the call degrades to a synchronous search whose
         results and flags ride the handle, so callers need one code path."""
         q_tokens = np.ascontiguousarray(q_tokens, dtype=np.int32)
         q_weights = np.ascontiguousarray(q_weights, dtype=np.float32)
@@ -479,23 +950,51 @@ class SparseIndex:
             "flags": (self.last_certified, self.last_escalated, self.last_scan_escalated),
         }
 
-    def resolve_hits(self, handle: dict) -> List[Dict[str, float]]:
-        """The results of a search_tokens_async handle; sets the last_* flags
-        as the synchronous call did."""
-        if "sync_results" not in handle:
-            raise NotImplementedError(f"packed fetches: {_TODO_INVERTED}")
-        (self.last_certified, self.last_escalated,
-         self.last_scan_escalated) = handle["flags"]
-        return handle["sync_results"]
+    def _finish_resolve(self, arrays, handle):
+        """(results, certified, escalated, scan_escalated) of a resolved
+        token handle, without touching the last_* attributes."""
+        s_np, i_np, b_np, stage = arrays
+        flags = self._flags(s_np, b_np, stage, handle["n_active"])
+        return (self._collect_results(s_np, i_np, handle["n_q"], handle["k"],
+                                      handle["exclude_self"]),) + flags
 
+    @torch.inference_mode()
+    def resolve_hits(self, handle: dict) -> List[Dict[str, float]]:
+        """The results of a search_tokens_async handle (the copy to the host,
+        then the escalation ladder where rows need it); sets the last_*
+        flags as the synchronous call does."""
+        if "sync_results" in handle:
+            (self.last_certified, self.last_escalated,
+             self.last_scan_escalated) = handle["flags"]
+            return handle["sync_results"]
+        results, *flags = self._finish_resolve(self._resolve_inverted([handle])[0], handle)
+        self.last_certified, self.last_escalated, self.last_scan_escalated = flags
+        return results
+
+    @torch.inference_mode()
     def resolve_hits_many(self, handles: Sequence[dict]) -> List[List[Dict[str, float]]]:
-        """resolve_hits over a window of handles, in order. The last_* flags
-        become the row-wise concatenation of the handles' flags (None if any
-        handle lacks them)."""
-        out = [self.resolve_hits(h) for h in handles]
+        """resolve_hits over a window of handles, in order, with one copy to
+        the host for all dispatched handles of one packed width (and one
+        escalation ladder for all their rows that need it). The last_*
+        flags become the row-wise concatenation of the handles' flags (None
+        if any handle lacks them)."""
+        out: List[Optional[List[Dict[str, float]]]] = [None] * len(handles)
+        flags: List[tuple] = [(None, None, None)] * len(handles)
+        groups: Dict[tuple, List[int]] = {}
+        for j, h in enumerate(handles):
+            if "sync_results" in h:
+                out[j], flags[j] = h["sync_results"], h["flags"]
+            else:
+                p = h["parts"]
+                groups.setdefault((p[0].shape[1], len(p)), []).append(j)
+        for idxs in groups.values():
+            arrays = self._resolve_inverted([handles[j] for j in idxs])
+            for j, a in zip(idxs, arrays):
+                out[j], *f = self._finish_resolve(a, handles[j])
+                flags[j] = tuple(f)
 
         def _cat(col):
-            vals = [h["flags"][col] for h in handles]
+            vals = [f[col] for f in flags]
             if not vals or any(v is None for v in vals):
                 return None
             return np.concatenate(vals)
@@ -506,6 +1005,8 @@ class SparseIndex:
 
     # -------------------------------------------------------- persistence
     def save(self, path: str):
+        """Format 2, as the JAX package writes it: the doc-major rows and
+        the whole config (the postings are rebuilt from the rows at load)."""
         if not self._finalized:
             raise RuntimeError("call finalize() first")
         os.makedirs(path, exist_ok=True)
@@ -538,11 +1039,16 @@ class SparseIndex:
         with open(os.path.join(path, "doc_ids.json"), "w") as f:
             json.dump(self.doc_ids, f)
 
+    @classmethod
+    def merge_saved(cls, paths, mesh=None, cfg=None):
+        raise NotImplementedError(f"merge_saved (multi-process ingest) is {_TODO_DISTRIBUTION}")
+
     @staticmethod
     def _cfg_from_meta(meta: dict) -> IndexConfig:
         """The build-time IndexConfig from saved metadata: the full
         dataclass under "cfg" (unknown keys dropped, the resolved engine
-        wins over "auto"), else the legacy flat keys."""
+        wins over "auto", the resolved exact_escalate over None), else the
+        legacy flat keys."""
         if "cfg" in meta:
             known = {f.name for f in fields(IndexConfig)}
             kw = {k: v for k, v in meta["cfg"].items() if k in known}

@@ -445,3 +445,139 @@ def test_out_of_range_token_ids_on_the_card_do_not_assert(cuda):
     torch.cuda.synchronize()  # a device-side assert would surface here
     _same_hits(got, cpu.search_tokens(q_tok, q_w, k=10))
     assert torch.ones(1, device=cuda).item() == 1.0  # the context still works
+
+
+# ------------------------------------------------- the inverted engine
+
+
+def _inverted_pair(cuda, n_docs=3000, V=3000, seed=0, **kw):
+    """One zipf-popular corpus in an inverted index on the CPU and on the
+    card (built there by the incremental build, the default on CUDA)."""
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+
+    rng = np.random.default_rng(seed)
+    pop = np.arange(1, V + 1, dtype=np.float64) ** -1.1
+    tok = np.minimum(np.searchsorted(np.cumsum(pop / pop.sum()), rng.random((n_docs, 48))),
+                     V - 1).astype(np.int32)
+    w = rng.gamma(2.0, 0.5, size=(n_docs, 48)).astype(np.float32)
+    tok.sort(axis=1)
+    w[:, 1:][tok[:, 1:] == tok[:, :-1]] = 0.0
+    order = np.argsort(-w, axis=1, kind="stable")
+    tok, w = np.take_along_axis(tok, order, 1), np.take_along_axis(w, order, 1)
+    tok[w <= 0] = 0
+    out = []
+    for dev in ("cpu", cuda):
+        cfg = IndexConfig(engine="inverted", l_max=48, block_docs=512, query_batch=16,
+                          weight_dtype="float32", **kw)
+        idx = SparseIndex(V, cfg, device=dev)
+        for s in range(0, n_docs, 500):
+            idx.add_topk([f"d{i}" for i in range(s, s + 500)], tok[s:s + 500], w[s:s + 500])
+        idx.finalize()
+        out.append(idx)
+    assert out[1].postings_source == "incremental" and out[0].postings_source == "one-shot"
+    np.testing.assert_array_equal(out[1]._post_docs.cpu().numpy(), out[0]._post_docs.numpy())
+    q_tok = np.zeros((40, 8), np.int32)
+    q_w = np.zeros((40, 8), np.float32)
+    for i in range(39):  # terms of one doc; the last row is padding
+        row = np.unique(tok[rng.integers(0, n_docs)])
+        pick = rng.choice(row[row > 0], size=6, replace=False)
+        q_tok[i, :6], q_w[i, :6] = pick, rng.uniform(1.0, 5.0, size=6)
+    return out, q_tok, q_w, V
+
+
+def _close_hits(got, ref, rtol=1e-5):
+    """The same docs above the k-th score's tie band, scores to rtol."""
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert len(g) == len(r)
+        np.testing.assert_allclose(sorted(g.values()), sorted(r.values()), rtol=rtol)
+        if r:
+            edge = min(r.values()) * (1 + rtol)
+            assert {d for d, s in g.items() if s > edge} == {d for d, s in r.items() if s > edge}
+
+
+def _same_flags(card, cpu, band):
+    for a, b in ((card.last_certified, cpu.last_certified),
+                 (card.last_escalated, cpu.last_escalated),
+                 (card.last_scan_escalated, cpu.last_scan_escalated)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert ((a == b) | band).all()
+
+
+_INVERTED_MODES = {
+    "tokens": dict(postings_cap=16, exact_escalate=True),
+    "dense": dict(postings_cap=16, exact_escalate=True),
+    "full": dict(postings_cap=32, postings_ext_cap=96, full_query_terms=8,
+                 full_postings_cols=8, exact_escalate=True),
+    "two_phase": dict(postings_cap=16, exact_escalate=True),
+    "deep_blockmax_refine": dict(postings_cap=8, postings_ext_cap=120, tail_block_docs=512,
+                                 refine_expand=4, exact_escalate=True),
+    "no_escalation": dict(postings_cap=16),
+}
+
+
+@pytest.mark.parametrize("mode", list(_INVERTED_MODES))
+def test_inverted_engine_on_the_card_equals_the_cpu(cuda, mode):
+    """Each mode of the inverted engine gives the CPU's answers on the card,
+    and the same stage codes except on rows at the certificate's edge."""
+    (cpu, card), q_tok, q_w, V = _inverted_pair(cuda, **_INVERTED_MODES[mode])
+    q = cpu._token_query(q_tok, q_w)
+    if mode == "full":
+        q[:, :40] += 0.01  # 40 more active terms: wider than query_terms
+    kw = dict(two_phase=True) if mode == "two_phase" else {}
+    if mode == "tokens":
+        got, ref = card.search_tokens(q_tok, q_w, k=10), cpu.search_tokens(q_tok, q_w, k=10)
+        engine, qb = "inverted_tokens", (torch.from_numpy(np.pad(q_tok, ((0, 0), (0, 8)))),
+                                         torch.from_numpy(np.pad(q_w, ((0, 0), (0, 8)))))
+    else:
+        got, ref = card.search(q.to(cuda), k=10, **kw), cpu.search(q, k=10, **kw)
+        engine, qb = ("inverted_full" if mode == "full" else "inverted"), q
+    torch.cuda.synchronize()
+    _close_hits(got, ref)
+    fns = cpu._inverted_fns(10, bool(kw), engine)
+    band = np.zeros(40, bool)
+    for fn in (fns.base, fns.deep):
+        if fn is not None:
+            s, _, b = fn(qb)
+            kth, b = s[:, -1].numpy(), b.numpy()
+            with np.errstate(invalid="ignore"):
+                band |= np.abs(kth - b) <= 2e-4 * np.maximum(np.abs(kth), np.abs(b))
+    _same_flags(card, cpu, band)
+    if mode != "no_escalation" and mode != "two_phase":
+        assert card.last_certified.all()
+
+
+def test_certificate_bound_takes_no_tf32(cuda):
+    """The bound's total-mass term is fp32 elementwise products and an fp32
+    sum, not a matmul: with TF32 allowed it is the same as the CPU's, and
+    an index on the card leaves TF32 off."""
+    from opensearch_sparse_model_tuning_sample_torch.index import inverted
+
+    (cpu, card), q_tok, q_w, V = _inverted_pair(cuda, postings_cap=16)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q = cpu._token_query(q_tok, q_w)
+    q[:, :300] += 0.3  # mass outside the lookup slots
+    outs = []
+    for idx, qq in ((cpu, q), (card, q.to(cuda))):
+        fn = inverted.make_search_fn(idx._post_docs, idx._post_w, idx._tok_dev, idx._docs_dev,
+                                     query_terms=16, k=10, with_bound=True)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            outs.append([x.cpu() for x in fn(qq, idx._post_docs, idx._post_w, idx._tok_dev,
+                                             idx._docs_dev)])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_allclose(outs[1][2].numpy(), outs[0][2].numpy(), rtol=1e-6)
+    np.testing.assert_allclose(outs[1][0].numpy(), outs[0][0].numpy(), rtol=1e-6)
+
+
+def test_inverted_out_of_range_token_ids_on_the_card_do_not_assert(cuda):
+    (cpu, card), q_tok, q_w, V = _inverted_pair(cuda, postings_cap=16, exact_escalate=True)
+    q_tok[:, 6] = V + np.arange(40)
+    q_tok[:, 7] = -V - 7
+    q_w[:, 6:] = 2.0
+    got = card.search_tokens(q_tok, q_w, k=10)
+    torch.cuda.synchronize()
+    _close_hits(got, cpu.search_tokens(q_tok, q_w, k=10))
+    assert torch.ones(1, device=cuda).item() == 1.0

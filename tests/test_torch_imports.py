@@ -34,7 +34,7 @@ def test_port_has_the_slice_modules():
     mods = set(_port_modules())
     for name in ("core.device", "core.config", "models.bert", "models.convert",
                  "models.hf_import", "models.sparse_encoder", "ops.maxpool",
-                 "ops.activations", "index.engine", "eval.beir",
+                 "ops.activations", "index.engine", "index.inverted", "eval.beir",
                  "cli.evaluate_beir", "ops.losses", "ops.flops", "data.datasets",
                  "data.collator", "data.loader", "train.trainer", "cli.train_ir",
                  "mine.hard_negatives", "cli.mine", "cli.serve", "cli.search"):
