@@ -19,12 +19,18 @@ token burst, text searches (inference-free and full forward) and two-phase
 searches, each response held to the same search in process and the burst's
 top-10 to the exact scan; then `cli.evaluate_beir` again on the inverted
 engine with exact escalation, its metrics held to the scan evaluation's and
-its incrementally built postings to one build of the same rows. It checks
+its incrementally built postings to one build of the same rows; then
+knowledge distillation: the `config_kd_synthetic` recipe through
+`cli.train_ir` (two sparse teachers, the infonce run's checkpoint-50 and
+checkpoint-25, scored in each step by the ingest kernel), `cli.make_kd_scores`
+over 512 mined rows, the `config_l0_synthetic` recipe on its output and
+`cli.evaluate_beir` of that, and RoBERTa- and DistilBERT-layout teachers
+on the card against the CPU. It checks
 what comes out, that every kernel of each path ran (launch counts, read
 around each path) and that no plain version did, and that one whole train
 step's gradients with the kernels equal those with the plain head. Any
-failed check exits non-zero. The last lines of output are the `serve:` and
-`inverted eval:` lines, the `kernels` JSON line, the card's name and power
+failed check exits non-zero. The last lines of output are the `serve:`,
+`inverted eval:` and `distill:` lines, the `kernels` JSON line, the card's name and power
 limit, and `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
@@ -661,23 +667,73 @@ def phase_argmax_ties(dev):
           "two launches bit-equal", flush=True)
 
 
-def smoke_recipe(dev):
-    """configs/config_infonce_synthetic.yaml as the smoke run uses it, written
-    under output/chip_smoke/. The smoke run's only change to the recipe is
-    the short warm-up (10 of 50 steps, where the recipe warms up over 200 of
-    2000); the rest is the run's length (max_steps, save_steps = 50), where it
-    writes, and the card."""
+def smoke_recipe(dev, name="config_infonce_synthetic", **over):
+    """configs/<name>.yaml as the smoke run uses it, written under
+    output/chip_smoke/ with the overrides `over` (a dict updates the
+    recipe's dict of that name). For the infonce recipe the
+    smoke run's only change is the short warm-up (10 of 50 steps, where the
+    recipe warms up over 200 of 2000); the rest is the run's length
+    (max_steps 50, save_steps 25: checkpoint-25 and checkpoint-50, the
+    distillation phase's two teachers), where it writes, and the card."""
     import yaml
 
-    with open(os.path.join(HERE, "configs", "config_infonce_synthetic.yaml")) as f:
+    with open(os.path.join(HERE, "configs", f"{name}.yaml")) as f:
         cfg = yaml.safe_load(f)
-    cfg.update(max_steps=TRAIN_STEPS, warmup_steps=10, save_steps=TRAIN_STEPS,
-               output_dir=os.path.join(OUT, "infonce_synthetic"),
-               idf_path=os.path.join(HERE, cfg["idf_path"]), device=str(dev))
-    path = os.path.join(OUT, "config_infonce_synthetic.yaml")
+    cfg.update(idf_path=os.path.join(HERE, cfg["idf_path"]), device=str(dev))
+    if name == "config_infonce_synthetic":
+        cfg.update(max_steps=TRAIN_STEPS, warmup_steps=10, save_steps=TRAIN_STEPS // 2,
+                   output_dir=os.path.join(OUT, "infonce_synthetic"))
+    for k, v in over.items():
+        if isinstance(v, dict):
+            cfg[k].update(v)
+        else:
+            cfg[k] = v
+    path = os.path.join(OUT, f"{name}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return path, cfg
+
+
+class StepClock:
+    """Host clock over train steps (first, last], synchronized at both ends,
+    with the checkpoint saves inside the window taken out: patches
+    Trainer.train_step and Trainer.save_checkpoint while it is entered."""
+
+    def __init__(self, first, last):
+        from opensearch_sparse_model_tuning_sample_torch.train.trainer import Trainer
+
+        self.cls, self.first, self.last = Trainer, first, last
+        self.start = self.end = None
+        self.saving_s = 0.0
+
+    def __enter__(self):
+        step_fn, save_fn = self.orig = (self.cls.train_step, self.cls.save_checkpoint)
+        clock = self
+
+        def train_step(trainer, batch):
+            if trainer.step == clock.first:
+                torch.cuda.synchronize()
+                clock.start = time.perf_counter()
+            metrics = step_fn(trainer, batch)
+            if trainer.step == clock.last:
+                torch.cuda.synchronize()
+                clock.end = time.perf_counter()
+            return metrics
+
+        def save_checkpoint(trainer, step):
+            t0 = time.perf_counter()
+            save_fn(trainer, step)
+            if clock.start is not None and clock.end is None:
+                clock.saving_s += time.perf_counter() - t0
+
+        self.cls.train_step, self.cls.save_checkpoint = train_step, save_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step, self.cls.save_checkpoint = self.orig
+
+    def seconds(self):
+        return self.end - self.start - self.saving_s
 
 
 def _counters():
@@ -805,23 +861,9 @@ def phase_train_path(dev):
     cli.evaluate_beir on the exported checkpoint. The kernel and plain
     counters are set to 0 just before each part and read just after."""
     from opensearch_sparse_model_tuning_sample_torch.cli import evaluate_beir, mine, train_ir
-    from opensearch_sparse_model_tuning_sample_torch.train.trainer import Trainer
 
     path, cfg = smoke_recipe(dev)
     out = {"cfg": cfg, "path": path}
-    marks = {}
-    orig_step = Trainer.train_step
-
-    def timed_step(self, batch):  # host clock over steps 10..50, synchronized at both ends
-        if self.step == 10:
-            torch.cuda.synchronize()
-            marks["start"] = time.perf_counter()
-        metrics = orig_step(self, batch)
-        if self.step == TRAIN_STEPS:
-            torch.cuda.synchronize()
-            marks["end"] = time.perf_counter()
-        return metrics
-
     cwd = os.getcwd()
     os.chdir(OUT)  # cli.mine saves data/<name>_train under the working dir; train_file reads it
     try:
@@ -834,13 +876,12 @@ def phase_train_path(dev):
         print(f"cli.mine: {len(rows)} rows in {out['mine_s']:.1f} s; counters {out['mine']}",
               flush=True)
 
-        Trainer.train_step = timed_step
         t0 = time.time()
-        reset_counters()
-        trainer = train_ir.main(path)
-        out["train"] = read_counters()
+        with StepClock(10, TRAIN_STEPS) as clock:
+            reset_counters()
+            trainer = train_ir.main(path)
+            out["train"] = read_counters()
         out["train_s"] = time.time() - t0
-        Trainer.train_step = orig_step
 
         t0 = time.time()
         reset_counters()
@@ -848,7 +889,6 @@ def phase_train_path(dev):
         out["eval"] = read_counters()
         out["eval_s"] = time.time() - t0
     finally:
-        Trainer.train_step = orig_step
         os.chdir(cwd)
 
     steps = trainer.step
@@ -867,15 +907,16 @@ def phase_train_path(dev):
     check(hist[-1]["ranking_loss"] < hist[0]["ranking_loss"],
           f"the ranking loss fell: {hist[0]['ranking_loss']:.5f} -> {hist[-1]['ranking_loss']:.5f}")
     ckpt = os.path.join(cfg["output_dir"], f"checkpoint-{steps}")
-    for f in ("model.safetensors", "config.json", "vocab.txt"):
-        check(os.path.exists(os.path.join(ckpt, f)), f"checkpoint file {f}")
+    for c in (ckpt, os.path.join(cfg["output_dir"], f"checkpoint-{steps // 2}")):
+        for f in ("model.safetensors", "config.json", "vocab.txt"):
+            check(os.path.exists(os.path.join(c, f)), f"checkpoint file {c}/{f}")
     check(os.path.exists(os.path.join(cfg["output_dir"], "train_state", "state.pt")),
           "the train state is saved")
     print("launches per train step: " + ", ".join(
         f"{k} {launches[k] / steps:g}" for k in ("maxpool_head_argmax", "maxpool_head_bwd_w",
                                                  "maxpool_head_bwd_h")), flush=True)
     docs = (TRAIN_STEPS - 10) * cfg["per_device_train_batch_size"] * (1 + cfg["sample_num_one_query"])
-    out["docs_per_s"] = docs / (marks["end"] - marks["start"])
+    out["docs_per_s"] = docs / clock.seconds()
     print(f"train: ranking loss {hist[0]['ranking_loss']:.5f} (step 1) -> "
           f"{hist[-1]['ranking_loss']:.5f} (step {steps}); {out['docs_per_s']:.1f} docs/s over "
           f"steps 10..{steps} ({docs} docs, host clock, synchronized); checkpoint {ckpt}",
@@ -884,26 +925,38 @@ def phase_train_path(dev):
     return out
 
 
-def grad_check(trainer, dev):
-    """One whole train step's gradients (the step's loss, dropout off, the
-    trained parameters, the first 15 mined rows) with the kernels against
-    the same step with the plain head: torch autograd of
-    maxpool_head_reference. Also captures the head's inputs and upstream
-    gradient on this main-path batch for the kernel rows."""
+def first_batch(trainer):
+    """The trainer's first batch size of rows of its train file, through
+    the collator its run used (with the run's teacher ensemble, if any)."""
     from opensearch_sparse_model_tuning_sample_torch.data.collator import build_collator
     from opensearch_sparse_model_tuning_sample_torch.data.datasets import load_dataset
+
+    da = trainer.data_args
+    ds = load_dataset(os.path.join(OUT, da.train_file), da.data_type,
+                      sample_num_one_query=da.sample_num_one_query,
+                      score_scale=da.score_scale)
+    collator = build_collator(da.data_type, trainer.model.tokenizer, da.max_seq_length,
+                              seq_buckets=da.seq_buckets,
+                              teacher_tokenizer_ids=da.kd_ensemble_teacher_kwargs.get(
+                                  "teacher_tokenizer_ids", []),
+                              teacher_ensemble=trainer.teacher_ensemble)
+    return collator([ds[i] for i in range(trainer.args.per_device_train_batch_size)])
+
+
+def grad_check(trainer, dev):
+    """One whole train step's gradients (the step's loss, dropout off, the
+    trained parameters, the first batch of rows of the run's train file;
+    with a teacher ensemble, its scores in the loss) with the kernels
+    against the same step with the plain head: torch autograd of
+    maxpool_head_reference. Also captures the head's inputs and upstream
+    gradient on this main-path batch for the kernel rows."""
     from opensearch_sparse_model_tuning_sample_torch.models import bert as bert_mod
     from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
     from opensearch_sparse_model_tuning_sample_torch.train.trainer import train_loss
 
     model, ma, da = trainer.model, trainer.model_args, trainer.data_args
-    ds = load_dataset(os.path.join(OUT, da.train_file), da.data_type,
-                      sample_num_one_query=da.sample_num_one_query)
-    collator = build_collator(da.data_type, model.tokenizer, da.max_seq_length,
-                              seq_buckets=da.seq_buckets)
-    n = trainer.args.per_device_train_batch_size
-    np_batch = collator([ds[i] for i in range(n)])
-    batch = {k: torch.as_tensor(v).to(dev) for k, v in np_batch.items()}
+    np_batch = first_batch(trainer)
+    batch = trainer._to_device(np_batch)
 
     captured = {}
     kernel_head = bert_mod.maxpool_head_train
@@ -922,7 +975,8 @@ def grad_check(trainer, dev):
         bert_mod.maxpool_head_train = head
         try:
             model.zero_grad(set_to_none=True)
-            loss, _ = train_loss(model, batch, trainer.step, trainer.loss_specs, ma, da)
+            loss, _ = train_loss(model, batch, trainer.step, trainer.loss_specs, ma, da,
+                                 teacher_ensemble=trainer.teacher_ensemble)
             loss.backward()
         finally:
             bert_mod.maxpool_head_train = kernel_head
@@ -973,16 +1027,32 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
     count per step, the card's busy share of `step_ms`, the step time
     measured without the profiler (whose own host overhead inflates the
     wall time it sees), and the head's kernels' device time a step, by
-    kernel (the forward; bwd_w; bwd_h's count, scan, scatter and reduce)."""
+    kernel (the forward; bwd_w; bwd_h's count, scan, scatter and reduce).
+    With a teacher ensemble, its scores run inside a `kd_teacher_scores`
+    range, whose host time and the device time of the operations it
+    launched are read apart."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    ens = trainer.teacher_ensemble
+    if ens is not None:
+        get_scores = ens.get_scores
+
+        def annotated(*args):
+            with record_function("kd_teacher_scores"):
+                return get_scores(*args)
+
+        ens.get_scores = annotated
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            trainer.train_step(np_batch)
-        torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                trainer.train_step(np_batch)
+            torch.cuda.synchronize()
+    finally:
+        if ens is not None:
+            del ens.get_scores  # back to the class's method
     wall_us = (time.perf_counter() - t0) * 1e6
     on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -1003,9 +1073,24 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
             head[found.group(0)] = head.get(found.group(0), 0.0) + e.self_device_time_total / n / 1e3
     print("head kernels a train step (torch.profiler device time): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in head.items()), flush=True)
-    return {"step_ms": step_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
-            "profiled_step_ms": wall_us / n / 1e3, "ops_per_step": launches / n,
-            "head_kernels_ms": head}
+    api = {e.key: e.count / n for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.key.startswith(("cuda", "cu"))}
+    print("CUDA runtime and driver calls a train step: "
+          + ", ".join(f"{k} {v:g}" for k, v in sorted(api.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    out = {"step_ms": step_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
+           "profiled_step_ms": wall_us / n / 1e3, "ops_per_step": launches / n,
+           "head_kernels_ms": head}
+    if ens is not None:
+        teach = [e for e in prof.key_averages() if e.key == "kd_teacher_scores"
+                 and e.device_type == DeviceType.CPU]
+        check(len(teach) == 1 and teach[0].count == n, "one teacher-scores range a step")
+        out["teacher_host_ms"] = teach[0].cpu_time_total / n / 1e3
+        out["teacher_device_ms"] = teach[0].device_time_total / n / 1e3
+        print(f"teacher scores a train step: host {out['teacher_host_ms']:.3f} ms under the "
+              f"profiler, the card busy {out['teacher_device_ms']:.3f} ms for them "
+              f"({out['teacher_device_ms'] / max(busy_ms, 1e-9):.3f} of the step's busy time)", flush=True)
+    return out
 
 
 # the serving phase: bench.py's 128K headline corpus (bench.py:115-130) on
@@ -1506,6 +1591,319 @@ def phase_inverted_eval(dev, path):
     return out
 
 
+# the distillation phase: the kd recipe's length and warm-up here, and the
+# subset of the mined split that make_kd_scores scores (its flags are
+# config_l0_synthetic.yaml:10-12's)
+KD_STEPS, KD_WARMUP, KD_ROWS = 30, 5, 512
+KD_LOG_STEPS = 10  # the loss is read at steps 1, 10, 20, 30
+# card against CPU, bf16 encoders on both (cuBLAS and the CPU's GEMMs round
+# at other places): reps, and raw scores relative to their row's largest
+KD_REP_TOL = 3e-2
+KD_SCORE_TOL = 2e-2
+TEACHER_KERNELS = {"maxpool_head": 4}  # 2 sparse teachers x (queries, docs) a step
+STUDENT_KERNELS = {"maxpool_head_argmax": 1, "maxpool_head_bwd_w": 1, "maxpool_head_bwd_h": 1}
+
+
+def check_launches(counters, steps, per_step, what):
+    launches, plain = counters
+    for k, v in launches.items():
+        want = per_step.get(k, 0) * steps
+        check(v == want, f"{what}: {k} launched {v} times, {want} expected")
+    check(not any(plain.values()), f"no plain version ran in {what}: {plain}")
+
+
+def teacher_state_equals(ens, ckpts):
+    """Each teacher's parameters, bit for bit, against the checkpoint it
+    was built from."""
+    from opensearch_sparse_model_tuning_sample_torch.models import hf_import
+
+    for t, ckpt in zip(ens.teachers, ckpts):
+        _, sd, _ = hf_import.load_checkpoint(ckpt)
+        own = t.bert.state_dict()
+        check(sorted(own) == sorted(sd) and all(
+            torch.equal(own[k].cpu(), sd[k]) for k in sd), f"teacher {ckpt} is unchanged")
+
+
+def minmax_tol(raw, rel, scale):
+    """Ensemble scores' tolerance from the teachers' raw [B, N] scores: if
+    each score, and so the row's min and max, moves by at most rel max|s|,
+    a min-max normalised score moves by at most 4 rel max|s| / range;
+    averaged over the teachers, times the score scale."""
+    per = [4 * rel * s.abs().amax(1) / (s.amax(1) - s.amin(1)) for s in raw]
+    return scale * torch.stack(per).mean(0)[:, None]
+
+
+def kd_scores_check(trainer, np_batch):
+    """One batch's ensemble scores on the card against the same ensemble
+    built on the CPU from the same checkpoints."""
+    from opensearch_sparse_model_tuning_sample_torch.ops.losses import pair_scores
+    from opensearch_sparse_model_tuning_sample_torch.train.teachers import (
+        build_ensemble, teacher_rep)
+
+    da = trainer.data_args
+    cpu = build_ensemble(da.kd_ensemble_teacher_kwargs, da.use_in_batch_negatives,
+                         max_length=da.max_seq_length, device="cpu")
+    card = trainer.teacher_ensemble
+    on_card = trainer._to_device(np_batch)
+    on_cpu = {k: np_batch[k] for k in ("teacher_q", "teacher_d")}
+    on_cpu = {k: [{n: torch.as_tensor(x) for n, x in f.items()} for f in v]
+              for k, v in on_cpu.items()}
+    got = card.get_scores(on_card["teacher_q"], on_card["teacher_d"]).cpu()
+    want = cpu.get_scores(on_cpu["teacher_q"], on_cpu["teacher_d"])
+    raw, raw_err = [], 0.0
+    for i, (tc, tg) in enumerate(zip(cpu.teachers, card.teachers)):
+        reps = [(teacher_rep(tc, on_cpu[k][i]), teacher_rep(tg, on_card[k][i]).cpu())
+                for k in ("teacher_q", "teacher_d")]
+        for a, b in reps:
+            err = (a - b).abs()
+            check(bool((err <= KD_REP_TOL * a.abs().clamp_min(1.0)).all()),
+                  f"teacher {i} reps, card vs CPU: max |err| {float(err.max()):.3g}")
+        s_cpu = pair_scores(reps[0][0], reps[1][0], card.use_in_batch_negatives)
+        s_card = pair_scores(reps[0][1], reps[1][1], card.use_in_batch_negatives)
+        rel = float(((s_card - s_cpu).abs() / s_cpu.abs().amax(1, keepdim=True)).max())
+        check(rel <= KD_SCORE_TOL, f"teacher {i} raw scores, card vs CPU: {rel:.3g} of the row max")
+        raw.append(s_cpu)
+        raw_err = max(raw_err, rel)
+    # the ensemble's arithmetic (min-max, mean, scale) on both devices: its
+    # scores differ only as far as the raw scores' measured difference allows
+    tol = minmax_tol(raw, raw_err, card.score_scale)
+    err = (got - want).abs()
+    check(bool((err <= tol).all()), f"ensemble scores, card vs CPU: max |err| {float(err.max()):.4g}")
+    return {"max_abs_err": float(err.max()), "raw_rel_err": raw_err,
+            "tol_min": float(tol.min()), "shape": list(got.shape)}
+
+
+def phase_kd_train(dev, path):
+    """(b) the kd recipe (config_kd_synthetic: two sparse teachers, the
+    infonce run's checkpoint-50 and checkpoint-25, scored in the step;
+    in-batch kldiv; the full-width mini student from random init) through
+    cli.train_ir, 30 steps."""
+    from opensearch_sparse_model_tuning_sample_torch.cli import train_ir
+
+    teachers = [path["ckpt"], os.path.join(path["cfg"]["output_dir"],
+                                            f"checkpoint-{TRAIN_STEPS // 2}")]
+    kd_path, cfg = smoke_recipe(
+        dev, "config_kd_synthetic", max_steps=KD_STEPS, warmup_steps=KD_WARMUP,
+        save_steps=KD_STEPS, logging_steps=KD_LOG_STEPS, output_dir=os.path.join(OUT, "kd"),
+        train_file=os.path.join(OUT, path["cfg"]["train_file"]),
+        kd_ensemble_teacher_kwargs={"model_ids": teachers, "teacher_tokenizer_ids": teachers})
+    t0 = time.time()
+    with StepClock(KD_WARMUP, KD_STEPS) as clock:
+        reset_counters()
+        trainer = train_ir.main(kd_path)
+        counters = read_counters()
+    seconds = time.time() - t0
+    steps = trainer.step
+    check(steps == KD_STEPS, "the kd trainer took every step")
+    check([t.kind for t in trainer.teacher_ensemble.teachers] == ["sparse", "sparse"]
+          and all(t.bert.embeddings.word_embeddings.device.type == "cuda"
+                  for t in trainer.teacher_ensemble.teachers), "two sparse teachers on the card")
+    check_launches(counters, steps, {**TEACHER_KERNELS, **STUDENT_KERNELS}, "the kd run")
+    teacher_state_equals(trainer.teacher_ensemble, teachers)
+    hist = trainer.log_history
+    check([h["step"] for h in hist] == [1] + list(range(KD_LOG_STEPS, steps + 1, KD_LOG_STEPS)),
+          "the kd run logged at steps 1, 10, 20, 30")
+    check(all(np.isfinite(v) for h in hist for v in h.values()), "finite kldiv loss at every log")
+    ckpt = os.path.join(cfg["output_dir"], f"checkpoint-{steps}")
+    check(os.path.exists(os.path.join(ckpt, "model.safetensors")), "the kd checkpoint")
+    docs = (KD_STEPS - KD_WARMUP) * cfg["per_device_train_batch_size"] * (
+        1 + cfg["sample_num_one_query"])
+    docs_per_s = docs / clock.seconds()
+    print(f"kd recipe: {steps} steps in {seconds:.1f} s; launches {counters[0]} (maxpool_head 4 "
+          f"a step for the teachers, the training kernels 1 a step), plain {counters[1]}; kldiv "
+          f"{hist[0]['ranking_loss']:.5f} (step 1) -> {hist[-1]['ranking_loss']:.5f} (step "
+          f"{steps}); teachers bit-equal to their checkpoints; {docs_per_s:.1f} docs/s over steps "
+          f"{KD_WARMUP}..{steps} (host clock, synchronized, saves excluded)", flush=True)
+
+    captured, grad_worst, np_batch = grad_check(trainer, dev)
+    scores = kd_scores_check(trainer, np_batch)
+    print(f"kd teacher scores {scores['shape']}, card vs CPU: max |err| "
+          f"{scores['max_abs_err']:.4g} (smallest row tolerance {scores['tol_min']:.4g}), raw "
+          f"scores within {scores['raw_rel_err']:.3g} of the row max", flush=True)
+    batch = trainer._to_device(np_batch)
+    ens = trainer.teacher_ensemble
+    # at the host's pace: ~860 launches a call overflow the launch queue, so
+    # cuda_ms's sleeping stream cannot time them on the card alone; the
+    # profile below reads their device time
+    teacher_host_ms = cuda_ms(lambda: ens.get_scores(batch["teacher_q"], batch["teacher_d"]),
+                              iters=10, sleep=False)
+    docs_per_step = cfg["per_device_train_batch_size"] * (1 + cfg["sample_num_one_query"])
+    profile = profile_steps(trainer, np_batch, 1e3 * docs_per_step / docs_per_s)
+    print(f"kd teacher scores alone (CUDA events at the host's pace): {teacher_host_ms:.3f} ms",
+          flush=True)
+    out = {"steps": steps, "seconds": seconds, "launches": counters[0], "docs_per_s": docs_per_s,
+           "log": hist, "grad_worst_rel_err": grad_worst, "scores": scores,
+           "teacher_scores_host_ms": teacher_host_ms,
+           "profile": profile, "teachers": teachers}
+    del trainer, captured, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kd_data(dev, path):
+    """(c) cli.make_kd_scores with teacher checkpoint-50 over the first
+    512 rows of the mined split (16 docs a query, 8 of them random),
+    then 8 of its rows scored again in process on the CPU."""
+    import datasets as hfds
+
+    from opensearch_sparse_model_tuning_sample_torch.cli import make_kd_scores
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+
+    root = os.path.join(OUT, "kd_data")
+    posnegs, kd = os.path.join(root, f"posnegs_{KD_ROWS}"), os.path.join(root, "synthetic-rich_kd3")
+    shutil.rmtree(root, ignore_errors=True)
+    src = hfds.Dataset.load_from_disk(os.path.join(OUT, path["cfg"]["train_file"]))
+    src.select(range(KD_ROWS)).save_to_disk(posnegs)
+    t0 = time.time()
+    reset_counters()
+    rows = make_kd_scores.main(["--posnegs", posnegs, "--teacher", path["ckpt"], "--out", kd,
+                                "--docs-per-query", "16", "--random-negs", "8",
+                                "--device", str(dev)])
+    counters = read_counters()
+    seconds = time.time() - t0
+    n_docs = sum(len(r["docs"]) for r in rows)
+    check(len(rows) == KD_ROWS and all(len(r["docs"]) == 16 for r in rows),
+          f"{len(rows)} kd rows of 16 docs")
+    check_launches(counters, -(-n_docs // 64), {"maxpool_head": 1}, "cli.make_kd_scores")
+    saved = hfds.Dataset.load_from_disk(kd)
+    check(saved.num_rows == KD_ROWS and saved[0]["docs"] == rows[0]["docs"], "the kd rows saved")
+    model = se.build_model(model_name_or_path=path["ckpt"], device="cpu")
+    enc = se.BatchEncoder(model, max_length=256, do_count=False)
+    worst = 0.0
+    for r in saved.select(range(8)):
+        q = enc.encode_batch([r["query"]], inf_free=True)[0]
+        s = enc.encode_batch(r["docs"]) @ q
+        rel = float(np.abs(s - np.array(r["scores"])).max() / np.abs(s).max())
+        worst = max(worst, rel)
+        check(rel <= KD_SCORE_TOL, f"kd scores, card vs CPU: {rel:.3g} of the row max")
+        check(all(a >= b for a, b in zip(r["scores"], r["scores"][1:])), "rows rank-ordered")
+    print(f"cli.make_kd_scores: {len(rows)} rows, {n_docs} docs in {seconds:.1f} s; launches "
+          f"{counters[0]}, plain {counters[1]}; 8 rows rescored on the CPU within {worst:.3g} of "
+          "the row max", flush=True)
+    return {"rows": len(rows), "docs": n_docs, "seconds": seconds, "launches": counters[0],
+            "cpu_rel_err": worst, "path": kd}
+
+
+def phase_l0(dev, path, kd_data, n_docs):
+    """(d) the L0 recipe (config_l0_synthetic: kldiv on (c)'s scores,
+    double-log1p, the L0-thresholded FLOPS, batch 20 at max_seq_length
+    256) from checkpoint-25 through cli.train_ir, 30 steps; (e) its
+    checkpoint through cli.evaluate_beir on the exact scan."""
+    from opensearch_sparse_model_tuning_sample_torch.cli import evaluate_beir, train_ir
+
+    l0_path, cfg = smoke_recipe(
+        dev, "config_l0_synthetic", max_steps=KD_STEPS, warmup_steps=KD_WARMUP,
+        save_steps=KD_STEPS, logging_steps=KD_LOG_STEPS, output_dir=os.path.join(OUT, "l0"),
+        index_engine="sparse",
+        model_name_or_path=os.path.join(path["cfg"]["output_dir"], f"checkpoint-{TRAIN_STEPS // 2}"),
+        train_file=kd_data["path"])
+    t0 = time.time()
+    reset_counters()
+    trainer = train_ir.main(l0_path)
+    counters = read_counters()
+    train_s = time.time() - t0
+    check(trainer.step == KD_STEPS and trainer.model.use_l0, "the L0 run took every step, use_l0")
+    check_launches(counters, trainer.step, STUDENT_KERNELS, "the L0 run")
+    hist = trainer.log_history
+    check(all(np.isfinite(v) for h in hist for v in h.values()), "finite L0 loss at every log")
+    print(f"L0 recipe: {trainer.step} steps in {train_s:.1f} s; launches {counters[0]}, plain "
+          f"{counters[1]}; kldiv {hist[0]['ranking_loss']:.5f} -> {hist[-1]['ranking_loss']:.5f}, "
+          f"d_flops {hist[0]['d_flops']:.4f} -> {hist[-1]['d_flops']:.4f}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    reset_counters()
+    avg = evaluate_beir.main(l0_path)
+    eval_counters = read_counters()
+    eval_s = time.time() - t0
+    launches = eval_counters[0]["maxpool_head"]
+    check(launches >= -(-n_docs // cfg["per_device_eval_batch_size"])
+          and not any(eval_counters[1].values()),
+          f"the L0 eval ran the ingest kernel for every batch, no plain version: {eval_counters}")
+    check(0.0 <= avg["NDCG@10"] <= 1.0 and np.isfinite(avg["flops"]) and avg["flops"] > 0,
+          "finite L0 eval metrics")
+    print(f"L0 eval (exact scan, checkpoint-{KD_STEPS}): NDCG@10 {avg['NDCG@10']:.5f}, "
+          f"Recall@100 {avg.get('Recall@100', float('nan')):.5f}, FLOPS {avg['flops']:.4f}; "
+          f"maxpool_head launches {launches}; {eval_s:.1f} s (correctness signals only)", flush=True)
+    return {"train_s": train_s, "launches": counters[0], "log": hist, "eval_s": eval_s,
+            "eval_launches": launches, "metrics": avg}
+
+# (f): the two new layouts at the mini width, RoBERTa at its own vocab
+NEW_LAYOUTS = {
+    "roberta": dict(model_type="roberta", vocab_size=50265, position_style="from_pad_offset",
+                    head_act="gelu", max_position_embeddings=514, type_vocab_size=1,
+                    pad_token_id=1, layer_norm_eps=1e-5),
+    "distilbert": dict(model_type="distilbert", vocab_size=30522, use_token_type=False,
+                       type_vocab_size=1),
+}
+
+
+def phase_layouts(dev):
+    """(f) a RoBERTa and a DistilBERT checkpoint written by the port's
+    save_checkpoint from seeded mini-width weights, loaded back through
+    hf_import.load_checkpoint, and their sparse (the ingest kernel) and
+    dense (cls, mean) teacher reps on the card held to the CPU's on seeded
+    token ids."""
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as bert_mod
+    from opensearch_sparse_model_tuning_sample_torch.models import hf_import
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+    from opensearch_sparse_model_tuning_sample_torch.models.tokenizer import load_tokenizer
+    from opensearch_sparse_model_tuning_sample_torch.ops.activations import special_token_mask
+    from opensearch_sparse_model_tuning_sample_torch.train import teachers as tt
+
+    out = {}
+    for layout, fields in NEW_LAYOUTS.items():
+        cfg = bert_mod.config_from_preset("mini", **fields)
+        bert = bert_mod.from_state_dict(cfg, bert_mod.init_state_dict(cfg, 7), torch.device("cpu"))
+        ckpt = os.path.join(OUT, "layouts", layout)
+        hf_import.save_checkpoint(se.SparseEncoderModel(cfg, bert, torch.ones(cfg.vocab_size),
+                                                        load_tokenizer(None)), ckpt)
+        cfg2, sd, _ = hf_import.load_checkpoint(ckpt)
+        check(cfg2.model_type == layout and cfg2.padded_vocab_size == cfg.padded_vocab_size,
+              f"{layout} checkpoint loads back as {layout}")
+        rng = np.random.default_rng(11)
+        B, L = 16, 128
+        lens = rng.integers(8, L + 1, size=B)
+        mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+        ids = np.where(mask > 0, rng.integers(5, cfg2.vocab_size, size=(B, L)), cfg2.pad_token_id)
+        reps = {}
+        reset_counters()
+        for d in ("cpu", dev):
+            bert = bert_mod.from_state_dict(cfg2, sd, torch.device(d)).requires_grad_(False)
+            smask = special_token_mask([0, 1, 2], cfg2.vocab_size, torch.device(d))
+            x, m = torch.from_numpy(ids).to(d), torch.from_numpy(mask).to(d)
+            reps[str(d)] = [tt.sparse_teacher_rep(bert, smask, x, m).cpu()] + [
+                tt.dense_teacher_rep(bert, x, m, pooling=p).cpu() for p in ("cls", "mean")]
+        launches, plain = read_counters()
+        check(launches["maxpool_head"] == 1 and plain["maxpool_head_reference"] == 1,
+              f"{layout}: the card's sparse rep ran the ingest kernel, the CPU's the plain head")
+        errs = []
+        for name, a, b in zip(("sparse", "dense cls", "dense mean"), reps[str(dev)], reps["cpu"]):
+            err = (a - b).abs()
+            check(bool((err <= KD_REP_TOL * b.abs().clamp_min(1.0)).all()),
+                  f"{layout} {name} rep, card vs CPU: max |err| {float(err.max()):.3g}")
+            errs.append(float(err.max()))
+        out[layout] = {"vocab": cfg2.vocab_size, "padded_vocab": cfg2.padded_vocab_size,
+                       "max_abs_err": dict(zip(("sparse", "dense_cls", "dense_mean"), errs))}
+        print(f"{layout} checkpoint (mini, vocab {cfg2.vocab_size} padded to "
+              f"{cfg2.padded_vocab_size}): sparse and dense reps on the card equal the CPU's "
+              f"(max |err| {', '.join(f'{e:.3g}' for e in errs)})", flush=True)
+    return out
+
+
+def phase_distill(dev, path, n_docs):
+    """The distillation phase, after the inverted eval: (b) the kd recipe,
+    (c) its kd data, (d)-(e) the L0 recipe and its eval, (f) the new
+    layouts. (a), the teachers' checkpoint-25 and checkpoint-50, came from
+    the main path's infonce run."""
+    t0 = time.time()
+    kd = phase_kd_train(dev, path)
+    kd_data = phase_kd_data(dev, path)
+    l0 = phase_l0(dev, path, kd_data, n_docs)
+    layouts = phase_layouts(dev)
+    return {"kd": kd, "kd_data": kd_data, "l0": l0, "layouts": layouts,
+            "seconds": time.time() - t0}
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1661,6 +2059,11 @@ def main():
 
     # 9. the inverted engine on the evaluation path
     inv_eval = phase_inverted_eval(dev, path)
+
+    # 10. knowledge distillation: the kd recipe with two sparse teachers,
+    # make_kd_scores, the L0 recipe and its eval, the new layouts
+    distill = phase_distill(dev, path, n_docs)
+    print(f"distillation phase {distill['seconds']:.1f} s", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     main_row = rows[-1]  # the eval's own first batch
@@ -1671,6 +2074,11 @@ def main():
         "replaces": "opensearch_sparse_model_tuning_sample_tpu/ops/pallas_maxpool.py:99",
         "launches": launches,
         "serve_launches": serve_out["launches"],
+        "kd_launches": {"kd_teachers": distill["kd"]["launches"]["maxpool_head"],
+                        "kd_teachers_per_step": distill["kd"]["launches"]["maxpool_head"]
+                        / distill["kd"]["steps"],
+                        "make_kd_scores": distill["kd_data"]["launches"]["maxpool_head"],
+                        "l0_eval": distill["l0"]["eval_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -1709,6 +2117,8 @@ def main():
             "share_of_bound": r["share_of_bound"], "shape": r["shape"],
             "inputs": "main-path batch",
             "launches_per_train_step": path["train"][0][name] / path["steps"],
+            "kd_launches": {"kd": distill["kd"]["launches"][name],
+                            "l0": distill["l0"]["launches"][name]},
             **({"bucket_ms": r["bucket_ms"]} if "bucket_ms" in r else {}),
             **({"ablation_ms": ablation_argmax} if name.endswith("argmax") else {}),
             "nnz": r["nnz"],
@@ -1720,6 +2130,7 @@ def main():
         "log": path["trainer"].log_history, "ndcg_at_10": avg["NDCG@10"]}))
     print("serve: " + json.dumps(serve_out))
     print("inverted eval: " + json.dumps(inv_eval))
+    print("distill: " + json.dumps(distill))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

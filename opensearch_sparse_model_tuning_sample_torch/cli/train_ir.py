@@ -5,8 +5,10 @@
 Reference: train_ir.py:30-150, the same single-YAML interface as the JAX
 package's `cli.train_ir`. One card: the batch is `per_device_train_batch_size`
 x `gradient_accumulation_steps` rows per optimizer step. Runs on the CUDA
-card unless `--device cpu`. Data parallelism (`dp_size` > 1) and KD teacher
-ensembles are not ported yet and raise.
+card unless `--device cpu`. `kd_ensemble_teacher_kwargs` builds a teacher
+ensemble that scores each batch inside the step (with an embedding store
+under `store_root` when a teacher is `remote`). Data parallelism
+(`dp_size` > 1) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..utils.logging_utils import set_logging
 logger = logging.getLogger(__name__)
 
 
-def _check_single_card(training_args, data_args):
+def _check_single_card(training_args):
     if training_args.dp_size not in (-1, 1):
         raise NotImplementedError(
             f"dp_size={training_args.dp_size}: the PyTorch port trains on one card; "
@@ -38,10 +40,6 @@ def _check_single_card(training_args, data_args):
         raise NotImplementedError(
             "a multi-process launch: the PyTorch port trains in one process; "
             "distribution is not ported yet (ROADMAP Queue 1: distribution)")
-    if data_args.kd_ensemble_teacher_kwargs:
-        raise NotImplementedError(
-            "kd_ensemble_teacher_kwargs: KD teacher ensembles are not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1: KD teachers)")
 
 
 def main(config_source=None):
@@ -56,16 +54,47 @@ def main(config_source=None):
     else:
         snapshot_config(model_args, data_args, training_args,
                         os.path.join(training_args.output_dir, "config.yaml"))
-    _check_single_card(training_args, data_args)
+    _check_single_card(training_args)
 
+    # precomputed-embedding store for "remote" teachers (reference
+    # train_ir.py:50-57); its prefetch pool is shut down when the run ends
+    embedding_store = None
+    kd_kwargs = data_args.kd_ensemble_teacher_kwargs
+    if kd_kwargs and "remote" in kd_kwargs.get("types", []):
+        from ..train.embedding_store import EmbeddingStore, LocalVectorStore
+
+        store_root = kd_kwargs.get("store_root", "data/embedding_store")
+        embedding_store = EmbeddingStore(LocalVectorStore(store_root))
+        logger.info("embedding store ready at %s", store_root)
+    try:
+        return _train(model_args, data_args, training_args, kd_kwargs, embedding_store)
+    finally:
+        if embedding_store is not None:
+            embedding_store.shutdown()
+
+
+def _train(model_args, data_args, training_args, kd_kwargs, embedding_store):
     device = resolve_device(training_args.device)
     model = se.from_model_args(model_args, seed=training_args.seed, device=device)
     logger.info("model: %s hidden=%d layers=%d vocab=%d on %s",
                 model_args.model_name_or_path or model_args.arch, model.cfg.hidden_size,
                 model.cfg.num_hidden_layers, model.cfg.vocab_size, device)
 
+    # the ensemble before the collator: the collator takes its per-teacher
+    # feature specs (native tokenizer, host texts, remote ids) from it
+    teacher_ensemble = None
+    if kd_kwargs:
+        from ..train.teachers import build_ensemble
+
+        teacher_ensemble = build_ensemble(kd_kwargs, data_args.use_in_batch_negatives,
+                                          max_length=data_args.max_seq_length, device=device)
+        logger.info("kd-ensemble teachers: %s", kd_kwargs.get("types"))
+
     collator = build_collator(data_args.data_type, model.tokenizer, data_args.max_seq_length,
-                              seq_buckets=data_args.seq_buckets)
+                              teacher_tokenizer_ids=kd_kwargs.get("teacher_tokenizer_ids", []),
+                              seq_buckets=data_args.seq_buckets,
+                              embedding_store=embedding_store,
+                              teacher_ensemble=teacher_ensemble)
     loss_specs = build_loss_specs(data_args)
     logger.info("losses: %s", loss_specs)
 
@@ -92,7 +121,8 @@ def main(config_source=None):
         drop_last=training_args.dataloader_drop_last, seed=training_args.seed,
         prefetch=training_args.dataloader_prefetch_factor or 0,
     )
-    trainer = Trainer(model, model_args, data_args, training_args, loss_specs=loss_specs)
+    trainer = Trainer(model, model_args, data_args, training_args, loss_specs=loss_specs,
+                      teacher_ensemble=teacher_ensemble)
     if training_args.resume:
         state_dir = os.path.join(os.path.abspath(training_args.output_dir), "train_state")
         if os.path.isdir(state_dir):
@@ -101,8 +131,13 @@ def main(config_source=None):
         else:
             logger.info("resume requested but no train_state at %s; fresh run", state_dir)
 
-    # exact resume: the data stream fast-forwards to the restored step
-    trainer.train(epochs(loader, training_args.max_steps, start=trainer.step))
+    def batches():
+        # exact resume: the data stream fast-forwards to the restored step;
+        # remote teachers' embeddings are fetched before the batch moves
+        for batch in epochs(loader, training_args.max_steps, start=trainer.step):
+            yield collator.resolve_pending(batch)
+
+    trainer.train(batches())
     trainer.save_train_state()
     logger.info("training complete at step %d", trainer.step)
     return trainer

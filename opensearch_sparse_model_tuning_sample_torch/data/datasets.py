@@ -1,8 +1,8 @@
 """Datasets: host-side, indexable sequences over corpus and training rows.
 
 The PyTorch port's copy of the JAX package's `data/datasets.py` (reference
-dataset.py): the corpus views the eval path uses, the posnegs and KD
-training datasets (strided KD group sampling :193-196, partial_shuffle
+dataset.py): the corpus views the eval path uses, the posnegs, KD and
+KD-with-ids training datasets (strided KD group sampling :193-196, partial_shuffle
 :22-40, the first_rank filter :174-179, posnegs chunking :329-358), the
 modulo host shard (:124-148) and the combined multi-dataset batching
 (:389-444). Every class is a plain indexable sequence and all randomness is
@@ -122,6 +122,28 @@ class KnowledgeDistillDataset:
         else:
             scores = [None] * len(picks)
         return row["query"], docs, scores
+
+
+class KnowledgeDistillIdsDataset(KnowledgeDistillDataset):
+    """KD rows that also carry q_id/d_ids for precomputed ("remote")
+    teachers (reference dataset.py:220-284): the parent's first_rank filter
+    and strided grouping; the reference's ids variant applies no
+    score_scale, so it is pinned to 1."""
+
+    def __init__(self, all_data, sample_num: int = 2, swap_times=0,
+                 first_rank_thresh: int = 10000, shuffle_seed: int = 0, **_):
+        super().__init__(all_data, sample_num=sample_num, swap_times=swap_times,
+                         first_rank_thresh=first_rank_thresh, score_scale=1.0,
+                         shuffle_seed=shuffle_seed)
+
+    def __getitem__(self, idx: int):
+        row_idx, picks = self.groups[idx]
+        row = self.all_data[row_idx]
+        docs = [row["docs"][i] for i in picks]
+        d_ids = [row["d_ids"][i] for i in picks]
+        scores = ([row["scores"][i] for i in picks] if self.has_scores
+                  else [None] * len(picks))
+        return row["query"], row["q_id"], docs, d_ids, scores
 
 
 class PosNegsDataset:
@@ -269,7 +291,7 @@ _MSMARCO = "cli/search.py and cli/prepare_msmarco.py, with the MS MARCO and MIRA
 DATASET_CLS_MAP = {
     "kd": KnowledgeDistillDataset,
     "posnegs": PosNegsDataset,
-    "kd-ids": _not_ported("the kd-ids dataset", "KD teachers"),
+    "kd-ids": KnowledgeDistillIdsDataset,
 }
 MsMarcoKDDataset = _not_ported("MsMarcoKDDataset", _MSMARCO)
 MiraclCorpusDataset = _not_ported("MiraclCorpusDataset", _MSMARCO)

@@ -22,8 +22,10 @@ outputs, as the JAX package places it) is on when `encode_hidden` gets a
 `dropout_key`. Each layer draws its masks from its own `torch.Generator`,
 seeded from (key, layer) inside the layer's function, so a layer that
 `remat` recomputes in the backward (`torch.utils.checkpoint`) draws the same
-masks again. The module hosts the BERT layout (absolute positions,
-token-type embeddings).
+masks again. The module hosts the three layout families of the HF importer
+(`hf_import.py`): BERT (absolute positions, token-type embeddings), RoBERTa
+(positions counted from the pad offset, a head pinned to gelu) and
+DistilBERT (no token types).
 """
 
 from __future__ import annotations
@@ -59,6 +61,14 @@ class BertConfig:
     attention_probs_dropout_prob: float = 0.1
     hidden_act: str = "gelu"  # "gelu" (exact) | "gelu_new" (tanh) | "relu"
     pad_token_id: int = 0
+    # the HF layout family: "bert" | "roberta" | "distilbert"
+    model_type: str = "bert"
+    # "absolute": positions 0..L-1 (BERT, DistilBERT). "from_pad_offset":
+    # RoBERTa's create_position_ids_from_input_ids, real tokens counted
+    # from pad_token_id + 1 and pads pinned to pad_token_id
+    position_style: str = "absolute"
+    # DistilBERT has no token types: its placeholder row stays out of the sum
+    use_token_type: bool = True
     # None = follow hidden_act (BERT); RoBERTa's head pins gelu
     head_act: Optional[str] = None
     vocab_pad_multiple: int = 128
@@ -259,10 +269,15 @@ class BertForMaskedLM(nn.Module):
         input_ids = input_ids.long()
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        if cfg.position_style == "from_pad_offset":
+            not_pad = (input_ids != cfg.pad_token_id).long()
+            pos_ids = torch.cumsum(not_pad, dim=1) * not_pad + cfg.pad_token_id
+        else:
+            pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = (F.embedding(input_ids, emb.word_embeddings).to(cd)
-             + F.embedding(pos_ids, emb.position_embeddings).to(cd)
-             + F.embedding(token_type_ids.long(), emb.token_type_embeddings).to(cd))
+             + F.embedding(pos_ids, emb.position_embeddings).to(cd))
+        if cfg.use_token_type:
+            x = x + F.embedding(token_type_ids.long(), emb.token_type_embeddings).to(cd)
         x = emb.layer_norm(x)
         if dropout_key is not None:
             x = _dropout(x, cfg.hidden_dropout_prob,

@@ -4,8 +4,11 @@ HuggingFace BERT-for-MaskedLM on-disk layout.
 Reads and writes the same `config.json` + `model.safetensors` + `vocab.txt`
 (+ `idf.json`) directory the JAX package's `hf_import.save_checkpoint`
 writes, byte for byte, so a checkpoint made by either package loads in the
-other. The port hosts the BERT layout; RoBERTa and DistilBERT layouts raise
-`UnsupportedArchitecture` (their canonicalisation is a later slice).
+other. It hosts the BERT, RoBERTa and DistilBERT layout families, both
+ways: their state dicts are mapped to one canonical (BERT) key space on
+import and back to their own on export. Any other `model_type` raises
+`UnsupportedArchitecture`, which `train/teachers.py::build_teacher` catches
+to host the checkpoint through `transformers` instead.
 """
 
 from __future__ import annotations
@@ -47,32 +50,68 @@ def _check_act(act: str, path: str) -> str:
     return act
 
 
-def config_from_hf_json(path: str, param_dtype=torch.float32,
-                        compute_dtype=torch.bfloat16) -> BertConfig:
-    """HF config.json -> BertConfig for the BERT layout."""
-    with open(path) as f:
-        hf = json.load(f)
-    mt = hf.get("model_type", "bert") or "bert"
-    if mt != "bert":
-        raise UnsupportedArchitecture(
-            f"model_type {mt!r} in {path}: the port imports the BERT layout "
-            "only for now (RoBERTa/DistilBERT are on the ROADMAP)"
-        )
-    return BertConfig(
+def _bert_like(hf: Dict, path: str, max_pos: int, type_vocab: int, eps: float,
+               pad: int) -> Dict:
+    """The config fields BERT and RoBERTa name alike, with each family's
+    defaults for the optional ones."""
+    return dict(
         vocab_size=hf["vocab_size"],
         hidden_act=_check_act(hf.get("hidden_act", "gelu"), path),
         hidden_size=hf["hidden_size"],
         num_hidden_layers=hf["num_hidden_layers"],
         num_attention_heads=hf["num_attention_heads"],
         intermediate_size=hf["intermediate_size"],
-        max_position_embeddings=hf.get("max_position_embeddings", 512),
-        type_vocab_size=hf.get("type_vocab_size", 2),
-        layer_norm_eps=hf.get("layer_norm_eps", 1e-12),
+        max_position_embeddings=hf.get("max_position_embeddings", max_pos),
+        type_vocab_size=hf.get("type_vocab_size", type_vocab),
+        layer_norm_eps=hf.get("layer_norm_eps", eps),
         hidden_dropout_prob=hf.get("hidden_dropout_prob", 0.1),
         attention_probs_dropout_prob=hf.get("attention_probs_dropout_prob", 0.1),
-        pad_token_id=hf.get("pad_token_id", 0),
-        param_dtype=param_dtype,
-        compute_dtype=compute_dtype,
+        pad_token_id=hf.get("pad_token_id", pad),
+    )
+
+
+def config_from_hf_json(path: str, param_dtype=torch.float32,
+                        compute_dtype=torch.bfloat16) -> BertConfig:
+    """HF config.json -> BertConfig for the BERT / RoBERTa / DistilBERT
+    layout families; anything else raises UnsupportedArchitecture."""
+    with open(path) as f:
+        hf = json.load(f)
+    mt = hf.get("model_type", "bert") or "bert"
+    common = dict(param_dtype=param_dtype, compute_dtype=compute_dtype)
+    if mt == "bert":
+        return BertConfig(**_bert_like(hf, path, 512, 2, 1e-12, 0), **common)
+    if mt in ("roberta", "xlm-roberta"):
+        # XLM-R has RoBERTa's modules and "roberta." prefix; RobertaLMHead
+        # applies gelu whatever hidden_act says
+        return BertConfig(**_bert_like(hf, path, 514, 1, 1e-5, 1), model_type="roberta",
+                          head_act="gelu", position_style="from_pad_offset", **common)
+    if mt == "distilbert":
+        if hf.get("sinusoidal_pos_embds"):
+            raise UnsupportedArchitecture(
+                f"sinusoidal_pos_embds in {path}: DistilBERT imports take learned "
+                "absolute positions only"
+            )
+        return BertConfig(
+            model_type="distilbert",
+            vocab_size=hf["vocab_size"],
+            hidden_act=_check_act(hf.get("activation", "gelu"), path),
+            hidden_size=hf["dim"],
+            num_hidden_layers=hf["n_layers"],
+            num_attention_heads=hf["n_heads"],
+            intermediate_size=hf["hidden_dim"],
+            max_position_embeddings=hf.get("max_position_embeddings", 512),
+            type_vocab_size=1,  # a placeholder row; use_token_type keeps it out
+            layer_norm_eps=1e-12,  # DistilBERT hard-codes nn.LayerNorm(eps=1e-12)
+            hidden_dropout_prob=hf.get("dropout", 0.1),
+            attention_probs_dropout_prob=hf.get("attention_dropout", 0.1),
+            pad_token_id=hf.get("pad_token_id", 0),
+            use_token_type=False,
+            **common,
+        )
+    raise UnsupportedArchitecture(
+        f"model_type {mt!r} in {path} is not a layout family the port imports "
+        "(bert, roberta, distilbert); other architectures run as host teachers "
+        "through transformers (kd ensemble type 'hf')"
     )
 
 
@@ -89,7 +128,7 @@ def _read_state_dict(ckpt_dir: str) -> Dict[str, np.ndarray]:
     raise FileNotFoundError(f"no model.safetensors / pytorch_model.bin in {ckpt_dir}")
 
 
-def _canonicalize(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def _canon_bert(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Everything under "bert." (or not) -> "bert." form; tf-era
     `gamma`/`beta` -> `weight`/`bias`; `position_ids` buffers dropped."""
     out: Dict[str, np.ndarray] = {}
@@ -107,6 +146,94 @@ def _canonicalize(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+# RobertaLMHead module -> the canonical cls.predictions names
+_ROBERTA_HEAD = {
+    "dense.": "cls.predictions.transform.dense.",
+    "layer_norm.": "cls.predictions.transform.LayerNorm.",
+    "decoder.": "cls.predictions.decoder.",
+}
+
+
+def _canon_roberta(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """RobertaForMaskedLM keys -> the canonical space: the stack's leaf
+    names are BERT's; only the prefix and the LM head's names differ."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.endswith(".position_ids") or k == "lm_head.decoder.bias":
+            continue  # a buffer, and the tied duplicate of lm_head.bias
+        if k.startswith("roberta."):
+            k = "bert." + k[len("roberta."):]
+        elif k == "lm_head.bias":
+            k = "cls.predictions.bias"
+        elif k.startswith("lm_head."):
+            rest = k[len("lm_head."):]
+            for src, dst in _ROBERTA_HEAD.items():
+                if rest.startswith(src):
+                    k = dst + rest[len(src):]
+                    break
+        elif not k.startswith(("bert.", "cls.")):
+            k = "bert." + k  # a bare RobertaModel dump
+        out[k] = v
+    return out
+
+
+# DistilBERT layer leaves -> BERT's (the same post-LN block, other names)
+_DISTIL_LEAF_MAP = {
+    "attention.q_lin": "attention.self.query",
+    "attention.k_lin": "attention.self.key",
+    "attention.v_lin": "attention.self.value",
+    "attention.out_lin": "attention.output.dense",
+    "sa_layer_norm": "attention.output.LayerNorm",
+    "ffn.lin1": "intermediate.dense",
+    "ffn.lin2": "output.dense",
+    "output_layer_norm": "output.LayerNorm",
+}
+_DISTIL_HEAD = {
+    "vocab_transform.": "cls.predictions.transform.dense.",
+    "vocab_layer_norm.": "cls.predictions.transform.LayerNorm.",
+    "vocab_projector.weight": "cls.predictions.decoder.weight",
+    "vocab_projector.bias": "cls.predictions.bias",
+}
+
+
+def _canon_distilbert(sd: Dict[str, np.ndarray], cfg: BertConfig) -> Dict[str, np.ndarray]:
+    """DistilBertForMaskedLM keys -> the canonical space. DistilBERT has no
+    token-type table: a zero row stands in (use_token_type=False keeps it
+    out of the forward)."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k.endswith(".position_ids"):
+            continue
+        if k.startswith("distilbert."):
+            k = k[len("distilbert."):]
+        if k.startswith("embeddings."):
+            k = "bert." + k
+        elif k.startswith("transformer.layer."):
+            parts = k.split(".")
+            mapped = _DISTIL_LEAF_MAP.get(".".join(parts[3:-1]))
+            if mapped is not None:
+                k = f"bert.encoder.layer.{parts[2]}.{mapped}.{parts[-1]}"
+        else:
+            for src, dst in _DISTIL_HEAD.items():
+                if k.startswith(src):
+                    k = dst + k[len(src):]
+                    break
+        out[k] = v
+    word = out.get("bert.embeddings.word_embeddings.weight")
+    if word is not None:
+        out.setdefault("bert.embeddings.token_type_embeddings.weight",
+                       np.zeros((cfg.type_vocab_size, word.shape[1]), dtype=word.dtype))
+    return out
+
+
+def _canonicalize(sd: Dict[str, np.ndarray], cfg: BertConfig) -> Dict[str, np.ndarray]:
+    if cfg.model_type == "roberta":
+        return _canon_roberta(sd)
+    if cfg.model_type == "distilbert":
+        return _canon_distilbert(sd, cfg)
+    return _canon_bert(sd)
+
+
 def _pad_rows(x: np.ndarray, rows: int) -> np.ndarray:
     out = np.zeros((rows,) + x.shape[1:], dtype=np.float32)
     out[: x.shape[0]] = x
@@ -115,10 +242,14 @@ def _pad_rows(x: np.ndarray, rows: int) -> np.ndarray:
 
 def params_from_state_dict(sd: Dict[str, np.ndarray],
                            cfg: BertConfig) -> Dict[str, torch.Tensor]:
-    """HF BERT state dict (numpy) -> the port's BertForMaskedLM state dict.
-    HF Linear weights are [out, in], the port's layout, so nothing is
-    transposed; vocab rows are zero-padded to cfg.padded_vocab_size."""
-    sd = _canonicalize(sd)
+    """HF state dict (numpy, any hosted layout family) -> the port's
+    BertForMaskedLM state dict. HF Linear weights are [out, in], the port's
+    layout, so nothing is transposed; vocab rows are zero-padded to
+    cfg.padded_vocab_size. A dense dump with no MLM head (an AutoModel
+    checkpoint, as dense teachers are) gets a fresh head: an identity
+    transform, unit LayerNorm and zero bias, which only `encode_hidden`
+    callers should rely on."""
+    sd = _canonicalize(sd, cfg)
     pv = cfg.padded_vocab_size
     required = [f"bert.embeddings.{n}.weight" for n in (
         "word_embeddings", "position_embeddings", "token_type_embeddings", "LayerNorm")]
@@ -130,8 +261,6 @@ def params_from_state_dict(sd: Dict[str, np.ndarray],
             f"checkpoint does not map to the BERT-MLM layout: {len(missing)} "
             f"required keys missing, first few: {missing[:6]}"
         )
-    if "cls.predictions.transform.dense.weight" not in sd:
-        raise UnsupportedArchitecture("checkpoint has no MLM head (cls.predictions.*)")
 
     def a(name):
         return torch.from_numpy(np.array(sd[name], dtype=np.float32))
@@ -148,13 +277,23 @@ def params_from_state_dict(sd: Dict[str, np.ndarray],
         for leaf, name in _LAYER_LEAVES.items():
             for part in ("weight", "bias"):
                 out[f"layers.{i}.{name}.{part}"] = a(f"bert.encoder.layer.{i}.{leaf}.{part}")
-    for leaf, name in (("transform.dense", "transform"),
-                       ("transform.LayerNorm", "layer_norm")):
-        for part in ("weight", "bias"):
-            out[f"mlm_head.{name}.{part}"] = a(f"cls.predictions.{leaf}.{part}")
-    bias_key = ("cls.predictions.bias" if "cls.predictions.bias" in sd
-                else "cls.predictions.decoder.bias")
-    out["mlm_head.bias"] = torch.from_numpy(_pad_rows(sd[bias_key], pv))
+    if "cls.predictions.transform.dense.weight" in sd:
+        for leaf, name in (("transform.dense", "transform"),
+                           ("transform.LayerNorm", "layer_norm")):
+            for part in ("weight", "bias"):
+                out[f"mlm_head.{name}.{part}"] = a(f"cls.predictions.{leaf}.{part}")
+        bias_key = ("cls.predictions.bias" if "cls.predictions.bias" in sd
+                    else "cls.predictions.decoder.bias")
+        out["mlm_head.bias"] = torch.from_numpy(_pad_rows(sd[bias_key], pv))
+    else:
+        logger.warning("checkpoint has no MLM head (cls.predictions.*): importing a "
+                       "fresh head, valid for dense (CLS/mean) teachers only")
+        d = cfg.hidden_size
+        out.update({"mlm_head.transform.weight": torch.eye(d),
+                    "mlm_head.transform.bias": torch.zeros(d),
+                    "mlm_head.layer_norm.weight": torch.ones(d),
+                    "mlm_head.layer_norm.bias": torch.zeros(d),
+                    "mlm_head.bias": torch.zeros(pv)})
     dec = sd.get("cls.predictions.decoder.weight")
     if dec is not None and not np.array_equal(dec, word):
         out["mlm_head.decoder"] = torch.from_numpy(_pad_rows(dec, pv))
@@ -190,7 +329,8 @@ def load_checkpoint(
 
 
 def state_dict_from_module(bert, cfg: BertConfig) -> Dict[str, np.ndarray]:
-    """The port's BertForMaskedLM -> the HF BERT state dict (numpy fp32,
+    """The port's BertForMaskedLM -> the HF state dict in the canonical BERT
+    key space (numpy fp32,
     contiguous: safetensors writes raw buffers). Padded vocab rows are cut;
     the decoder is written out even when tied, as HF does."""
     own = {k: v.detach().to("cpu", torch.float32).contiguous().numpy()
@@ -216,7 +356,85 @@ def state_dict_from_module(bert, cfg: BertConfig) -> Dict[str, np.ndarray]:
     return {k: np.ascontiguousarray(a) for k, a in sd.items()}
 
 
+def _decanon_roberta(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    inv_head = {v: k for k, v in _ROBERTA_HEAD.items()}
+    for k, v in sd.items():
+        if k.startswith("bert."):
+            k = "roberta." + k[len("bert."):]
+        elif k == "cls.predictions.bias":
+            out["lm_head.decoder.bias"] = v  # HF keeps the tied duplicate
+            k = "lm_head.bias"
+        else:
+            for src, dst in inv_head.items():
+                if k.startswith(src):
+                    k = "lm_head." + dst + k[len(src):]
+                    break
+        out[k] = v
+    return out
+
+
+def _decanon_distilbert(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    inv_leaf = {v: k for k, v in _DISTIL_LEAF_MAP.items()}
+    inv_head = {v: k for k, v in _DISTIL_HEAD.items()}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in sd.items():
+        if k == "bert.embeddings.token_type_embeddings.weight":
+            continue  # the layout has no token-type table
+        if k.startswith("bert.embeddings."):
+            k = "distilbert." + k[len("bert."):]
+        elif k.startswith("bert.encoder.layer."):
+            parts = k.split(".")
+            k = (f"distilbert.transformer.layer.{parts[3]}."
+                 f"{inv_leaf['.'.join(parts[4:-1])]}.{parts[-1]}")
+        else:
+            for src, dst in inv_head.items():
+                if k.startswith(src):
+                    k = dst + k[len(src):]
+                    break
+        out[k] = v
+    return out
+
+
 def _config_json_for_export(cfg: BertConfig) -> Dict:
+    """config.json of the backbone's own layout family, as the JAX
+    package's export writes it."""
+    if cfg.model_type == "roberta":
+        return {
+            "architectures": ["RobertaForMaskedLM"],
+            "model_type": "roberta",
+            "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_hidden_layers,
+            "num_attention_heads": cfg.num_attention_heads,
+            "intermediate_size": cfg.intermediate_size,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "type_vocab_size": cfg.type_vocab_size,
+            "layer_norm_eps": cfg.layer_norm_eps,
+            "hidden_dropout_prob": cfg.hidden_dropout_prob,
+            "attention_probs_dropout_prob": cfg.attention_probs_dropout_prob,
+            "hidden_act": cfg.hidden_act,
+            "pad_token_id": cfg.pad_token_id,
+            "bos_token_id": 0,
+            "eos_token_id": 2,
+        }
+    if cfg.model_type == "distilbert":
+        return {
+            "architectures": ["DistilBertForMaskedLM"],
+            "model_type": "distilbert",
+            "vocab_size": cfg.vocab_size,
+            "dim": cfg.hidden_size,
+            "n_layers": cfg.num_hidden_layers,
+            "n_heads": cfg.num_attention_heads,
+            "hidden_dim": cfg.intermediate_size,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "dropout": cfg.hidden_dropout_prob,
+            "attention_dropout": cfg.attention_probs_dropout_prob,
+            "activation": cfg.hidden_act,
+            "pad_token_id": cfg.pad_token_id,
+            "sinusoidal_pos_embds": False,
+            "tie_weights_": True,
+        }
     return {
         "architectures": ["BertForMaskedLM"],
         "model_type": "bert",
@@ -236,7 +454,8 @@ def _config_json_for_export(cfg: BertConfig) -> Dict:
 
 
 def save_checkpoint(model, output_dir: str):
-    """Write an HF-layout checkpoint dir from a SparseEncoderModel: backbone
+    """Write an HF-layout checkpoint dir from a SparseEncoderModel, in the
+    backbone's own layout family (bert, roberta or distilbert): backbone
     (`model.safetensors`), `config.json` and the tokenizer always, `idf.json`
     only when the IDF vector trains (reference ModelWrapper.save,
     trainer.py:37-49). The JAX package's `save_checkpoint` writes the same
@@ -245,8 +464,12 @@ def save_checkpoint(model, output_dir: str):
 
     os.makedirs(output_dir, exist_ok=True)
     cfg = model.cfg
-    save_file(state_dict_from_module(model.bert, cfg),
-              os.path.join(output_dir, "model.safetensors"))
+    sd = state_dict_from_module(model.bert, cfg)
+    if cfg.model_type == "roberta":
+        sd = _decanon_roberta(sd)
+    elif cfg.model_type == "distilbert":
+        sd = _decanon_distilbert(sd)
+    save_file(sd, os.path.join(output_dir, "model.safetensors"))
     with open(os.path.join(output_dir, "config.json"), "w") as f:
         json.dump(_config_json_for_export(cfg), f, indent=2)
     model.tokenizer.save_pretrained(output_dir)

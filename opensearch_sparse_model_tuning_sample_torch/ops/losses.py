@@ -46,7 +46,8 @@ def infonce_loss(q_rep, d_rep, use_in_batch_negatives: bool = False, **_) -> tor
     return torch.mean(-F.log_softmax(scores, dim=1)[:, 0])
 
 
-def _student_scores(q_rep, d_rep, use_in_batch_negatives):
+def pair_scores(q_rep, d_rep, use_in_batch_negatives: bool) -> torch.Tensor:
+    """fp32 query-doc scores: [B, B*G] with in-batch negatives, else [B, G]."""
     if use_in_batch_negatives:
         return _scores_in_batch(q_rep, d_rep)
     return _scores_grouped(q_rep, d_rep)
@@ -57,7 +58,7 @@ def kldiv_loss(q_rep, d_rep, teacher_scores, use_in_batch_negatives: bool = Fals
     """Temperature-scaled KL(teacher || student) as the reference computes it
     (loss.py:18-43): sum(q * (log q - log p)) over docs, mean over queries,
     with 0 * log(0) taken as 0."""
-    student = _student_scores(q_rep, d_rep, use_in_batch_negatives)
+    student = pair_scores(q_rep, d_rep, use_in_batch_negatives)
     log_p = F.log_softmax(student / temperature, dim=1)
     q = F.softmax(teacher_scores.float() / temperature, dim=1)
     logq = torch.where(q > 0, torch.log(torch.clamp(q, min=1e-30)), 0.0)
@@ -67,7 +68,7 @@ def kldiv_loss(q_rep, d_rep, teacher_scores, use_in_batch_negatives: bool = Fals
 def margin_mse_loss(q_rep, d_rep, teacher_scores, use_in_batch_negatives: bool = False,
                     temperature: float = 1.0, **_) -> torch.Tensor:
     """MSE between student and teacher margins to doc 0 (loss.py:46-77)."""
-    student = _student_scores(q_rep, d_rep, use_in_batch_negatives) / temperature
+    student = pair_scores(q_rep, d_rep, use_in_batch_negatives) / temperature
     teacher = teacher_scores.float() / temperature
 
     def margins(x):

@@ -17,7 +17,12 @@ the backward and one AdamW update:
   * global-norm clipping (`clip_grad_norm_`: optax's `clip_by_global_norm`
     up to a 1e-6 in the norm);
   * gradient accumulation over A microbatches: gradients averaged, one
-    update, metrics averaged except `nonzero_max` (a max).
+    update, metrics averaged except `nonzero_max` (a max);
+  * knowledge distillation: a teacher ensemble (train/teachers.py) scores
+    each microbatch inside the step, under no_grad and before the student
+    forward; host teachers run on their raw texts before the step. The
+    teachers belong to the ensemble, not to the model, so they stay out of
+    the optimizer, the clip norm, the train state and the checkpoints.
 
 Metrics and the loss moving average stay on the device; the loop reads
 them only at `logging_steps`, so other steps never wait for the card.
@@ -67,12 +72,17 @@ def make_optimizer(model: se.SparseEncoderModel, model_args, data_args, training
 
 
 def train_loss(model: se.SparseEncoderModel, batch: Dict[str, torch.Tensor], step: int,
-               loss_specs: List[LossSpec], model_args, data_args, dropout_key=None):
+               loss_specs: List[LossSpec], model_args, data_args, dropout_key=None,
+               teacher_ensemble=None):
     """One microbatch's loss and metrics (tensors on the device). `step` is
     the optimizer's step count before this update, which the lambda ramp
-    reads; `dropout_key` (None: dropout off) seeds the dropout masks."""
+    reads; `dropout_key` (None: dropout off) seeds the dropout masks. With a
+    `teacher_ensemble` its scores of the batch's teacher features, computed
+    first and without gradient, take the place of the batch's `scores`."""
     needs_scores = any(s.kind in ("kldiv", "marginmse") for s in loss_specs)
     teacher_scores = batch.get("scores")
+    if teacher_ensemble is not None:
+        teacher_scores = teacher_ensemble.get_scores(batch["teacher_q"], batch["teacher_d"])
     if needs_scores and teacher_scores is None:
         raise ValueError("kldiv/marginmse losses need teacher scores")
 
@@ -121,11 +131,8 @@ class Trainer:
 
     def __init__(self, model: se.SparseEncoderModel, model_args, data_args, training_args,
                  loss_specs: Optional[List[LossSpec]] = None, teacher_ensemble=None):
-        if teacher_ensemble is not None:
-            raise NotImplementedError(
-                "teacher ensembles are not ported to the PyTorch package yet "
-                "(ROADMAP Queue 1: KD teachers)")
         self.model = model
+        self.teacher_ensemble = teacher_ensemble
         self.model_args = model_args
         self.data_args = data_args
         self.args = training_args
@@ -141,26 +148,50 @@ class Trainer:
         self.log_history: List[Dict[str, float]] = []
 
     # ------------------------------------------------------------------
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
+    def _to_device(self, x):
+        """A loader batch on the device: arrays and tensors moved, teacher
+        feature lists and dicts moved leaf by leaf, raw texts left as they
+        are."""
+        if isinstance(x, dict):
+            return {k: self._to_device(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [self._to_device(v) for v in x]
+        if isinstance(x, tuple):  # a host teacher's texts
+            return x
+        return torch.as_tensor(x).to(self.device, non_blocking=True)
+
+    def _split(self, x, A: int, key: str):
+        """The A microbatches of one batch entry, split on the leading dim.
+        Doc rows (student's and teachers') are query-major, so a plain split
+        keeps each query's group with it (collator layout)."""
+        if isinstance(x, dict):
+            parts = {k: self._split(v, A, key) for k, v in x.items()}
+            return [{k: p[i] for k, p in parts.items()} for i in range(A)]
+        if isinstance(x, list):
+            parts = [self._split(v, A, key) for v in x]
+            return [[p[i] for p in parts] for i in range(A)]
+        if len(x) % A:
+            raise ValueError(f"batch leading dim {len(x)} of {key} not divisible by "
+                             f"gradient_accumulation_steps={A}")
+        n = len(x) // A
+        return [x[i * n:(i + 1) * n] for i in range(A)]
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a loader batch (numpy or tensors). With
         gradient accumulation the batch's leading dim is split into A
-        microbatches: doc rows are query-major, so a plain split keeps each
-        query's group with it (collator layout)."""
+        microbatches. Host teachers encode their texts first."""
+        if self.teacher_ensemble is not None:
+            batch = self.teacher_ensemble.host_precompute(batch)
         batch = self._to_device(batch)
         A = self.accum_steps
-        for k, x in batch.items():
-            if x.shape[0] % A:
-                raise ValueError(f"batch leading dim {x.shape[0]} of {k} not divisible by "
-                                 f"gradient_accumulation_steps={A}")
+        parts = {k: self._split(x, A, k) for k, x in batch.items()}
         self.optimizer.zero_grad(set_to_none=True)
         per_mb = []
         for i in range(A):
-            mb = {k: x.reshape(A, x.shape[0] // A, *x.shape[1:])[i] for k, x in batch.items()}
+            mb = {k: p[i] for k, p in parts.items()}
             loss, m = train_loss(self.model, mb, self.step, self.loss_specs, self.model_args,
-                                 self.data_args, dropout_key=(self.args.seed, self.step, i))
+                                 self.data_args, dropout_key=(self.args.seed, self.step, i),
+                                 teacher_ensemble=self.teacher_ensemble)
             loss.backward()  # gradients add up in .grad over the microbatches
             per_mb.append(m)
         if A > 1:

@@ -106,10 +106,15 @@ def test_hf_import_reads_the_jax_checkpoint_exactly(tiny_model, tmp_path):
     assert idf is None  # no idf.json when the idf is frozen
 
 
-@pytest.mark.parametrize("model_type", ["roberta", "distilbert", "t5"])
+@pytest.mark.parametrize("model_type", ["t5", "distilbert-sinusoidal"])
 def test_hf_import_raises_on_layouts_not_ported(tmp_path, model_type):
+    """RoBERTa and DistilBERT import (tests/test_torch_backbones.py); other
+    families, and DistilBERT's sinusoidal positions, still raise."""
+    body = {"model_type": model_type, "vocab_size": 10}
+    if model_type == "distilbert-sinusoidal":
+        body = {"model_type": "distilbert", "vocab_size": 10, "sinusoidal_pos_embds": True}
     p = tmp_path / "config.json"
-    p.write_text(json.dumps({"model_type": model_type, "vocab_size": 10}))
+    p.write_text(json.dumps(body))
     with pytest.raises(thf.UnsupportedArchitecture):
         thf.config_from_hf_json(str(p))
 

@@ -581,3 +581,120 @@ def test_inverted_out_of_range_token_ids_on_the_card_do_not_assert(cuda):
     torch.cuda.synchronize()
     _close_hits(got, cpu.search_tokens(q_tok, q_w, k=10))
     assert torch.ones(1, device=cuda).item() == 1.0
+
+
+# ---- knowledge distillation: teachers on the card (train/teachers.py) -----
+
+
+def _teacher_feats(V, B, L, seed, device, pad_id=0):
+    """Seeded token ids (no tokenizer files) with right padding; the first
+    row full."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(5, V, size=(B, L))
+    lens = rng.integers(2, L + 1, size=B)
+    lens[0] = L
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    ids = np.where(mask > 0, ids, pad_id)
+    return {"input_ids": torch.from_numpy(ids).to(device),
+            "attention_mask": torch.from_numpy(mask).to(device)}
+
+
+def _minmax_atol(raw, rel, scale):
+    """The ensemble scores' tolerance: a raw-score error of `rel` max|s|
+    becomes 2 rel max|s| / range after a row's min-max, averaged over the
+    teachers, times the score scale."""
+    per = [2 * rel * np.abs(s).max(1) / (s.max(1) - s.min(1)) for s in raw]
+    return scale * np.mean(per, axis=0)[:, None]
+
+
+@pytest.mark.parametrize("in_batch", [False, True], ids=["grouped", "in_batch"])
+def test_teacher_reps_and_ensemble_scores_on_the_card_equal_the_cpu(cuda, in_batch):
+    """Two sparse teachers (the ingest kernel) and a dense one, built from
+    the same seeds on both devices: reps within bf16 rounding (3e-2), and
+    the ensemble's fp32 scores within that carried through the min-max."""
+    from opensearch_sparse_model_tuning_sample_torch.train import teachers as tt
+
+    kinds = (("sparse", "cls"), ("sparse", "cls"), ("dense", "mean"))
+    ens = {dev: tt.TeacherEnsemble(
+        [tt.build_teacher(k, "mini", seed=10 + i, pooling=p, device=dev)
+         for i, (k, p) in enumerate(kinds)], use_in_batch_negatives=in_batch)
+        for dev in ("cpu", cuda)}
+    B, G = 6, 3
+    feats = {dev: ([_teacher_feats(30522, B, 32, seed=i, device=dev) for i in range(3)],
+                   [_teacher_feats(30522, B * G, 64, seed=9 + i, device=dev) for i in range(3)])
+             for dev in ("cpu", cuda)}
+    raw = []
+    for i, (t_cpu, t_card) in enumerate(zip(ens["cpu"].teachers, ens[cuda].teachers)):
+        reps = {}
+        for dev, t in (("cpu", t_cpu), (cuda, t_card)):
+            reps[dev] = [tt.teacher_rep(t, f[i]).cpu().double().numpy() for f in feats[dev]]
+        for got, want in zip(reps[cuda], reps["cpu"]):
+            np.testing.assert_allclose(got, want, atol=3e-2, rtol=3e-2)
+        q, d = reps["cpu"]
+        raw.append(q @ d.T if in_batch else np.einsum("bgv,bv->bg", d.reshape(B, G, -1), q))
+    got = ens[cuda].get_scores(*feats[cuda]).cpu().numpy()
+    want = ens["cpu"].get_scores(*feats["cpu"]).numpy()
+    assert got.shape == want.shape == ((B, B * G) if in_batch else (B, G))
+    assert (np.abs(got - want) <= _minmax_atol(raw, 3e-2, 30.0)).all()
+
+
+def test_teacher_forward_launches_the_ingest_kernel_only(cuda):
+    """A sparse teacher's forward, even with grad mode on as in a train
+    step, launches the ingest kernel once and no training kernel or plain
+    version; its output carries no graph."""
+    from opensearch_sparse_model_tuning_sample_torch.train import teachers as tt
+
+    t = tt.build_teacher("sparse", "mini", seed=3, device=cuda)
+    assert not any(p.requires_grad for p in t.bert.parameters()) and not t.bert.training
+    kernels = (maxpool_head, mp.maxpool_head_argmax, mp.maxpool_head_bwd_w, mp.maxpool_head_bwd_h,
+               mp.maxpool_head_bwd_buckets)
+    plains = (maxpool_head_reference, mp.maxpool_head_argmax_reference,
+              mp.maxpool_head_bwd_w_reference, mp.maxpool_head_bwd_h_reference,
+              mp.bucket_by_argmax_reference)
+    before = [f.launches for f in kernels] + [f.calls for f in plains]
+    with torch.enable_grad():
+        rep = tt.teacher_rep(t, _teacher_feats(30522, 12, 64, seed=1, device=cuda))
+    torch.cuda.synchronize()
+    after = [f.launches for f in kernels] + [f.calls for f in plains]
+    assert [a - b for a, b in zip(after, before)] == [1] + [0] * 9
+    assert not rep.requires_grad and rep.grad_fn is None
+
+
+@pytest.mark.parametrize("layout", ["roberta", "distilbert"])
+def test_roberta_and_distilbert_teachers_on_the_card_equal_the_cpu(cuda, layout, tmp_path):
+    """A checkpoint of each layout written by the port's save_checkpoint
+    from seeded weights and loaded back: sparse reps (RoBERTa's vocab
+    50 265 padded to 50 304 through the ingest kernel) and dense reps on
+    the card within bf16 rounding (3e-2) of the CPU's."""
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+    from opensearch_sparse_model_tuning_sample_torch.models import hf_import
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.models.tokenizer import load_tokenizer
+    from opensearch_sparse_model_tuning_sample_torch.ops.activations import special_token_mask
+    from opensearch_sparse_model_tuning_sample_torch.train import teachers as tt
+
+    layouts = {
+        "roberta": dict(model_type="roberta", vocab_size=50265, position_style="from_pad_offset",
+                        head_act="gelu", max_position_embeddings=514, type_vocab_size=1,
+                        pad_token_id=1, layer_norm_eps=1e-5),
+        "distilbert": dict(model_type="distilbert", vocab_size=30522, use_token_type=False,
+                           type_vocab_size=1),
+    }
+    cfg = tbert.config_from_preset("tiny", **layouts[layout])
+    model = tse.SparseEncoderModel(cfg, tbert.from_state_dict(cfg, tbert.init_state_dict(cfg, 4),
+                                                              torch.device("cpu")),
+                                   torch.ones(cfg.vocab_size), load_tokenizer(None))
+    hf_import.save_checkpoint(model, str(tmp_path))
+    cfg2, sd, _ = hf_import.load_checkpoint(str(tmp_path))
+    assert cfg2.model_type == layout and cfg2.padded_vocab_size == cfg.padded_vocab_size
+    reps = {}
+    for dev in ("cpu", cuda):
+        bert = tbert.from_state_dict(cfg2, sd, torch.device(dev)).requires_grad_(False)
+        smask = special_token_mask([0, 1, 2], cfg2.vocab_size, torch.device(dev))
+        f = _teacher_feats(cfg2.vocab_size, 8, 64, seed=5, device=dev, pad_id=cfg2.pad_token_id)
+        reps[dev] = [tt.sparse_teacher_rep(bert, smask, f["input_ids"], f["attention_mask"])]
+        reps[dev] += [tt.dense_teacher_rep(bert, f["input_ids"], f["attention_mask"], pooling=p)
+                      for p in ("cls", "mean")]
+    for got, want in zip(reps[cuda], reps["cpu"]):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-2, rtol=3e-2)

@@ -37,7 +37,8 @@ def test_port_has_the_slice_modules():
                  "ops.activations", "index.engine", "index.inverted", "eval.beir",
                  "cli.evaluate_beir", "ops.losses", "ops.flops", "data.datasets",
                  "data.collator", "data.loader", "train.trainer", "cli.train_ir",
-                 "mine.hard_negatives", "cli.mine", "cli.serve", "cli.search"):
+                 "mine.hard_negatives", "cli.mine", "cli.serve", "cli.search",
+                 "train.teachers", "train.embedding_store", "cli.make_kd_scores"):
         assert f"{port.__name__}.{name}" in mods, name
 
 
@@ -106,10 +107,13 @@ def test_cpu_only_on_request():
 
 def test_build_model_raises_without_a_card(monkeypatch):
     from opensearch_sparse_model_tuning_sample_torch.models.sparse_encoder import build_model
+    from opensearch_sparse_model_tuning_sample_torch.train.teachers import build_ensemble
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(arch="tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_ensemble({"types": ["sparse"], "model_ids": ["tiny"]}, False)
 
 
 @pytest.mark.parametrize("argv,expect", [
@@ -143,13 +147,15 @@ def _tiny_index(path):
     return str(path)
 
 
-@pytest.mark.parametrize("cli", ["serve", "search"])
+@pytest.mark.parametrize("cli", ["serve", "search", "make_kd_scores"])
 def test_serving_clis_raise_without_a_card(tmp_path, monkeypatch, cli):
     import importlib
 
     main = importlib.import_module(f"{port.__name__}.cli.{cli}").main
-    argv = (["--index", f"x={tmp_path}"] if cli == "serve"
-            else ["--index", str(tmp_path), "--queries", str(tmp_path / "q.txt")])
+    argv = {"serve": ["--index", f"x={tmp_path}"],
+            "search": ["--index", str(tmp_path), "--queries", str(tmp_path / "q.txt")],
+            "make_kd_scores": ["--posnegs", str(tmp_path), "--teacher", "tiny",
+                               "--out", str(tmp_path / "kd")]}[cli]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)

@@ -150,11 +150,27 @@ def test_partial_shuffle_and_pad_feat_match_jax():
 
 @pytest.mark.parametrize("what", ["kd-ids", "teachers"])
 def test_teacher_features_wait_for_their_roadmap_item(toks, what):
-    with pytest.raises(NotImplementedError, match="KD teachers"):
-        if what == "kd-ids":
-            tcol.build_collator("kd-ids", toks[1], 64)
+    """The kd-ids rows and a native teacher's features (its own tokenizer,
+    at the batch's shared bucket) give JAX's batches; the remote and host
+    teachers' features are held in tests/test_torch_kd_data.py."""
+    rows = _kd_rows(6, seed=8)
+    for i, r in enumerate(rows):
+        r.update(first_rank=1, q_id=i, d_ids=list(range(10 * i, 10 * i + 6)))
+    kind, tids = ("kd-ids", ()) if what == "kd-ids" else ("kd", ("bert-base-uncased",))
+    batches = []
+    for ds, col, tok in ((jds, jcol, toks[0]), (tds, tcol, toks[1])):
+        data = ds.DATASET_CLS_MAP[kind](rows, sample_num=3)
+        c = col.build_collator(kind, tok, 128, teacher_tokenizer_ids=tids,
+                               seq_buckets=[32, 64, 128])
+        batches.append(c([data[i] for i in range(4)]))
+    jb, tb = batches
+    assert tb.keys() == jb.keys()
+    assert ("teacher_q" in tb) == (what == "teachers") and "scores" in tb
+    for k in tb:
+        if k.startswith("teacher"):  # one feature dict per teacher
+            _same_batches(tb[k], jb[k])
         else:
-            tcol.build_collator("kd", toks[1], 64, teacher_tokenizer_ids=["1"])
+            _same_batches([{k: tb[k]}], [{k: jb[k]}])
 
 
 def test_loader_hands_worker_errors_to_the_consumer():
