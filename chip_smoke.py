@@ -25,12 +25,18 @@ knowledge distillation: the `config_kd_synthetic` recipe through
 checkpoint-25, scored in each step by the ingest kernel), `cli.make_kd_scores`
 over 512 mined rows, the `config_l0_synthetic` recipe on its output and
 `cli.evaluate_beir` of that, and RoBERTa- and DistilBERT-layout teachers
-on the card against the CPU. It checks
+on the card against the CPU; then the multi-process launch: `cli.train_ir`
+under `torchrun` at world size 1 on NCCL (held to the main path's run within
+the run-to-run spread of two one-process runs), two `cli.evaluate_beir` ranks
+and two `cli.mine` ranks on the one card (no process group: the filesystem
+is their barrier; merged by rank 0 and held to the main path's evaluation
+and mining), and `cli.prepare_msmarco` on a fixture made from the mined rows
+with kd training on its output under `torchrun`. It checks
 what comes out, that every kernel of each path ran (launch counts, read
 around each path) and that no plain version did, and that one whole train
 step's gradients with the kernels equal those with the plain head. Any
 failed check exits non-zero. The last lines of output are the `serve:`,
-`inverted eval:` and `distill:` lines, the `kernels` JSON line, the card's name and power
+`inverted eval:`, `distill:` and `distributed:` lines, the `kernels` JSON line, the card's name and power
 limit, and `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
@@ -1038,9 +1044,9 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
     if ens is not None:
         get_scores = ens.get_scores
 
-        def annotated(*args):
+        def annotated(*args, **kwargs):
             with record_function("kd_teacher_scores"):
-                return get_scores(*args)
+                return get_scores(*args, **kwargs)
 
         ens.get_scores = annotated
     torch.cuda.synchronize()
@@ -1904,6 +1910,420 @@ def phase_distill(dev, path, n_docs):
     return {"kd": kd, "kd_data": kd_data, "l0": l0, "layouts": layouts,
             "seconds": time.time() - t0}
 
+# step 11, the multi-process launch: 11a torchrun at world 1 on NCCL, 11b two
+# cli.evaluate_beir ranks on the one card, 11c two cli.mine ranks, 11d the
+# data CLIs and kd training under torchrun. NCCL refuses two ranks on one
+# card, so 11b and 11c use no process group: their barrier is the
+# filesystem, and --device cuda:0 puts both ranks on the card by request.
+DIST = os.path.join(OUT, "dist")
+DIST_TIMEOUT_S = 420
+# 11a is held to the run-to-run spread of three one-process runs (the main
+# path's and two repeats: the largest of their three pairwise differences),
+# times this: a fourth draw of the spread may exceed the three seen
+NOISE_FACTOR = 3.0
+N_REPEATS = 2
+KD_CLI_STEPS, KD_CLI_ROWS = 10, 64
+MOJIBAKE = "café crème brûlée".encode("utf-8").decode("latin1")
+MODULE = "opensearch_sparse_model_tuning_sample_torch.cli"
+
+
+def dist_env(**extra):
+    """The environment of a launched process: this checkout importable, no
+    launch variables but `extra`, one host thread (the card does the work)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+                        "OSSMT_COORDINATOR", "OSSMT_NUM_PROCESSES", "OSSMT_PROCESS_ID")}
+    env.update(PYTHONPATH=HERE + os.pathsep + env.get("PYTHONPATH", ""), OMP_NUM_THREADS="1",
+               **extra)
+    return env
+
+
+class Launched:
+    """The processes of step 11, each logging to its own file; all are
+    stopped at the end, whatever happened."""
+
+    def __init__(self):
+        self.procs = {}
+
+    def start(self, name, cmd, cwd, env):
+        os.makedirs(cwd, exist_ok=True)
+        log = open(os.path.join(DIST, f"{name}.log"), "w")
+        self.procs[name] = (subprocess.Popen(cmd, cwd=cwd, env=env, stdout=log,
+                                             stderr=subprocess.STDOUT), log, time.time())
+
+    def wait(self, name):
+        """Wait for `name`; its exit code must be 0. Returns (log text, s)."""
+        p, log, t0 = self.procs[name]
+        try:
+            rc = p.wait(timeout=max(1.0, t0 + DIST_TIMEOUT_S - time.time()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        seconds = time.time() - t0
+        log.close()
+        text = open(os.path.join(DIST, f"{name}.log")).read()
+        if rc != 0:
+            print(text[-4000:], flush=True)
+        check(rc == 0, f"{name} exited {rc} after {seconds:.1f} s")
+        return text, seconds
+
+    def stop(self):
+        for p, log, _ in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+
+def logged_counts(text, rank):
+    """The `rank r launch counts: {...}` line a CLI logs when it ends."""
+    m = re.search(rf"rank {rank} launch counts: (\{{.*\}})", text)
+    check(m is not None, f"rank {rank} logged its launch counts")
+    return json.loads(m.group(1))
+
+
+def dist_recipe(path, name, **over):
+    """The main path's recipe with `over`, written as OUT/dist/<name>.yaml."""
+    import yaml
+
+    cfg = dict(path["cfg"], **over)
+    p = os.path.join(DIST, f"{name}.yaml")
+    with open(p, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return p, cfg
+
+
+def torchrun_cmd(yaml_path):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+            "-m", f"{MODULE}.train_ir", yaml_path]
+
+
+def checkpoint_diff(a, b):
+    """Max |w_a - w_b| over every tensor of two checkpoints, and max |w_a|."""
+    from opensearch_sparse_model_tuning_sample_torch.models import hf_import
+
+    _, sa, _ = hf_import.load_checkpoint(a)
+    _, sb, _ = hf_import.load_checkpoint(b)
+    check(sorted(sa) == sorted(sb), f"{a} and {b} hold the same tensors")
+    diff = max(float((sa[k].float() - sb[k].float()).abs().max()) for k in sa)
+    return diff, max(float(sa[k].float().abs().max()) for k in sa)
+
+
+def ranking_losses(history, steps):
+    by_step = {h["step"]: h["ranking_loss"] for h in history}
+    check(all(s in by_step for s in steps), f"logged at steps {steps}")
+    return [by_step[s] for s in steps]
+
+
+def check_train_summary(summary, steps, gathers_per_step, what):
+    """A torchrun run's run_summary.json: NCCL at world size 1, the gather
+    and the gradient sum every step, each training kernel once a step, no
+    plain version."""
+    check(summary["backend"] == "nccl" and summary["world_size"] == 1
+          and summary["device"] == "cuda:0", f"{what}: NCCL, world 1, cuda:0 ({summary['backend']}, "
+          f"{summary['world_size']}, {summary['device']})")
+    check(summary["steps"] == steps, f"{what}: {summary['steps']} steps")
+    check(summary["collectives"] == {"all_gather_batch": gathers_per_step * steps,
+                                     "all_reduce_grads": steps},
+          f"{what}: the gather and the gradient sum ran every step: {summary['collectives']}")
+    for k in STUDENT_KERNELS:
+        check(summary["kernels"][k] == steps, f"{what}: {k} launched once a step "
+              f"({summary['kernels'][k]})")
+    check(not any(summary["plains"].values()), f"{what}: no plain version ran: "
+          f"{summary['plains']}")
+
+
+def mined_rows(path):
+    import datasets as hfds
+
+    return [dict(r) for r in hfds.Dataset.load_from_disk(path)]
+
+
+def mining_diff(got, want, enc):
+    """Rows of two minings as multisets of (query, pos, sorted negs). Rows
+    that differ must differ only at a score tie: every neg in one row and
+    not the other scores the row's cut-off (the lowest neg score), scored
+    as the lexical index scores it (fp32 query, bf16 doc weights; every
+    text encoded once, in batches)."""
+    from collections import Counter, defaultdict
+
+    def groups(rows):
+        g = defaultdict(Counter)
+        for r in rows:
+            g[(r["query"], r["pos"])][tuple(sorted(r["negs"]))] += 1
+        return g
+
+    g_got, g_want = groups(got), groups(want)
+    check(set(g_got) == set(g_want), "the same (query, pos) rows")
+    pairs = []  # (query, negs of one, negs of the other)
+    for key in g_want:
+        if g_got[key] == g_want[key]:
+            continue
+        a, b = sorted(g_got[key].elements()), sorted(g_want[key].elements())
+        check(len(a) == len(b), f"{key[0]!r}: as many rows")
+        pairs += [(key[0], x, y) for x, y in zip(a, b) if x != y]
+    if not pairs:
+        return 0, 0.0
+
+    def reps(texts, dtype):
+        out = [enc.encode_batch_device(texts[i:i + 256], inf_free=True).to(dtype)
+               for i in range(0, len(texts), 256)]
+        return {t: i for i, t in enumerate(texts)}, torch.cat(out)
+
+    q_pos, q_rep = reps(sorted({q for q, _, _ in pairs}), torch.float32)
+    d_pos, d_rep = reps(sorted({t for _, x, y in pairs for t in x + y}), torch.bfloat16)
+    worst = 0.0
+    for q, negs_a, negs_b in pairs:
+        texts = sorted(set(negs_a) | set(negs_b))
+        s = (d_rep[[d_pos[t] for t in texts]].float() @ q_rep[q_pos[q]]).tolist()
+        score = dict(zip(texts, s))
+        cut = max(min(score[t] for t in negs_a), min(score[t] for t in negs_b))
+        for t in set(negs_a) ^ set(negs_b):
+            err = abs(score[t] - cut) / max(abs(cut), 1e-6)
+            worst = max(worst, err)
+            check(err <= 1e-5, f"{q!r}: a differing neg scores {score[t]:.6g}, the cut-off "
+                  f"{cut:.6g}: not a tie")
+    return len(pairs), worst
+
+
+def kd_fixture(path, root):
+    """An id-based hard-negative set from the main path's mined rows (the
+    first KD_CLI_ROWS: the positive and 7 negatives, seeded decreasing
+    scores, a first_rank column) as a `save_to_disk` dir, and a BEIR-format
+    msmarco dir with their texts, one of them in mojibake."""
+    import datasets as hfds
+
+    rows = mined_rows(os.path.join(OUT, path["cfg"]["train_file"]))[:KD_CLI_ROWS]
+    rng = np.random.default_rng(0)
+    doc_ids, q_ids, hn = {}, {}, []
+    for i, r in enumerate(rows):
+        q_ids.setdefault(r["query"], f"q{len(q_ids)}")
+        docs = [r["pos"]] + list(r["negs"][:7])
+        for t in docs:
+            doc_ids.setdefault(t, f"p{len(doc_ids)}")
+        hn.append({"query": q_ids[r["query"]], "docs": [doc_ids[t] for t in docs],
+                   "scores": sorted(rng.normal(size=len(docs)).astype(float) * 4, reverse=True),
+                   "first_rank": int(rng.integers(0, 100))})
+    fixed = rows[0]["pos"] + " café crème brûlée"
+    texts = {pid: t for t, pid in doc_ids.items()}
+    texts[doc_ids[rows[0]["pos"]]] = fixed.encode("utf-8").decode("latin1")
+    ms = os.path.join(root, "msmarco")
+    os.makedirs(os.path.join(ms, "qrels"), exist_ok=True)
+    with open(os.path.join(ms, "corpus.jsonl"), "w", encoding="utf-8") as f:
+        for pid, t in texts.items():
+            f.write(json.dumps({"_id": pid, "title": "", "text": t}) + "\n")
+    with open(os.path.join(ms, "queries.jsonl"), "w", encoding="utf-8") as f:
+        for t, qid in q_ids.items():
+            f.write(json.dumps({"_id": qid, "text": t}) + "\n")
+    with open(os.path.join(ms, "qrels", "train.tsv"), "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n")
+        for h in hn:
+            f.write(f"{h['query']}\t{h['docs'][0]}\t1\n")
+    hfds.Dataset.from_list(hn).save_to_disk(os.path.join(root, "hard_negatives"))
+    return ms, os.path.join(root, "hard_negatives"), fixed, len(hn)
+
+
+def phase_distributed(dev, path, n_docs, test_split):
+    """Step 11: the multi-process launch. The launched processes run at
+    once (the card has room for all five); the noise floor of 11a runs in
+    this process meanwhile."""
+    import datasets as hfds
+
+    from opensearch_sparse_model_tuning_sample_torch.cli import prepare_msmarco, train_ir
+    from opensearch_sparse_model_tuning_sample_torch.eval import trec_eval
+    from opensearch_sparse_model_tuning_sample_torch.eval.beir import search as beir_search
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import SparseIndex
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+
+    t_phase = time.time()
+    shutil.rmtree(DIST, ignore_errors=True)
+    os.makedirs(DIST)
+    ckpt, cfg = path["ckpt"], path["cfg"]
+    name = cfg["beir_datasets"].lower()
+    # both ranks on the one card by request; torchrun's device from LOCAL_RANK
+    rank_dev, run_dev = ("cuda:0", "cuda") if dev.type == "cuda" else ("cpu", "cpu")
+    train_file = os.path.join(OUT, cfg["train_file"])
+    run = Launched()
+    try:
+        # 11c first (the longest: each rank makes the train split on the host)
+        mine_cwd = [os.path.join(DIST, f"mine_rank{r}") for r in range(2)]
+        for r in range(2):
+            run.start(f"mine_rank{r}", [sys.executable, "-m", f"{MODULE}.mine", path["path"],
+                                        "--device", rank_dev, "--output_dir",
+                                        os.path.join(DIST, "mine_out")],
+                      mine_cwd[r], dist_env(RANK=str(r), WORLD_SIZE="2"))
+        # 11b
+        eval_out = os.path.join(DIST, "eval")
+        for r in range(2):
+            run.start(f"eval_rank{r}", [sys.executable, "-m", f"{MODULE}.evaluate_beir",
+                                        path["path"], "--device", rank_dev, "--output_dir",
+                                        eval_out, "--model_name_or_path", ckpt,
+                                        "--tokenizer_name", ckpt],
+                      DIST, dist_env(RANK=str(r), WORLD_SIZE="2",
+                                     METRICS_DIR=os.path.join(DIST, "metrics")))
+        # 11a: the main path's recipe and data; the device from LOCAL_RANK
+        a_yaml, a_cfg = dist_recipe(path, "torchrun", device=run_dev, train_file=train_file,
+                                    save_steps=TRAIN_STEPS,
+                                    output_dir=os.path.join(DIST, "torchrun"))
+        run.start("torchrun", torchrun_cmd(a_yaml), DIST, dist_env())
+        # 11d: the data CLIs, then kd training on their output under torchrun
+        root = os.path.join(DIST, "kd_cli")
+        ms, hn, fixed, n_rows = kd_fixture(path, root)
+        t0 = time.time()
+        prep_rows = prepare_msmarco.main(["--hard-negatives", hn, "--msmarco-dir", ms,
+                                          "--out", os.path.join(root, "msmarco_ft")])
+        prep_s = time.time() - t0
+        check(len(prep_rows) == n_rows and fixed in prep_rows[0]["docs"]
+              and not any(MOJIBAKE in d for r in prep_rows for d in r["docs"]),
+              "cli.prepare_msmarco joined the texts and repaired the mojibake")
+        d_yaml, d_cfg = dist_recipe(
+            path, "kd_cli", device=run_dev, data_type="kd", loss_types=["kldiv"],
+            use_in_batch_negatives=False, sample_num_one_query=2, first_rank_thresh=80,
+            train_file=os.path.join(root, "msmarco_ft"), max_steps=KD_CLI_STEPS, warmup_steps=2,
+            logging_steps=1, save_steps=KD_CLI_STEPS, output_dir=os.path.join(DIST, "kd_train"))
+        run.start("kd_torchrun", torchrun_cmd(d_yaml), DIST, dist_env())
+
+        # the noise floor: the main path's run again, twice, in this process
+        t0 = time.time()
+        repeats = []
+        for i in range(N_REPEATS):
+            r_yaml, r_cfg = dist_recipe(path, f"repeat{i}", train_file=train_file,
+                                        save_steps=TRAIN_STEPS,
+                                        output_dir=os.path.join(DIST, f"repeat{i}"))
+            repeats.append((train_ir.main(r_yaml).log_history,
+                            os.path.join(r_cfg["output_dir"], f"checkpoint-{TRAIN_STEPS}")))
+        repeat_s = time.time() - t0
+        waited = {proc: run.wait(proc) for proc in
+                  ("torchrun", "kd_torchrun", "eval_rank0", "eval_rank1", "mine_rank0",
+                   "mine_rank1")}
+    finally:
+        run.stop()
+    wall_s = time.time() - t_phase
+    out = {"seconds_by_process": {k: v[1] for k, v in waited.items()},
+           "prepare_msmarco_s": prep_s, "repeat_train_s": repeat_s}
+
+    # 11a against the main path, within the run-to-run spread
+    steps = [1, TRAIN_STEPS]
+    summary = json.load(open(os.path.join(a_cfg["output_dir"], "run_summary.json")))
+    check_train_summary(summary, TRAIN_STEPS, 2, "11a torchrun")
+    runs = [(path["trainer"].log_history, ckpt)] + repeats  # the one-process runs
+    losses = [ranking_losses(h, steps) for h, _ in runs]
+    main_loss, rep_loss = losses[0], losses[1:]
+    dist_loss = ranking_losses(summary["log_history"], steps)
+    pairs = [(i, j) for i in range(len(runs)) for j in range(i + 1, len(runs))]
+    floor_loss = max(max(abs(a - b) for a, b in zip(losses[i], losses[j])) for i, j in pairs)
+    floor_w = max(checkpoint_diff(runs[i][1], runs[j][1])[0] for i, j in pairs)
+    dist_loss_d = max(abs(a - b) for a, b in zip(dist_loss, main_loss))
+    dist_w, w_max = checkpoint_diff(
+        os.path.join(a_cfg["output_dir"], f"checkpoint-{TRAIN_STEPS}"), ckpt)
+    out["11a"] = {"ranking_loss": {"main": main_loss, "repeats": rep_loss, "torchrun": dist_loss},
+                  "noise_floor": {"loss": floor_loss, "weights": floor_w},
+                  "torchrun_diff": {"loss": dist_loss_d, "weights": dist_w}, "w_max": w_max,
+                  "collectives": summary["collectives"], "kernels": summary["kernels"]}
+    print(f"11a torchrun (NCCL, world 1, cuda:0 from LOCAL_RANK): {TRAIN_STEPS} steps; ranking "
+          f"loss at steps {steps} {dist_loss} against the main path's {main_loss} (repeats "
+          f"{rep_loss}); |diff| {dist_loss_d:.3g} against the noise floor {floor_loss:.3g}; "
+          f"checkpoint-{TRAIN_STEPS} max |diff| {dist_w:.3g} against the floor {floor_w:.3g} "
+          f"(max |w| {w_max:.3g}); collectives {summary['collectives']}; kernels "
+          f"{summary['kernels']}", flush=True)
+    check(dist_loss_d <= NOISE_FACTOR * floor_loss,
+          f"11a ranking loss within {NOISE_FACTOR:g} x the noise floor")
+    check(dist_w <= NOISE_FACTOR * floor_w,
+          f"11a checkpoint weights within {NOISE_FACTOR:g} x the noise floor")
+
+    # 11b: two ranks' ingest, merged by rank 0, against the main path's eval
+    texts = [waited[f"eval_rank{r}"][0] for r in range(2)]
+    counts = [logged_counts(t, r) for r, t in enumerate(texts)]
+    per_rank = [-(-len(range(r, n_docs, 2)) // cfg["per_device_eval_batch_size"])
+                for r in range(2)]
+    for r in range(2):
+        k = counts[r]["kernels"]["maxpool_head"]
+        check(per_rank[r] <= k <= 1.1 * per_rank[r],
+              f"11b rank {r}: the ingest kernel for each of its {per_rank[r]} batches ({k})")
+        check(not any(counts[r]["plains"].values()), f"11b rank {r}: no plain version")
+    eval_dir = os.path.join(eval_out, "beir_eval")
+    avg = json.load(open(os.path.join(eval_dir, "avg_res.json")))
+    merged = SparseIndex.load(os.path.join(eval_dir, f"{name}.index"), device=dev)
+    corpus, queries, qrels = test_split
+    check(merged.n_docs == n_docs and sorted(merged.doc_ids) == sorted(corpus),
+          f"11b: the merged index holds the corpus's {n_docs} doc ids")
+    single = SparseIndex.load(os.path.join(cfg["output_dir"], "beir_eval", f"{name}.index"),
+                              device=dev)
+    model = se.build_model(model_name_or_path=ckpt, device=dev)
+    k_values = [1, 10, 100]
+    metrics = {}
+    for which, index in (("two_ranks", merged), ("one_process", single)):
+        res = beir_search(queries, model, index, os.path.join(cfg["output_dir"], "beir_eval"),
+                          name, max_length=512, batch_size=50, result_size=100)
+        ndcg, _map, recall, _ = trec_eval.evaluate(qrels, res["run_res"], k_values)
+        metrics[which] = {**ndcg, **_map, **recall}
+    stat_rel = abs(avg["flops"] - path["avg"]["flops"]) / path["avg"]["flops"]
+    d_rel = abs(avg["d_length"] - path["avg"]["d_length"]) / path["avg"]["d_length"]
+    metric_d = max(abs(metrics["two_ranks"][k] - metrics["one_process"][k])
+                   for k in metrics["one_process"])
+    avg_d = max(abs(avg[k] - path["avg"][k]) for k in ("NDCG@10", "Recall@100"))
+    out["11b"] = {"launches": [c["kernels"]["maxpool_head"] for c in counts],
+                  "flops_rel_diff": stat_rel, "d_length_rel_diff": d_rel,
+                  "avg_res_max_diff": avg_d, "metrics_max_diff": metric_d,
+                  "metrics": metrics["two_ranks"], "avg": avg}
+    print(f"11b two cli.evaluate_beir ranks on cuda:0: maxpool_head launches "
+          f"{out['11b']['launches']} (batches {per_rank}), plain 0; merged index {merged.n_docs} "
+          f"docs; FLOPS {avg['flops']:.6f} against {path['avg']['flops']:.6f} (rel "
+          f"{stat_rel:.3g}); NDCG@10/Recall@100 max |diff| {avg_d:.3g}; NDCG, MAP, Recall at "
+          f"{k_values} on the merged index against the one-process index max |diff| "
+          f"{metric_d:.3g}", flush=True)
+    check(stat_rel <= 1e-6 and d_rel <= 1e-6, "11b: the corpus FLOPS statistic equals step 5's")
+    check(avg_d <= 1e-4 and metric_d <= 1e-4, "11b: NDCG, MAP and Recall equal step 5's")
+    del merged, single, model
+    torch.cuda.empty_cache()
+
+    # 11c: two cli.mine ranks against the main path's mining
+    m_texts = [waited[f"mine_rank{r}"][0] for r in range(2)]
+    m_counts = [logged_counts(t, r) for r, t in enumerate(m_texts)]
+    check(not any(c["plains"][k] for c in m_counts for k in c["plains"]),
+          "11c: no plain version ran")
+    check(not os.path.exists(os.path.join(mine_cwd[1], "data")), "11c: rank 1 wrote no rows")
+    got = mined_rows(os.path.join(mine_cwd[0], cfg["train_file"]))
+    want = mined_rows(train_file)
+    check(len(got) == len(want), f"11c: {len(got)} rows, step 5 mined {len(want)}")
+    mine_model = se.build_model(arch=cfg["arch"], idf_path=cfg["idf_path"], device=dev)
+    t0 = time.time()
+    n_diff, tie_err = mining_diff(got, want, se.BatchEncoder(mine_model, max_length=512))
+    tie_s = time.time() - t0
+    out["11c"] = {"rows": len(got), "rows_differing": n_diff, "tie_rel_err": tie_err,
+                  "tie_check_s": tie_s,
+                  "launches": [c["kernels"] for c in m_counts]}
+    print(f"11c two cli.mine ranks on cuda:0: rank 0 wrote {len(got)} rows, rank 1 none; "
+          f"{len(got) - n_diff} equal step 5's as a multiset, {n_diff} differ only at an exact "
+          f"score tie at the cut-off (scores within {tie_err:.3g}: the merged index lists rank "
+          f"0's stripe first, so a tie takes another doc); launches "
+          f"{m_counts[0]['kernels']} / {m_counts[1]['kernels']} (the lexical mining index "
+          f"needs no kernel)", flush=True)
+    del mine_model
+
+    # 11d: the data CLIs and kd training on their rows
+    summary = json.load(open(os.path.join(d_cfg["output_dir"], "run_summary.json")))
+    check_train_summary(summary, KD_CLI_STEPS, 3, "11d kd torchrun")
+    hist = summary["log_history"]
+    check([h["step"] for h in hist] == list(range(1, KD_CLI_STEPS + 1))
+          and all(np.isfinite(v) for h in hist for v in h.values()),
+          "11d: a finite kldiv loss at every step")
+    saved = hfds.Dataset.load_from_disk(os.path.join(root, "msmarco_ft"))
+    check(saved.num_rows == n_rows and "first_rank" in saved.column_names, "11d: the kd rows")
+    out["11d"] = {"rows": n_rows, "log": hist, "collectives": summary["collectives"],
+                  "kernels": summary["kernels"]}
+    print(f"11d cli.prepare_msmarco: {n_rows} rows in {prep_s:.1f} s, mojibake repaired; kd "
+          f"(kldiv on the dataset's scores) under torchrun: {KD_CLI_STEPS} steps, loss "
+          f"{hist[0]['ranking_loss']:.5f} -> {hist[-1]['ranking_loss']:.5f}; collectives "
+          f"{summary['collectives']}; kernels {summary['kernels']}", flush=True)
+    out["seconds"] = time.time() - t_phase
+    out["launch_wall_s"] = wall_s
+    print(f"distributed phase {out['seconds']:.1f} s (launched processes "
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds_by_process"].items())
+          + f"; the {N_REPEATS} repeat runs {repeat_s:.1f} s)", flush=True)
+    return out
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1953,7 +2373,7 @@ def main():
     # tokens); 128 and 512 are the longer buckets; base is D=768. The last
     # row is the eval's own first batch (random-init mini), at real lengths.
     model_args, data_args, training_args = parse_config(model_config(dev))
-    corpus, queries, _ = resolve_dataset("synthetic-rich", data_args.beir_dir)
+    corpus, queries, qrels = resolve_dataset("synthetic-rich", data_args.beir_dir)
     docs = BEIRCorpusDataset(corpus)
     model = se.from_model_args(model_args, seed=training_args.seed, device=dev)
     shapes = [(50, 64, 256, 30592), (50, 128, 256, 30592), (50, 512, 256, 30592),
@@ -2064,6 +2484,10 @@ def main():
     # make_kd_scores, the L0 recipe and its eval, the new layouts
     distill = phase_distill(dev, path, n_docs)
     print(f"distillation phase {distill['seconds']:.1f} s", flush=True)
+
+    # 11. the multi-process launch: torchrun at world 1 on NCCL, two ranks'
+    # eval ingest and mining on the card, the data CLIs
+    dist_out = phase_distributed(dev, path, n_docs, (corpus, queries, qrels))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     main_row = rows[-1]  # the eval's own first batch
@@ -2079,6 +2503,10 @@ def main():
                         / distill["kd"]["steps"],
                         "make_kd_scores": distill["kd_data"]["launches"]["maxpool_head"],
                         "l0_eval": distill["l0"]["eval_launches"]},
+        "dist_launches": {"eval_rank0": dist_out["11b"]["launches"][0],
+                          "eval_rank1": dist_out["11b"]["launches"][1],
+                          "mine_rank0": dist_out["11c"]["launches"][0]["maxpool_head"],
+                          "mine_rank1": dist_out["11c"]["launches"][1]["maxpool_head"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -2119,6 +2547,8 @@ def main():
             "launches_per_train_step": path["train"][0][name] / path["steps"],
             "kd_launches": {"kd": distill["kd"]["launches"][name],
                             "l0": distill["l0"]["launches"][name]},
+            "dist_launches": {"torchrun": dist_out["11a"]["kernels"][name],
+                              "kd_torchrun": dist_out["11d"]["kernels"][name]},
             **({"bucket_ms": r["bucket_ms"]} if "bucket_ms" in r else {}),
             **({"ablation_ms": ablation_argmax} if name.endswith("argmax") else {}),
             "nnz": r["nnz"],
@@ -2131,6 +2561,7 @@ def main():
     print("serve: " + json.dumps(serve_out))
     print("inverted eval: " + json.dumps(inv_eval))
     print("distill: " + json.dumps(distill))
+    print("distributed: " + json.dumps(dist_out))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,18 +7,30 @@ configured BEIR datasets, then every `checkpoint-*` dir on NanoBEIR-style
 small sets. Data comes from local BEIR-format dirs under `beir_dir`
 (zero-egress); `beir_datasets: synthetic` (or `synthetic-rich`) runs a
 built-in synthetic task. Runs on the CUDA card unless `--device cpu`.
+
+Multi-process: under torchrun each process joins the launch's group and
+runs on `cuda:LOCAL_RANK`; without a rendezvous the ranks come from
+RANK/WORLD_SIZE, and `--device cuda:0` puts them on one card (the ingest
+needs no collective). Every rank ingests its corpus stripe and saves a
+shard index; rank 0 merges the shards, searches, and writes the metrics:
+
+    RANK=0 WORLD_SIZE=2 python -m ...cli.evaluate_beir cfg.yaml --device cuda:0 &
+    RANK=1 WORLD_SIZE=2 python -m ...cli.evaluate_beir cfg.yaml --device cuda:0
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import sys
 
+from ..core import distributed
 from ..core.config import parse_config, snapshot_config
 from ..core.device import resolve_device
 from ..eval.beir import eval_suffix, evaluate_datasets, resolve_dataset
 from ..models import sparse_encoder as se
+from ..ops import maxpool
 from ..utils.logging_utils import set_logging
 
 logger = logging.getLogger(__name__)
@@ -68,14 +80,27 @@ def main(config_source=None):
     model_args, data_args, training_args = parse_config(config_source)
     resolve_eval_model(model_args, training_args, config_source, sys.argv[1:])
 
-    suffix = eval_suffix(model_args, data_args)
-    snapshot_config(
-        model_args, data_args, training_args,
-        os.path.join(training_args.output_dir, f"beir_eval_config{suffix}.yaml"),
-    )
-    set_logging(training_args.output_dir, "eval_beir.log", training_args.log_level)
+    device = resolve_device(distributed.process_device(training_args.device))
+    distributed.maybe_init_distributed(device)  # every rank ingests, rank 0 searches
+    try:
+        avg = _evaluate(model_args, data_args, training_args, device)
+        logger.info("rank %d launch counts: %s", distributed.rank(),
+                    json.dumps(maxpool.launch_counts()))
+        return avg
+    finally:
+        distributed.destroy()
 
-    device = resolve_device(training_args.device)
+
+def _evaluate(model_args, data_args, training_args, device):
+    suffix = eval_suffix(model_args, data_args)
+    main_rank = distributed.is_main()
+    if main_rank:
+        snapshot_config(
+            model_args, data_args, training_args,
+            os.path.join(training_args.output_dir, f"beir_eval_config{suffix}.yaml"),
+        )
+    set_logging(training_args.output_dir, "eval_beir.log" if main_rank else None,
+                training_args.log_level)
     model = se.from_model_args(model_args, seed=training_args.seed, device=device)
 
     eval_dir = os.path.join(training_args.output_dir, f"beir_eval{suffix}")

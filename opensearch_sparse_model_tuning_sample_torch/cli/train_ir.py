@@ -1,51 +1,85 @@
 """Training entry point of the PyTorch port:
 
     python -m opensearch_sparse_model_tuning_sample_torch.cli.train_ir cfg.yaml [--device cpu]
+    torchrun --nproc_per_node N -m opensearch_sparse_model_tuning_sample_torch.cli.train_ir cfg.yaml
 
 Reference: train_ir.py:30-150, the same single-YAML interface as the JAX
-package's `cli.train_ir`. One card: the batch is `per_device_train_batch_size`
-x `gradient_accumulation_steps` rows per optimizer step. Runs on the CUDA
-card unless `--device cpu`. `kd_ensemble_teacher_kwargs` builds a teacher
+package's `cli.train_ir`. Runs on the CUDA card unless `--device cpu`.
+Under torchrun (or the JAX package's `tools/launch_dist.py`) each process
+joins the launch's process group (NCCL on the card, gloo on the CPU) and
+trains data-parallel on `cuda:LOCAL_RANK`: the global batch is
+`per_device_train_batch_size` x world size x `gradient_accumulation_steps`
+rows per optimizer step, each rank's loader yields its slice, and `dp_size`
+must be -1 or the world size. `kd_ensemble_teacher_kwargs` builds a teacher
 ensemble that scores each batch inside the step (with an embedding store
-under `store_root` when a teacher is `remote`). Data parallelism
-(`dp_size` > 1) is not ported yet and raises.
+under `store_root` when a teacher is `remote`). Rank 0 writes the log file,
+the config snapshot, the checkpoints and `run_summary.json` (the process
+group, the log history, and the launch counts of the head's kernels and the
+collectives).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import shutil
 import sys
 
+from ..core import distributed
 from ..core.config import parse_config, snapshot_config
 from ..core.device import resolve_device
 from ..data.collator import build_collator
-from ..data.datasets import load_dataset, load_datasets
+from ..data.datasets import HostShardDataset, load_dataset, load_datasets
 from ..data.loader import DataLoader, epochs
 from ..models import sparse_encoder as se
+from ..ops import maxpool
 from ..ops.losses import build_loss_specs
+from ..parallel import collectives
 from ..train.trainer import Trainer
 from ..utils.logging_utils import set_logging
 
 logger = logging.getLogger(__name__)
 
 
-def _check_single_card(training_args):
-    if training_args.dp_size not in (-1, 1):
-        raise NotImplementedError(
-            f"dp_size={training_args.dp_size}: the PyTorch port trains on one card; "
-            "data parallelism is not ported yet (ROADMAP Queue 1: distribution)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "a multi-process launch: the PyTorch port trains in one process; "
-            "distribution is not ported yet (ROADMAP Queue 1: distribution)")
-
-
 def main(config_source=None):
     model_args, data_args, training_args = parse_config(config_source)
-    set_logging(training_args.output_dir, "train.log", training_args.log_level)
-    # config snapshot for reproducibility (reference train_ir.py:33-44)
+    # the process group first: rank 0 alone writes the log file and snapshot
+    device = resolve_device(distributed.process_device(training_args.device))
+    distributed.maybe_init_distributed(device)
+    try:
+        distributed.check_dp_size(training_args.dp_size, distributed.world_size())
+        main_rank = distributed.is_main()
+        set_logging(training_args.output_dir, "train.log" if main_rank else None,
+                    training_args.log_level)
+        if main_rank:
+            _snapshot(config_source, model_args, data_args, training_args)
+
+        # precomputed-embedding store for "remote" teachers (reference
+        # train_ir.py:50-57); its prefetch pool is shut down when the run ends
+        embedding_store = None
+        kd_kwargs = data_args.kd_ensemble_teacher_kwargs
+        if kd_kwargs and "remote" in kd_kwargs.get("types", []):
+            from ..train.embedding_store import EmbeddingStore, LocalVectorStore
+
+            store_root = kd_kwargs.get("store_root", "data/embedding_store")
+            embedding_store = EmbeddingStore(LocalVectorStore(store_root))
+            logger.info("embedding store ready at %s", store_root)
+        try:
+            trainer = _train(model_args, data_args, training_args, kd_kwargs,
+                             embedding_store, device)
+        finally:
+            if embedding_store is not None:
+                embedding_store.shutdown()
+        if main_rank:
+            _write_summary(trainer, training_args.output_dir)
+        return trainer
+    finally:
+        distributed.destroy()
+
+
+def _snapshot(config_source, model_args, data_args, training_args):
+    """The config snapshot for reproducibility (reference train_ir.py:33-44)."""
     argv_yaml = (config_source is None and len(sys.argv) == 2
                  and sys.argv[1].endswith((".yaml", ".yml")))
     if isinstance(config_source, str) or argv_yaml:
@@ -54,27 +88,22 @@ def main(config_source=None):
     else:
         snapshot_config(model_args, data_args, training_args,
                         os.path.join(training_args.output_dir, "config.yaml"))
-    _check_single_card(training_args)
-
-    # precomputed-embedding store for "remote" teachers (reference
-    # train_ir.py:50-57); its prefetch pool is shut down when the run ends
-    embedding_store = None
-    kd_kwargs = data_args.kd_ensemble_teacher_kwargs
-    if kd_kwargs and "remote" in kd_kwargs.get("types", []):
-        from ..train.embedding_store import EmbeddingStore, LocalVectorStore
-
-        store_root = kd_kwargs.get("store_root", "data/embedding_store")
-        embedding_store = EmbeddingStore(LocalVectorStore(store_root))
-        logger.info("embedding store ready at %s", store_root)
-    try:
-        return _train(model_args, data_args, training_args, kd_kwargs, embedding_store)
-    finally:
-        if embedding_store is not None:
-            embedding_store.shutdown()
 
 
-def _train(model_args, data_args, training_args, kd_kwargs, embedding_store):
-    device = resolve_device(training_args.device)
+def _write_summary(trainer, output_dir):
+    """`run_summary.json`: the process group, the steps and log history, and
+    this process's launch counts of the head's kernels, their plain versions
+    and the collectives."""
+    summary = {"backend": distributed.backend(), "world_size": distributed.world_size(),
+               "device": str(trainer.device), "steps": trainer.step,
+               "log_history": trainer.log_history, **maxpool.launch_counts(),
+               "collectives": collectives.counts()}
+    with open(os.path.join(output_dir, "run_summary.json"), "w") as f:
+        json.dump(summary, f)
+
+
+def _train(model_args, data_args, training_args, kd_kwargs, embedding_store, device):
+    rank, world = distributed.rank(), distributed.world_size()
     model = se.from_model_args(model_args, seed=training_args.seed, device=device)
     logger.info("model: %s hidden=%d layers=%d vocab=%d on %s",
                 model_args.model_name_or_path or model_args.arch, model.cfg.hidden_size,
@@ -99,9 +128,12 @@ def _train(model_args, data_args, training_args, kd_kwargs, embedding_store):
     logger.info("losses: %s", loss_specs)
 
     # one loader batch per optimizer step: with gradient accumulation the
-    # trainer splits it into A microbatches (HF effective batch semantics)
+    # trainer splits it into A microbatches (HF effective batch semantics:
+    # per_device x world x A rows an update). The loader yields this rank's
+    # slice; the trainer gathers the global batch's reps.
     batch_size = training_args.per_device_train_batch_size * max(
         1, training_args.gradient_accumulation_steps)
+    logger.info("global batch %d rows an update over %d process(es)", batch_size * world, world)
     ds_kwargs = dict(
         swap_times=data_args.swap_times,
         sample_num_one_query=data_args.sample_num_one_query,
@@ -111,8 +143,13 @@ def _train(model_args, data_args, training_args, kd_kwargs, embedding_store):
     )
     if data_args.train_file is not None:
         dataset = load_dataset(data_args.train_file, data_args.data_type, **ds_kwargs)
+        if world > 1:
+            # equal shards, so the ranks agree on batch counts (unequal counts
+            # hang a collective; reference DDPDatasetWithRank)
+            dataset = HostShardDataset(dataset, rank, world, drop=True)
     elif data_args.train_file_dir is not None:
-        dataset = load_datasets(data_args.train_file_dir, data_args.data_type, **ds_kwargs)
+        dataset = load_datasets(data_args.train_file_dir, data_args.data_type,
+                                rank=rank, world_size=world, **ds_kwargs)
     else:
         raise ValueError("train_file or train_file_dir must be specified")
 

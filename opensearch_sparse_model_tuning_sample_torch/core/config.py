@@ -205,8 +205,9 @@ class TrainingArguments:
     # Device the port runs on: "cuda" (the default; raises without a card)
     # or "cpu" on request (`--device cpu`). See core/device.py.
     device: str = "cuda"
-    # Data-parallel mesh size of the JAX package; the port trains on one card
-    # and raises on a dp_size above 1 (distribution is not ported yet).
+    # Data-parallel mesh size of the JAX package. The port runs one process
+    # per card (torchrun), so this is -1 or the launch's WORLD_SIZE; any other
+    # value raises (core/distributed.py::check_dp_size).
     dp_size: int = -1
     donate_state: bool = True
     profile_dir: Optional[str] = None

@@ -3,9 +3,10 @@
 The PyTorch port's copy of the JAX package's `data/datasets.py` (reference
 dataset.py): the corpus views the eval path uses, the posnegs, KD and
 KD-with-ids training datasets (strided KD group sampling :193-196, partial_shuffle
-:22-40, the first_rank filter :174-179, posnegs chunking :329-358), the
-modulo host shard (:124-148) and the combined multi-dataset batching
-(:389-444). Every class is a plain indexable sequence and all randomness is
+:22-40, the first_rank filter :174-179, posnegs chunking :329-358), MS MARCO
+KD with its mojibake repair (:287-326), the MIRACL corpus and training rows
+(:101-121, :361-386), the modulo host shard (:124-148) and the combined
+multi-dataset batching (:389-444). Every class is a plain indexable sequence and all randomness is
 numpy, seeded, so the same rows and seed give the same batches in both
 packages.
 
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -146,6 +147,46 @@ class KnowledgeDistillIdsDataset(KnowledgeDistillDataset):
         return row["query"], row["q_id"], docs, d_ids, scores
 
 
+class MsMarcoKDDataset(KnowledgeDistillDataset):
+    """MS MARCO KD: a {qid: {doc_id, score}} score dict joined with corpus
+    and query text (reference dataset.py:287-326), with the latin1 -> utf-8
+    mojibake repair. Zero egress: the corpus and queries must be given (the
+    reference downloads BEIR msmarco when they are absent)."""
+
+    @staticmethod
+    def transform_str(s: str) -> str:
+        """Text that was utf-8 decoded as latin1, decoded right; any other
+        text as it is."""
+        try:
+            return s.encode("latin1").decode("utf-8")
+        except (UnicodeEncodeError, UnicodeDecodeError):
+            return s
+
+    def __init__(self, score_dic_path, corpus=None, queries=None, sample_num=2, **kw):
+        import json
+
+        if corpus is None or queries is None:
+            raise ValueError(
+                "MsMarcoKDDataset needs a local corpus and queries (zero egress; "
+                "the reference downloads BEIR msmarco here)")
+        with open(score_dic_path) as f:
+            score_dic = json.load(f)
+        # each referenced doc repaired once (the reference transforms the
+        # corpus up front, dataset.py:300-304)
+        fixed: Dict[str, str] = {}
+
+        def doc_text(d):
+            t = fixed.get(d)
+            if t is None:
+                raw = corpus[d]["text"] if isinstance(corpus[d], dict) else corpus[d]
+                t = fixed[d] = self.transform_str(raw)
+            return t
+
+        rows = [{"query": queries[q_id], "docs": [doc_text(d) for d in entry["doc_id"]],
+                 "scores": entry["score"]} for q_id, entry in score_dic.items()]
+        super().__init__(rows, sample_num=sample_num, **kw)
+
+
 class PosNegsDataset:
     """{query, pos, negs} rows -> one item per full chunk of `sample_num`
     negatives (remainder dropped; reference dataset.py:329-358)."""
@@ -198,6 +239,51 @@ class KeyValueDataset:
     def __getitem__(self, idx: int):
         k = self.keys[idx]
         return k, self.data[k]
+
+
+class MiraclCorpusDataset:
+    """MIRACL corpus rows {docid, title, text} -> (docid, "title text"),
+    optionally transformed (reference dataset.py:101-121)."""
+
+    def __init__(self, corpus, transform_lambda: Optional[Callable[[str], str]] = None):
+        self.corpus = corpus
+        self.transform = transform_lambda
+
+    def __len__(self):
+        return len(self.corpus)
+
+    def __getitem__(self, idx: int):
+        row = self.corpus[idx]
+        text = row["title"] + " " + row["text"]
+        if self.transform is not None:
+            text = self.transform(text)
+        return row["docid"], text
+
+
+class MiraclTrainingDataset:
+    """MIRACL train rows -> one posnegs row per positive passage, the
+    negatives shared by the query's rows (reference dataset.py:361-386)."""
+
+    def __init__(self, rows=None, dataset=None):
+        rows = rows if rows is not None else dataset
+        if rows is None:
+            raise ValueError("MiraclTrainingDataset needs local rows (zero egress)")
+        self.rows = rows
+        self.index: List[Tuple[int, int]] = []
+        self.negs: List[List[str]] = []
+        for i, row in enumerate(rows):
+            for j in range(len(row["positive_passages"])):
+                self.index.append((i, j))
+            self.negs.append([n["text"] for n in row["negative_passages"]])
+
+    def __len__(self):
+        return len(self.index)
+
+    def __getitem__(self, idx: int):
+        i, j = self.index[idx]
+        row = self.rows[i]
+        return {"query": row["query"], "pos": row["positive_passages"][j]["text"],
+                "negs": self.negs[i]}
 
 
 class HostShardDataset:
@@ -280,22 +366,11 @@ class CombinedRandomSampler:
             cursors[ds_idx] += 1
 
 
-def _not_ported(what: str, item: str):
-    def make(*_, **__):
-        raise NotImplementedError(
-            f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1: {item})")
-    return make
-
-
-_MSMARCO = "cli/search.py and cli/prepare_msmarco.py, with the MS MARCO and MIRACL data"
 DATASET_CLS_MAP = {
     "kd": KnowledgeDistillDataset,
     "posnegs": PosNegsDataset,
     "kd-ids": KnowledgeDistillIdsDataset,
 }
-MsMarcoKDDataset = _not_ported("MsMarcoKDDataset", _MSMARCO)
-MiraclCorpusDataset = _not_ported("MiraclCorpusDataset", _MSMARCO)
-MiraclTrainingDataset = _not_ported("MiraclTrainingDataset", _MSMARCO)
 
 
 def load_dataset(

@@ -1,12 +1,18 @@
 """BEIR evaluation harness: ingest -> search -> metrics, on the device.
 
-The port of the JAX package's `eval/beir.py` for one process on one card
-(reference evaluate_beir.py:139-226, ingest.py:23-117, search.py:13-104):
-`ingest` encodes the corpus into a SparseIndex, `search` encodes queries
+The port of the JAX package's `eval/beir.py` (reference
+evaluate_beir.py:139-226, ingest.py:23-117, search.py:13-104): `ingest`
+encodes the corpus into a SparseIndex, `search` encodes queries
 (inference-free by default) and runs the on-device top-k; the FLOPS
 statistic ⟨avg q-activations, avg d-activations⟩, q_length and d_length are
-kept exactly (search.py:82-93). Multi-process ingest (world_size > 1) is not
-ported yet.
+kept exactly (search.py:82-93).
+
+Multi-process (rank, world_size): every rank ingests its corpus stripe, the
+activation counts are reduced through files in the shared out_dir, every
+rank saves its shard index, and rank 0 merges the shards and searches
+(reference: all ranks ingest, rank 0 searches). The barrier is the
+filesystem, with a heartbeat per rank so a dead peer fails the waiters fast:
+no collective, so two ranks may share one card.
 
 Data loading is offline-first: BEIR-format local dirs (corpus.jsonl /
 queries.jsonl / qrels/<split>.tsv), HF `save_to_disk` datasets, or the
@@ -19,12 +25,15 @@ import csv
 import json
 import logging
 import os
+import threading
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..data.datasets import BEIRCorpusDataset, KeyValueDataset
+from ..core import distributed
+from ..data.datasets import BEIRCorpusDataset, HostShardDataset, KeyValueDataset
 from ..index.engine import IndexConfig, SparseIndex
 from ..models.sparse_encoder import SparseEncoderModel, get_batch_encoder
 from . import trec_eval
@@ -288,6 +297,132 @@ def resolve_dataset(name: str, beir_dir: str, split: str = "test"):
 # ---------------------------------------------------------------------------
 
 
+def _count_part_path(out_dir: str, index_name: str, rank: int, world_size: int) -> str:
+    return os.path.join(out_dir, f"{index_name}.count.rank{rank}of{world_size}.npz")
+
+
+class _Liveness:
+    """Fail-fast rank-death detection for the filesystem ingest barrier.
+
+    Each rank touches a heartbeat file while it works (encode loop) and
+    while it waits (barrier polls). A peer whose heartbeat file exists but
+    has gone stale past `grace` seconds started and then stopped beating:
+    presumed dead, and the waiter raises at once instead of hanging until
+    the barrier timeout. A peer with no heartbeat yet may simply not have
+    launched, so that case keeps the full timeout."""
+
+    def __init__(self, out_dir: str, index_name: str, rank: int, world_size: int,
+                 grace: float):
+        self.paths = [os.path.join(out_dir, f"{index_name}.hb.rank{r}of{world_size}")
+                      for r in range(world_size)]
+        self.rank = rank
+        self.grace = grace
+        self._last = 0.0
+
+    def beat(self, force: bool = False) -> None:
+        now = time.time()
+        if force or now - self._last >= 2.0:
+            with open(self.paths[self.rank], "w"):
+                pass
+            self._last = now
+
+    def check(self, r: int) -> None:
+        """Raise if rank r's heartbeat exists but is stale beyond grace."""
+        if not self.grace or r == self.rank:
+            return
+        try:
+            age = time.time() - os.path.getmtime(self.paths[r])
+        except OSError:
+            return  # never started: the timeout decides
+        if age > self.grace:
+            raise RuntimeError(
+                f"ingest barrier: rank {r} heartbeat is {age:.0f}s stale "
+                f"(grace {self.grace:.0f}s) — presumed dead; failing fast "
+                f"instead of waiting out the barrier timeout")
+
+    def clear_own(self) -> None:
+        try:
+            os.remove(self.paths[self.rank])
+        except FileNotFoundError:
+            pass
+
+
+@contextmanager
+def _beating(liveness: _Liveness, period: float = 2.0):
+    """Keep `liveness` beating from a thread across a long host operation
+    (index save or merge), so peers do not take a busy rank for a dead one."""
+    stop = threading.Event()
+
+    def run():
+        while not stop.wait(period):
+            liveness.beat(force=True)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join()
+
+
+def _await(pred, what: str, timeout: float, liveness: Optional[_Liveness] = None,
+           writer_rank: int = 0) -> None:
+    """Poll `pred()` every 0.2 s with a heartbeat and the writer's liveness
+    check; TimeoutError naming `what` at the deadline. Every filesystem
+    barrier wait goes through here."""
+    deadline = time.time() + timeout
+    while not pred():
+        if time.time() > deadline:
+            raise TimeoutError(f"barrier: {what}")
+        if liveness is not None:
+            liveness.beat()
+            liveness.check(writer_rank)
+        time.sleep(0.2)
+
+
+def _await_fresh(path: str, t_after: float, timeout: float,
+                 liveness: Optional[_Liveness] = None, writer_rank: int = 0) -> None:
+    """Poll until `path` exists with mtime >= t_after (the shared out_dir's
+    clock)."""
+    _await(lambda: os.path.exists(path) and os.path.getmtime(path) >= t_after,
+           f"no fresh {path}", timeout, liveness, writer_rank)
+
+
+def _reduce_counts(out_dir: str, index_name: str, rank: int, world_size: int,
+                   count_tensor: np.ndarray, n_docs: int, timeout: float,
+                   liveness: Optional[_Liveness] = None):
+    """Sum the ranks' activation counts through the shared out_dir (atomic
+    tmp + rename writes; every rank polls for all parts: this is also the
+    ingest barrier, reference ingest.py:108-117 + wait_for_everyone).
+
+    Round over round (repeated ingests into one out_dir/index_name): rank 0
+    deletes every part before it writes `{index}.corpus.npy`, and the other
+    ranks leave only when they see a stat newer than their own part, so
+    round N+1's parts are written only after round N's were removed. Each
+    rank also clears its own part at entry (a crashed round's leftovers).
+    Returns (total, total_docs, part_write_time)."""
+    part = _count_part_path(out_dir, index_name, rank, world_size)
+    tmp = part + f".tmp{os.getpid()}.npz"  # np.savez appends .npz otherwise
+    np.savez(tmp, count=count_tensor, n_docs=np.int64(n_docs))
+    os.replace(tmp, part)
+    t_written = os.path.getmtime(part)
+    total = np.zeros_like(count_tensor)
+    total_docs = 0
+    deadline = time.time() + timeout
+    for r in range(world_size):
+        p = _count_part_path(out_dir, index_name, r, world_size)
+        _await(lambda: os.path.exists(p), f"ingest: rank {r} never wrote {p}",
+               deadline - time.time(), liveness, r)
+        blob = np.load(p)
+        total += blob["count"]
+        total_docs += int(blob["n_docs"])
+    # this rank has read every part: rank 0 deletes the parts only after
+    # every rank says so, or a slow rank would wait for a deleted part
+    open(part + ".seen", "w").close()
+    return total, total_docs, t_written
+
+
 def ingest(
     dataset,  # sequence of (doc_id, text)
     model: SparseEncoderModel,
@@ -297,15 +432,40 @@ def ingest(
     batch_size: int = 50,
     index_cfg: Optional[IndexConfig] = None,
     doc_inf_free: bool = False,
+    rank: int = 0,
+    world_size: int = 1,
+    barrier_timeout: float = 3600.0,
+    dead_rank_grace: float = 300.0,
 ) -> SparseIndex:
     """Encode a corpus and build the index on the model's device; write the
     corpus activation statistic `{index_name}.corpus.npy` under out_dir.
-    One process: multi-process ingest is not ported yet (ROADMAP: port
-    queue, distribution)."""
+
+    With world_size > 1 each rank encodes its stripe of the corpus (item i
+    goes to rank i % world_size, the reference's DDPDatasetWithRank, doc ids
+    the global ones, so shard indexes merge by concatenation:
+    `SparseIndex.merge_saved`), and the ranks' activation counts are summed
+    through out_dir before the statistic is written, so the FLOPS statistic
+    is the whole corpus's. A peer whose heartbeat goes stale past
+    `dead_rank_grace` seconds fails the barrier at once (0 turns that off;
+    it must exceed the longest gap between beats: one encode chunk or the
+    finalize)."""
     os.makedirs(out_dir, exist_ok=True)
-    # its own count state, apart from the search encoder's
+    liveness = None
+    if world_size > 1:
+        liveness = _Liveness(out_dir, index_name, rank, world_size, dead_rank_grace)
+        liveness.beat(force=True)
+        # this rank's count part from an earlier ingest into the same out_dir
+        # would satisfy the existence barrier with old counts: clear it before
+        # encoding, before any rank can be polling
+        stale = _count_part_path(out_dir, index_name, rank, world_size)
+        for f in (stale, stale + ".seen"):
+            if os.path.exists(f):
+                os.remove(f)
+        dataset = HostShardDataset(dataset, rank, world_size)
+    # its own count state, apart from the search encoder's, scoped by rank:
+    # ranks run in one process in the threaded tests
     encoder = get_batch_encoder(model, max_length=max_length, do_count=True,
-                                scope="ingest")
+                                scope=("ingest", rank, world_size))
     index = SparseIndex(model.vocab_size, index_cfg, device=model.device)
     t0 = time.time()
     n = len(dataset)
@@ -322,6 +482,8 @@ def ingest(
             index.add_topk(e_ids, tok_idx, ws)
 
         for start in range(0, n, CH):
+            if liveness is not None:
+                liveness.beat()
             rows = [dataset[i] for i in range(start, min(start + CH, n))]
             handle, nv = encoder.encode_chunk_sparse_async(
                 [r[1] for r in rows], l_max=index.cfg.l_max, rows=batch_size
@@ -333,6 +495,8 @@ def ingest(
             flush(pending)
     else:
         for start in range(0, n, batch_size):
+            if liveness is not None:
+                liveness.beat()
             rows = [dataset[i] for i in range(start, min(start + batch_size, n))]
             # doc_inf_free=True gives an idf-weighted lexical index (a
             # BM25-ish baseline and the test oracle)
@@ -342,8 +506,40 @@ def ingest(
     # the corpus statistic counts every rep>0 activation of the FULL encoder
     # output (reference SparseEncoder, sparse_encoders.py:178-179), not the
     # top-l_max rows the index stores
-    np.save(os.path.join(out_dir, f"{index_name}.corpus.npy"),
-            encoder.count_tensor.astype(np.float64) / max(index.n_docs, 1))
+    corpus_stat = os.path.join(out_dir, f"{index_name}.corpus.npy")
+    full_counts = encoder.count_tensor
+    if world_size > 1:
+        liveness.beat(force=True)  # finalize may have been a long gap
+        counts, total_docs, t_part = _reduce_counts(
+            out_dir, index_name, rank, world_size, full_counts, index.n_docs,
+            barrier_timeout, liveness)
+        if rank == 0:  # one writer (reference: the main process saves the stat)
+            # every rank has read the parts: remove them, then publish the
+            # stat; the others leave only on seeing this fresh stat, so the
+            # next round's barrier starts clean
+            deadline = time.time() + barrier_timeout
+            for r in range(world_size):
+                m = _count_part_path(out_dir, index_name, r, world_size) + ".seen"
+                _await(lambda: os.path.exists(m), f"ingest: rank {r} never confirmed {m}",
+                       deadline - time.time(), liveness, r)
+            for r in range(world_size):
+                base = _count_part_path(out_dir, index_name, r, world_size)
+                for f in (base, base + ".seen"):
+                    try:
+                        os.remove(f)
+                    except FileNotFoundError:
+                        pass
+            tmp = corpus_stat + f".tmp{os.getpid()}.npy"
+            np.save(tmp, counts.astype(np.float64) / max(total_docs, 1))
+            os.replace(tmp, corpus_stat)
+        else:
+            # the departure barrier: the stat this rank reads is this round's
+            # (reference gates search behind wait_for_everyone,
+            # evaluate_beir.py:196)
+            _await_fresh(corpus_stat, t_part, barrier_timeout, liveness, writer_rank=0)
+        liveness.clear_own()  # a departed rank is not a dead rank
+    else:
+        np.save(corpus_stat, full_counts.astype(np.float64) / max(index.n_docs, 1))
     dt = time.time() - t0
     logger.info("ingested %d docs into %s in %.1fs (%.1f docs/s)", n, index_name,
                 dt, n / max(dt, 1e-9))
@@ -415,6 +611,32 @@ def search(
     return out
 
 
+def save_and_merge_shards(index: SparseIndex, index_dir: str, rank: int, world_size: int,
+                          device) -> Optional[SparseIndex]:
+    """Every rank saves its stripe as `{index_dir}.shard{rank}of{world}` and
+    marks it `.done`; rank 0 waits up to an hour for every marker (failing
+    fast on a heartbeat stale for 300 s) and returns the merged index on
+    `device`. Other ranks return None."""
+    parent, base = os.path.split(index_dir)
+    liveness = _Liveness(parent, f"{base}.shards", rank, world_size, grace=300.0)
+    liveness.beat(force=True)
+    shard_dir = f"{index_dir}.shard{rank}of{world_size}"
+    with _beating(liveness):  # a save can take minutes at scale
+        index.save(shard_dir)
+    open(os.path.join(shard_dir, ".done"), "w").close()
+    if rank != 0:
+        liveness.clear_own()
+        return None
+    shards = [f"{index_dir}.shard{r}of{world_size}" for r in range(world_size)]
+    deadline = time.time() + 3600.0
+    for r, p in enumerate(shards):
+        done = os.path.join(p, ".done")
+        _await(lambda: os.path.exists(done), f"shard never finished: {p}",
+               deadline - time.time(), liveness, r)
+    liveness.clear_own()
+    return SparseIndex.merge_saved(shards, device=device)
+
+
 # ---------------------------------------------------------------------------
 # Harness (reference evaluate_beir.py:139-328)
 # ---------------------------------------------------------------------------
@@ -460,10 +682,20 @@ def evaluate_datasets(
     eval_dir: str,
     metrics_index: str = "beir_eval",
     step: Optional[str] = None,
+    rank: Optional[int] = None,
+    world_size: Optional[int] = None,
 ) -> Dict[str, float]:
     """Per dataset: load -> ingest -> search -> NDCG@10; write CSV + avg
-    JSON + metrics records. Returns avg_res. One process, one device: the
-    model's."""
+    JSON + metrics records. Returns avg_res. On the model's device.
+
+    Multi-process (rank/world_size, by default from the process group, else
+    from RANK/WORLD_SIZE): every rank ingests its corpus stripe and saves a
+    shard index `{name}.index.shard{r}of{w}` with a `.done` marker; rank 0
+    merges the shards, searches and writes the metrics (reference: all
+    ranks ingest, rank 0 searches, evaluate_beir.py:159-196). Other ranks
+    return {}."""
+    if rank is None or world_size is None:
+        rank, world_size = distributed.rank(), distributed.world_size()
     os.makedirs(eval_dir, exist_ok=True)
     k_values = [int(k) for k in getattr(data_args, "eval_k_values", None) or [1, 10]]
     if 10 not in k_values:  # NDCG@10 is the headline metric everywhere below
@@ -482,16 +714,33 @@ def evaluate_datasets(
         logger.info("Loaded %s: %d docs, %d queries", name, len(corpus), len(queries))
         index_dir = os.path.join(eval_dir, f"{name.lower()}.index")
         if not data_args.skip_ingest:
+            shard_dir = f"{index_dir}.shard{rank}of{world_size}"
+            if world_size > 1:
+                # clear this rank's stale marker before the ingest barrier:
+                # the barrier guarantees every rank has passed this point
+                # before rank 0 polls the markers, so a repeat call into the
+                # same eval_dir cannot merge a previous round's shard
+                try:
+                    os.remove(os.path.join(shard_dir, ".done"))
+                except FileNotFoundError:
+                    pass
             index = ingest(
                 BEIRCorpusDataset(corpus), model, eval_dir, name.lower(),
                 max_length=data_args.eval_max_seq_length,
                 batch_size=training_args.per_device_eval_batch_size,
                 index_cfg=index_cfg_from_args(data_args),
+                rank=rank, world_size=world_size,
             )
+            if world_size > 1:
+                index = save_and_merge_shards(index, index_dir, rank, world_size, model.device)
+                if index is None:
+                    continue
             # persist like the reference's OpenSearch node does implicitly:
             # a later run with skip_ingest: true reuses it
             index.save(index_dir)
         else:
+            if rank != 0:
+                continue
             index = SparseIndex.load(index_dir, device=model.device)
         if not data_args.do_search:
             continue

@@ -21,10 +21,11 @@ All of it is torch ops (the JAX package wrote these as XLA ops, not Pallas
 kernels). The serving surface is here too: `search_tokens` (the
 `neural_sparse` token->weight query, with the inverted engine's token-entry
 fast path), two-phase search, `reopen` for the add -> refresh -> add loop,
-and the async handle API the server calls. A device mesh and `merge_saved`
-raise NotImplementedError naming their ROADMAP item. Saved indexes use the
-JAX package's format 2, so an index saved by either package loads in the
-other.
+and the async handle API the server calls, and `merge_saved` of the shards
+a multi-process ingest saved. A device mesh (the doc- and query-sharded
+index) raises NotImplementedError naming its ROADMAP item. Saved indexes
+use the JAX package's format 2, so an index saved by either package loads
+in the other.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ from . import inverted
 
 logger = logging.getLogger(__name__)
 
-_TODO_DISTRIBUTION = "not ported yet (ROADMAP: port queue, distribution)"
+_TODO_MESH = ("not ported yet: the doc- and query-sharded index inside one process is the "
+              "next slice (ROADMAP Queue 1: the device mesh)")
 _MIN_INVERTED_ROWS = 64
 
 
@@ -234,7 +236,7 @@ class SparseIndex:
     def __init__(self, vocab_size: int, cfg: Optional[IndexConfig] = None,
                  mesh=None, device: DeviceLike = None):
         if mesh is not None:
-            raise NotImplementedError(f"a device mesh is {_TODO_DISTRIBUTION}")
+            raise NotImplementedError(f"a device mesh is {_TODO_MESH}")
         self.vocab_size = vocab_size
         self.cfg = cfg or IndexConfig()
         self.device = resolve_device(device)
@@ -1040,8 +1042,56 @@ class SparseIndex:
             json.dump(self.doc_ids, f)
 
     @classmethod
-    def merge_saved(cls, paths, mesh=None, cfg=None):
-        raise NotImplementedError(f"merge_saved (multi-process ingest) is {_TODO_DISTRIBUTION}")
+    def merge_saved(cls, paths: Sequence[str], mesh=None, cfg: Optional[IndexConfig] = None,
+                    device: DeviceLike = None) -> "SparseIndex":
+        """Concatenate per-rank shard indexes (multi-process ingest, where each
+        rank saved its corpus stripe) into one index, finalized on `device`.
+        Doc ids are the global string ids, so concatenation is the merge:
+        the analog of every rank bulk-writing into one OpenSearch index
+        (ingest.py:88-106). Without `cfg` the shards' build config is kept;
+        an "auto" engine picks again by the merged size, and exact
+        escalation stays on if any shard had it."""
+        metas = []
+        for p in paths:
+            with open(os.path.join(p, "meta.json")) as f:
+                metas.append(json.load(f))
+        v = metas[0]["vocab_size"]
+        if any(m["vocab_size"] != v for m in metas):
+            raise ValueError("merge_saved: the shards' vocab sizes differ")
+        if cfg is None:
+            cfg = cls._cfg_from_meta(metas[0])
+            escalate = any(cls._cfg_from_meta(m).exact_escalate for m in metas)
+            if metas[0].get("cfg", {}).get("engine") == "auto":
+                # a shard resolved "auto" by its own size; the merge resolves
+                # it again by the whole corpus's (escalation with it)
+                cfg.engine = "auto"
+                cfg.exact_escalate = True if escalate else metas[0]["cfg"].get("exact_escalate")
+            else:
+                cfg.exact_escalate = escalate
+        idx = cls(v, cfg, mesh, device)
+        L = cfg.l_max
+        for p in paths:
+            blob = np.load(os.path.join(p, "index.npz"))
+            if "tokens" not in blob:
+                raise ValueError(f"merge_saved needs sparse-format shards: {p} is dense")
+            with open(os.path.join(p, "doc_ids.json")) as f:
+                ids = json.load(f)
+            n = len(ids)
+            idx.doc_ids.extend(ids)
+            idx.count_tensor = idx.count_tensor + blob["count_tensor"]
+            toks = blob["tokens"][:n].astype(np.int32)
+            ws = _load_weights(blob)[:n]
+            if toks.shape[1] != L:  # re-cap shards built with another l_max
+                if toks.shape[1] > L:
+                    toks, ws = toks[:, :L], ws[:, :L]
+                else:
+                    pad = L - toks.shape[1]
+                    toks = np.pad(toks, ((0, 0), (0, pad)))
+                    ws = np.pad(ws, ((0, 0), (0, pad)))
+            idx._tok_chunks.append(toks)
+            idx._w_chunks.append(ws)
+        idx.finalize()
+        return idx
 
     @staticmethod
     def _cfg_from_meta(meta: dict) -> IndexConfig:

@@ -442,10 +442,18 @@ def maxpool_head_train(h, mask, w, bias) -> torch.Tensor:
 
 # plain integer counters: a wrapper counts the launches of its kernel, a
 # plain version its calls (chip_smoke.py shows from them which ran)
-for _f in (maxpool_head, maxpool_head_argmax, maxpool_head_bwd_w, maxpool_head_bwd_buckets,
-           maxpool_head_bwd_h):
+_KERNELS = (maxpool_head, maxpool_head_argmax, maxpool_head_bwd_w, maxpool_head_bwd_buckets,
+            maxpool_head_bwd_h)
+_PLAINS = (maxpool_head_reference, maxpool_head_argmax_reference, maxpool_head_bwd_w_reference,
+           bucket_by_argmax_reference, maxpool_head_bwd_h_reference)
+for _f in _KERNELS:
     _f.launches = 0
-for _f in (maxpool_head_reference, maxpool_head_argmax_reference,
-           maxpool_head_bwd_w_reference, bucket_by_argmax_reference,
-           maxpool_head_bwd_h_reference):
+for _f in _PLAINS:
     _f.calls = 0
+
+
+def launch_counts() -> dict:
+    """This process's kernel launches and plain-version calls so far, by
+    function name (the CLIs log them when they end)."""
+    return {"kernels": {f.__name__: f.launches for f in _KERNELS},
+            "plains": {f.__name__: f.calls for f in _PLAINS}}

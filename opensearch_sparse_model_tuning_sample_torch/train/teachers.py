@@ -178,17 +178,23 @@ class TeacherEnsemble:
 
     @torch.no_grad()
     def get_scores(self, q_features_list: List[Dict[str, torch.Tensor]],
-                   d_features_list: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+                   d_features_list: List[Dict[str, torch.Tensor]],
+                   gather=None) -> torch.Tensor:
         """[B, B*G] (in-batch negatives) or [B, G] fp32 teacher scores, no
         gradient. The fp32 products run in fp32 on the card too: the port's
-        device policy (core/device.py) keeps TF32 off."""
+        device policy (core/device.py) keeps TF32 off. Under data
+        parallelism `gather` (`all_gather_batch`) makes each teacher's reps
+        of this rank's slice the global batch's, so in-batch scores span
+        every rank's docs."""
         if not (len(q_features_list) == len(d_features_list) == len(self.teachers)):
             raise ValueError(f"{len(self.teachers)} teachers, features for "
                              f"{len(q_features_list)} / {len(d_features_list)}")
         scores = 0.0
         for teacher, qf, df in zip(self.teachers, q_features_list, d_features_list):
-            score = pair_scores(teacher_rep(teacher, qf), teacher_rep(teacher, df),
-                                self.use_in_batch_negatives)
+            q_rep, d_rep = teacher_rep(teacher, qf), teacher_rep(teacher, df)
+            if gather is not None:
+                q_rep, d_rep = gather(q_rep), gather(d_rep)
+            score = pair_scores(q_rep, d_rep, self.use_in_batch_negatives)
             scores = scores + minmax_normalize(score)
         return (scores / len(self.teachers) * self.score_scale).detach()
 

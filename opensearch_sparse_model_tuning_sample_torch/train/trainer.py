@@ -1,4 +1,5 @@
-"""Training: the train step and the host loop, on one card.
+"""Training: the train step and the host loop, on one card or data-parallel
+over a process group (one process per card).
 
 The port of the JAX package's `train/trainer.py` (which replaces the
 reference's HF-Trainer subclass, trainer.py:52-218). A step runs the
@@ -37,9 +38,11 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..core import distributed
 from ..models import hf_import, sparse_encoder as se
 from ..ops import flops as flops_ops
 from ..ops.losses import LossSpec, build_loss_specs
+from ..parallel.collectives import all_gather_batch, all_reduce_grads
 
 logger = logging.getLogger(__name__)
 
@@ -73,16 +76,22 @@ def make_optimizer(model: se.SparseEncoderModel, model_args, data_args, training
 
 def train_loss(model: se.SparseEncoderModel, batch: Dict[str, torch.Tensor], step: int,
                loss_specs: List[LossSpec], model_args, data_args, dropout_key=None,
-               teacher_ensemble=None):
+               teacher_ensemble=None, gather=None):
     """One microbatch's loss and metrics (tensors on the device). `step` is
     the optimizer's step count before this update, which the lambda ramp
     reads; `dropout_key` (None: dropout off) seeds the dropout masks. With a
     `teacher_ensemble` its scores of the batch's teacher features, computed
-    first and without gradient, take the place of the batch's `scores`."""
+    first and without gradient, take the place of the batch's `scores`.
+    `gather` (data parallelism: `all_gather_batch`) turns this rank's reps
+    and teacher scores into the global batch's before the losses."""
     needs_scores = any(s.kind in ("kldiv", "marginmse") for s in loss_specs)
     teacher_scores = batch.get("scores")
     if teacher_ensemble is not None:
-        teacher_scores = teacher_ensemble.get_scores(batch["teacher_q"], batch["teacher_d"])
+        teacher_scores = teacher_ensemble.get_scores(batch["teacher_q"], batch["teacher_d"],
+                                                     gather=gather)
+    elif teacher_scores is not None and gather is not None:
+        with torch.no_grad():
+            teacher_scores = gather(teacher_scores)
     if needs_scores and teacher_scores is None:
         raise ValueError("kldiv/marginmse losses need teacher scores")
 
@@ -95,6 +104,8 @@ def train_loss(model: se.SparseEncoderModel, batch: Dict[str, torch.Tensor], ste
     else:
         q_rep = se.encode_doc(model, batch["q_input_ids"], batch["q_attention_mask"],
                               dropout_key=key_q)
+    if gather is not None:
+        d_rep, q_rep = gather(d_rep), gather(q_rep)
 
     group_num = d_rep.shape[0] // q_rep.shape[0]
     d_flops = flops_ops.flops_value(d_rep, group_num, flops_threshold=data_args.flops_threshold)
@@ -127,7 +138,9 @@ class Trainer:
     Mirrors the observable behaviour of the reference SparseModelTrainer
     (moving-average ranking loss with 0.99 decay and periodic health stats,
     trainer.py:57,120-137; `checkpoint-{step}` saves, :145-156). The model's
-    parameters are updated in place."""
+    parameters are updated in place. While a process group is up the step
+    is data-parallel (at world size 1 too), and each loader batch is this
+    rank's slice of the global batch."""
 
     def __init__(self, model: se.SparseEncoderModel, model_args, data_args, training_args,
                  loss_specs: Optional[List[LossSpec]] = None, teacher_ensemble=None):
@@ -146,6 +159,8 @@ class Trainer:
         self.loss_ma = torch.zeros((), dtype=torch.float32, device=self.device)
         self.accum_steps = max(1, int(getattr(training_args, "gradient_accumulation_steps", 1)))
         self.log_history: List[Dict[str, float]] = []
+        self.distributed = torch.distributed.is_initialized()
+        self.rank = distributed.rank() if self.distributed else 0
 
     # ------------------------------------------------------------------
     def _to_device(self, x):
@@ -189,9 +204,12 @@ class Trainer:
         per_mb = []
         for i in range(A):
             mb = {k: p[i] for k, p in parts.items()}
+            # the rank in the key: ranks draw their own dropout masks
             loss, m = train_loss(self.model, mb, self.step, self.loss_specs, self.model_args,
-                                 self.data_args, dropout_key=(self.args.seed, self.step, i),
-                                 teacher_ensemble=self.teacher_ensemble)
+                                 self.data_args,
+                                 dropout_key=(self.args.seed, self.step, i, self.rank),
+                                 teacher_ensemble=self.teacher_ensemble,
+                                 gather=all_gather_batch if self.distributed else None)
             loss.backward()  # gradients add up in .grad over the microbatches
             per_mb.append(m)
         if A > 1:
@@ -203,6 +221,8 @@ class Trainer:
                        for k in per_mb[0]}
         else:
             metrics = per_mb[0]
+        if self.distributed:
+            all_reduce_grads(self.params)  # a sum: each rank holds its slice's part
         if self.args.max_grad_norm:
             torch.nn.utils.clip_grad_norm_(self.params, self.args.max_grad_norm)
         self.optimizer.step()
@@ -222,7 +242,8 @@ class Trainer:
             if self.step >= max_steps:
                 break
             # torch.profiler trace of steps [2, 7) when profile_dir is set
-            if self.args.profile_dir and self.step == 2 and prof is None:
+            if (self.args.profile_dir and self.step == 2 and prof is None
+                    and self.rank == 0):
                 prof = _start_profiler(self.device)
             metrics = self.train_step(batch)
             if prof is not None and self.step >= 7:
@@ -251,6 +272,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, step: int):
+        if self.rank != 0:
+            return  # the main process saves (reference trainer.py:145-147)
         out = os.path.join(self.args.output_dir, f"checkpoint-{step}")
         hf_import.save_checkpoint(self.model, out)
         logger.info("Saving model checkpoint to %s", out)
@@ -261,8 +284,13 @@ class Trainer:
     def save_train_state(self, path: Optional[str] = None):
         """Everything an exact resume needs (model, optimizer, schedule, step,
         loss moving average) as `train_state/state.pt`. The port's own
-        format: a JAX package's train_state does not load here."""
+        format: a JAX package's train_state does not load here. Rank 0
+        writes it; every rank calls this and leaves behind a barrier, so
+        the file is whole before any rank can restore from it."""
         path = self._state_path(path)
+        if self.rank != 0:
+            distributed.barrier()
+            return
         os.makedirs(path, exist_ok=True)
         torch.save({
             "model": self.model.state_dict(),
@@ -271,6 +299,7 @@ class Trainer:
             "step": self.step,
             "loss_ma": self.loss_ma,
         }, os.path.join(path, "state.pt"))
+        distributed.barrier()
 
     def restore_train_state(self, path: Optional[str] = None):
         # on the CPU first: AdamW keeps its step counts there, and

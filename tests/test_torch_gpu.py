@@ -698,3 +698,79 @@ def test_roberta_and_distilbert_teachers_on_the_card_equal_the_cpu(cuda, layout,
     for got, want in zip(reps[cuda], reps["cpu"]):
         assert got.shape == want.shape
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=3e-2, rtol=3e-2)
+
+
+def _world_one_env():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def test_nccl_at_world_one_gathers_and_sums_cuda_tensors(cuda):
+    """The process group on the card is NCCL; at world size 1 the gather is
+    the identity with a slice backward, and the gradient sum leaves the
+    gradients as they are (a parameter without one gets zeros)."""
+    from opensearch_sparse_model_tuning_sample_torch.core import distributed
+    from opensearch_sparse_model_tuning_sample_torch.parallel import collectives
+
+    assert distributed.maybe_init_distributed("cuda:0", timeout_s=120, env=_world_one_env())
+    try:
+        assert distributed.backend() == "nccl" and distributed.world_size() == 1
+        x = torch.randn(4, 8, device=cuda, requires_grad=True)
+        y = collectives.all_gather_batch(x)
+        assert y.is_cuda and torch.equal(y, x.detach())
+        (3 * y).sum().backward()
+        assert torch.equal(x.grad, torch.full_like(x, 3.0))
+        with torch.no_grad():
+            assert torch.equal(collectives.all_gather_batch(x * 2), x.detach() * 2)
+        p = torch.nn.Parameter(torch.randn(5, device=cuda))
+        q = torch.nn.Parameter(torch.randn(2, 3, device=cuda))
+        p.grad = torch.arange(5.0, device=cuda)
+        collectives.all_reduce_grads([p, q])
+        assert torch.equal(p.grad, torch.arange(5.0, device=cuda))
+        assert torch.equal(q.grad, torch.zeros_like(q))
+        distributed.barrier()
+    finally:
+        distributed.destroy()
+
+
+def test_data_parallel_step_at_world_one_equals_the_one_process_step(cuda):
+    """Two train steps of the tiny model with dropout on, under an NCCL
+    group of one and without a group: the losses agree to 1e-5 relative
+    (one card; the attention backward may sum in another order run to run)
+    and the step went through the gather and the gradient sum."""
+    from opensearch_sparse_model_tuning_sample_torch.core import config, distributed
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.parallel import collectives
+    from opensearch_sparse_model_tuning_sample_torch.train.trainer import Trainer
+
+    ma, da, ta = config.parse_config({
+        "arch": "tiny", "loss_types": ["infonce"], "use_in_batch_negatives": True,
+        "learning_rate": 1e-3, "max_steps": 2, "warmup_steps": 0, "save_strategy": "no",
+        "output_dir": "/unused", "device": "cuda:0"})
+    rng = np.random.default_rng(0)
+    batch = {"q_input_ids": rng.integers(1000, 5000, (4, 8)),
+             "q_attention_mask": np.ones((4, 8), np.int64),
+             "d_input_ids": rng.integers(1000, 5000, (8, 16)),
+             "d_attention_mask": np.ones((8, 16), np.int64)}
+    losses = {}
+    for group in (False, True):
+        if group:
+            assert distributed.maybe_init_distributed("cuda:0", timeout_s=120,
+                                                      env=_world_one_env())
+        try:
+            collectives.reset_counts()
+            model = tse.from_model_args(ma, seed=0, device=cuda)
+            trainer = Trainer(model, ma, da, ta)
+            losses[group] = [float(trainer.train_step(batch)["loss"]) for _ in range(2)]
+            assert trainer.distributed is group
+            assert collectives.counts() == ({"all_gather_batch": 4, "all_reduce_grads": 2}
+                                            if group else
+                                            {"all_gather_batch": 0, "all_reduce_grads": 0})
+        finally:
+            distributed.destroy()
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5)

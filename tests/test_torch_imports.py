@@ -38,7 +38,9 @@ def test_port_has_the_slice_modules():
                  "cli.evaluate_beir", "ops.losses", "ops.flops", "data.datasets",
                  "data.collator", "data.loader", "train.trainer", "cli.train_ir",
                  "mine.hard_negatives", "cli.mine", "cli.serve", "cli.search",
-                 "train.teachers", "train.embedding_store", "cli.make_kd_scores"):
+                 "train.teachers", "train.embedding_store", "cli.make_kd_scores",
+                 "core.distributed", "parallel.collectives", "cli.prepare_msmarco",
+                 "cli.import_metrics"):
         assert f"{port.__name__}.{name}" in mods, name
 
 

@@ -131,18 +131,26 @@ def test_delete_returns_to_empty_ingest():
 
 
 @pytest.mark.parametrize("case", ["inverted", "auto_above_threshold", "mesh"])
-def test_not_ported_paths_raise(case):
-    """What is still not ported (a mesh, merging saved shards) raises naming
-    its ROADMAP item; the inverted engine and auto above its threshold are
-    ported (tests/test_torch_inverted_engine.py) and build."""
+def test_not_ported_paths_raise(case, tmp_path):
+    """What is still not ported (a device mesh) raises naming its ROADMAP
+    item and the next slice; the inverted engine, auto above its threshold
+    (tests/test_torch_inverted_engine.py) and merging saved inverted shards
+    (tests/test_torch_dist_eval.py) are ported and build."""
     ids, docs, _ = _corpus(n_docs=20, seed=5)
     if case == "inverted":
-        SparseIndex(V, IndexConfig(engine="inverted"), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SparseIndex.merge_saved(["a", "b"])
+        shards = []
+        for r in range(2):
+            t = SparseIndex(V, IndexConfig(engine="inverted", l_max=32, block_docs=16),
+                            device="cpu")
+            t.add(ids[r::2], docs[r::2])
+            t.finalize()
+            t.save(str(tmp_path / f"shard{r}"))
+            shards.append(str(tmp_path / f"shard{r}"))
+        merged = SparseIndex.merge_saved(shards, device="cpu")
+        assert merged._engine == "inverted" and merged.doc_ids == ids[0::2] + ids[1::2]
         return
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*next slice|next slice.*ROADMAP"):
             SparseIndex(V, IndexConfig(), mesh=object(), device="cpu")
         return
     t = SparseIndex(V, IndexConfig(engine="auto", auto_threshold=10, l_max=32,
