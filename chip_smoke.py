@@ -31,13 +31,24 @@ the run-to-run spread of two one-process runs), two `cli.evaluate_beir` ranks
 and two `cli.mine` ranks on the one card (no process group: the filesystem
 is their barrier; merged by rank 0 and held to the main path's evaluation
 and mining), and `cli.prepare_msmarco` on a fixture made from the mined rows
-with kd training on its output under `torchrun`. It checks
+with kd training on its output under `torchrun`; then the device mesh
+inside one process (four positions: four cards when four are visible, else
+four stripes on the one card): the scan of the 131 072 rows doc- and
+query-sharded against the unsharded scan (per-stripe two-phase against
+four unsharded stripe indexes), bench.py's 2 097 152-doc corpus on its
+inverted configuration with exact escalation in both layouts against the
+unsharded exact scan, `eval.beir.evaluate_datasets` of checkpoint-50 over
+the mesh (scan and inverted engine) against the main path's evaluation,
+and `merge_saved` of the two eval ranks' shards onto the mesh. It checks
 what comes out, that every kernel of each path ran (launch counts, read
 around each path) and that no plain version did, and that one whole train
 step's gradients with the kernels equal those with the plain head. Any
-failed check exits non-zero. The last lines of output are the `serve:`,
-`inverted eval:`, `distill:` and `distributed:` lines, the `kernels` JSON line, the card's name and power
-limit, and `{"ok": true, "device": {...}}`.
+failed check exits non-zero. `python3 chip_smoke.py --mesh-only` runs the
+mesh's steps 12a and 12b alone (for a machine with four cards). The last
+lines of output are the `serve:`,
+`inverted eval:`, `distill:`, `distributed:` and `mesh:` lines, the `kernels`
+JSON line, the card's name and power limit, and `{"ok": true, "device":
+{...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
 `output/chip_smoke/` (there too `main_batches.pt`, the head's inputs on the
@@ -46,6 +57,7 @@ builds the kernels under `build/torch_kernels/` (the ablation copies under
 `build/maxpool_ablation/`).
 """
 
+import atexit
 import ctypes
 import json
 import logging
@@ -2324,11 +2336,493 @@ def phase_distributed(dev, path, n_docs, test_split):
     return out
 
 
+# step 12, the device mesh inside one process: four mesh positions (four
+# cards when four are visible, else four stripes on this card), each layout
+# held to an unsharded index of the same rows on the same card
+MESH_POSITIONS = 4
+MESH_DOCS = 1 << 21  # bench.py's production-size corpus (bench.py:226-239)
+MESH_QUERIES = 512
+MESH_K = 10
+# the scans add the same fp32 products per row in the same order on the
+# same card, so their scores are expected bit-equal; where they are not,
+# the step says so and holds them to this
+MESH_SCAN_RTOL = 1e-6
+MESH_INV_RTOL = 1e-5  # the certified inverted engine against the exact scan
+
+
+class MeshCorpus:
+    """bench.py's 2 097 152-doc corpus made in a process of its own, started
+    when the script starts: making it takes about a minute of numpy sorts
+    on one host core, which then overlaps steps 1-11 (the card is idle in
+    it). Step 12b waits for the arrays (saved as .npy under OUT)."""
+
+    def __init__(self):
+        self.dir = os.path.join(OUT, "mesh")
+        self.proc = None
+
+    def start(self):
+        os.makedirs(self.dir, exist_ok=True)
+        code = ("import json, sys, time\n"
+                "import numpy as np\n"
+                f"sys.path.insert(0, {HERE!r})\n"
+                "from bench import make_corpus\n"
+                "t0 = time.perf_counter()\n"
+                f"toks, ws = make_corpus({MESH_DOCS}, {BIG_VOCAB}, avg_terms=80, seed=2, "
+                "l_max=96)\n"
+                "s = time.perf_counter() - t0\n"
+                f"np.save({os.path.join(self.dir, 'toks.tmp.npy')!r}, toks)\n"
+                f"np.save({os.path.join(self.dir, 'ws.tmp.npy')!r}, ws)\n"
+                "print(json.dumps({'seconds': s}))\n")
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], cwd=HERE, env=env,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.t0 = time.time()
+        return self
+
+    def result(self, timeout=600):
+        """(toks, ws, seconds making them, seconds waited for them)."""
+        t0 = time.time()
+        out = self.proc.communicate(timeout=timeout)[0]
+        waited = time.time() - t0
+        check(self.proc.returncode == 0, f"the corpus process failed: {out[-2000:]}")
+        seconds = json.loads(out.strip().splitlines()[-1])["seconds"]
+        toks = np.load(os.path.join(self.dir, "toks.tmp.npy"))
+        ws = np.load(os.path.join(self.dir, "ws.tmp.npy"))
+        for f in ("toks.tmp.npy", "ws.tmp.npy"):
+            os.remove(os.path.join(self.dir, f))
+        return toks, ws, seconds, waited
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def make_mesh_for(dev):
+    """make_mesh(4) over four visible cards, else four positions on `dev`."""
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
+
+    if dev.type == "cuda" and torch.cuda.device_count() >= MESH_POSITIONS:
+        return make_mesh(MESH_POSITIONS), f"make_mesh({MESH_POSITIONS}): one stripe per card"
+    return (make_mesh(devices=[dev] * MESH_POSITIONS),
+            f"make_mesh(devices=[{dev}] * {MESH_POSITIONS}): the stripes share one card")
+
+
+def topk_arrays(index, q, k, two_phase=None):
+    """The index's raw (scores, global ids) of q's rows as numpy, batch by
+    batch through its layout's scan (`two_phase`: None or a mode)."""
+    parts = [index._scan(q[i:i + index._query_batch], k, two_phase)
+             for i in range(0, q.shape[0], index._query_batch)]
+    return (torch.cat([p[0] for p in parts]).cpu().numpy(),
+            torch.cat([p[1] for p in parts]).cpu().numpy())
+
+
+def same_arrays(got, want, rtol, what):
+    """(bit-equal, max relative score difference) of two (scores, ids)
+    pairs; ids must be equal, scores within rtol."""
+    (gs, gi), (ws, wi) = got, want
+    check(np.array_equal(gi, wi), f"{what}: ids equal the unsharded index's")
+    fin = np.isfinite(ws)
+    check(np.array_equal(np.isfinite(gs), fin), f"{what}: the same empty slots")
+    rel = float(np.max(np.abs(gs[fin] - ws[fin]) / np.maximum(np.abs(ws[fin]), 1e-30),
+                       initial=0.0))
+    check(rel <= rtol, f"{what}: scores within {rtol:g} relative ({rel:.3g})")
+    return bool(np.array_equal(gs, ws)), rel
+
+
+def same_hits(got, want, what):
+    check(len(got) == len(want) and all(list(g.items()) == list(w.items())
+                                        for g, w in zip(got, want)), f"{what}: the same answers")
+
+
+def timed_call(index, q_tok, q_w):
+    """One checked search_tokens call (its answers and flags), then the host
+    time of two more (each ends in the copy to the host), the host copies a
+    call makes, and the card's busy share of one call from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    syncs = index.host_syncs
+    hits = index.search_tokens(q_tok, q_w, k=MESH_K)
+    flags = (index.last_certified.copy(), index.last_escalated.copy(),
+             index.last_scan_escalated.copy())
+    syncs = index.host_syncs - syncs
+    t0 = time.perf_counter()
+    for _ in range(2):
+        index.search_tokens(q_tok, q_w, k=MESH_K)
+    call_ms = (time.perf_counter() - t0) / 2 * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        index.search_tokens(q_tok, q_w, k=MESH_K)
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    # the busy share against the call's time without the profiler (tracing
+    # every launch slows the host down)
+    return hits, flags, {"host_syncs_per_call": syncs, "call_ms": call_ms,
+                         "profiled_call_ms": prof_ms, "busy_ms": busy_ms,
+                         "busy_share": busy_ms / call_ms,
+                         "ops_per_call": sum(e.count for e in on_card)}
+
+
+def built(devs, make):
+    """(index, seconds, resident bytes, peak bytes) of make(), summed over
+    the cards `devs` (torch.cuda.memory_allocated and
+    max_memory_allocated)."""
+    devs = sorted(set(devs), key=str)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    torch.cuda.empty_cache()
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    base = [torch.cuda.memory_allocated(d) for d in devs]
+    t0 = time.perf_counter()
+    index = make()
+    for d in devs:
+        torch.cuda.synchronize(d)
+    seconds = time.perf_counter() - t0
+    return (index, seconds, sum(torch.cuda.memory_allocated(d) - b for d, b in zip(devs, base)),
+            sum(torch.cuda.max_memory_allocated(d) - b for d, b in zip(devs, base)))
+
+
+def mesh_scan(dev, mesh):
+    """12a: the scan of `big`'s 131 072 rows, unsharded, doc-sharded and
+    query-sharded; per-stripe two-phase against four unsharded indexes of
+    the stripes; the token entry; save and load with and without the mesh."""
+    from bench import make_corpus, make_queries
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+    from opensearch_sparse_model_tuning_sample_torch.parallel.collectives import merged_topk
+
+    t0 = time.time()
+    toks, ws = make_corpus(BIG_DOCS, BIG_VOCAB, avg_terms=110, seed=1, l_max=128)
+    q_tok, q_w = make_queries(MESH_QUERIES, BIG_VOCAB, n_terms=6, seed=3)
+    ids = [str(i) for i in range(BIG_DOCS)]
+    # big's configuration (build_big_index), on the exact scan
+    cfg = dict(engine="sparse", l_max=128, block_docs=2048, two_phase_mode="doc")
+
+    def index(rows=(toks, ws), ids=ids, shard_by="docs", **place):
+        ix = SparseIndex(BIG_VOCAB, IndexConfig(**cfg, shard_by=shard_by), **place)
+        ix.add_topk(ids, *rows)
+        ix.finalize()
+        return ix
+
+    single = index(device=dev)
+    q = single._token_query(q_tok, q_w)
+    want = topk_arrays(single, q, MESH_K)
+    want_hits = single.search(q, k=MESH_K)
+    out = {}
+    for shard_by in ("docs", "queries"):
+        ix = index(mesh=mesh, shard_by=shard_by)
+        bit, rel = same_arrays(topk_arrays(ix, q, MESH_K), want, MESH_SCAN_RTOL,
+                               f"12a {shard_by}-sharded scan")
+        got = ix.search(q, k=MESH_K)
+        check(all(list(g) == list(w) for g, w in zip(got, want_hits)),
+              f"12a {shard_by}-sharded scan: search() ids equal the unsharded")
+        out[shard_by] = {"bit_equal": bit, "max_rel": rel}
+        if shard_by == "docs":
+            sharded = ix
+    # two-phase "doc" per stripe, against an independent composition: four
+    # unsharded indexes of the stripes, two-phase on each, ids offset, merged
+    offs = [st.offset for st in sharded._stripes]
+    check(len(offs) == MESH_POSITIONS and offs[1] * MESH_POSITIONS >= BIG_DOCS,
+          f"12a: {MESH_POSITIONS} doc stripes ({offs})")
+    parts = [index(rows=(toks[o:o + offs[1]], ws[o:o + offs[1]]), ids=ids[o:o + offs[1]],
+                   device=dev) for o in offs]
+    comp_s, comp_i = [], []
+    for b0 in range(0, MESH_QUERIES, sharded._query_batch):
+        qb = q[b0:b0 + sharded._query_batch]
+        res = [p._scan(qb, MESH_K, "doc") for p in parts]
+        s_, i_ = merged_topk([r[0] for r in res],
+                             [torch.where(r[1] >= 0, r[1] + o, -1)
+                              for o, r in zip(offs, res)], MESH_K)
+        comp_s.append(s_)
+        comp_i.append(i_)
+    comp = (torch.cat(comp_s).cpu().numpy(), torch.cat(comp_i).cpu().numpy())
+    tp = topk_arrays(sharded, q, MESH_K, "doc")
+    bit_tp, rel_tp = same_arrays(tp, comp, MESH_SCAN_RTOL, "12a doc-sharded two-phase")
+    exact_overlap = float(np.mean([len(set(a) & set(b)) / max(len(b), 1) for a, b in zip(
+        tp[1].tolist(), want[1].tolist())]))
+    # the token entry on a mesh densifies and takes the mesh path
+    same_hits(sharded.search_tokens(q_tok, q_w, k=MESH_K), sharded.search(q, k=MESH_K),
+              "12a doc-sharded search_tokens against its dense entry")
+    path = os.path.join(OUT, "mesh", "scan.index")
+    sharded.save(path)
+    want_hits = sharded.search(q, k=MESH_K)
+    loaded_mesh = SparseIndex.load(path, mesh=mesh)
+    check(loaded_mesh._stripes is not None, "12a: load(path, mesh) is doc-sharded")
+    same_hits(loaded_mesh.search(q, k=MESH_K), want_hits, "12a load(path, mesh)")
+    same_hits(SparseIndex.load(path, device=dev).search(q, k=MESH_K), want_hits,
+              "12a load(path)")
+    out.update(two_phase={"bit_equal": bit_tp, "max_rel": rel_tp,
+                          "overlap_with_exact": exact_overlap},
+               seconds=time.time() - t0)
+    def scores(r):
+        return "bit-equal" if r["bit_equal"] else f"within {r['max_rel']:.3g} relative"
+
+    print(f"12a {BIG_DOCS}-doc scan, {MESH_QUERIES} queries, k={MESH_K}: doc-sharded ids equal "
+          f"the unsharded scan's, scores {scores(out['docs'])}; query-sharded ids equal, "
+          f"scores {scores(out['queries'])}; per-stripe two-phase (doc) ids equal the "
+          f"composition of {MESH_POSITIONS} unsharded stripe indexes (scores "
+          f"{scores(out['two_phase'])}; top-{MESH_K} overlap with exact "
+          f"{exact_overlap:.4f}); search_tokens equals the dense "
+          f"entry; save -> load(mesh) -> load() the same answers; {out['seconds']:.1f} s",
+          flush=True)
+    del single, sharded, parts, loaded_mesh, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_big(dev, mesh, corpus):
+    """12b: bench.py's 2 097 152-doc corpus (from `corpus`, a MeshCorpus) on
+    bench's inverted configuration with exact escalation, doc- and
+    query-sharded over the mesh; every answer held to the unsharded exact
+    scan's."""
+    from bench import make_queries
+    from opensearch_sparse_model_tuning_sample_torch.index import inverted
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+
+    t0 = time.time()
+    toks, ws, corpus_s, corpus_wait_s = corpus.result()
+    check(toks.shape == (MESH_DOCS, 96), f"the corpus is bench.py's ({toks.shape})")
+    load_s = time.time() - t0
+    q_tok, q_w = make_queries(MESH_QUERIES, BIG_VOCAB, n_terms=6, seed=3)
+    ids = [str(i) for i in range(MESH_DOCS)]
+    # bench.py:228-239's inverted configuration (its query batch, 128)
+    inv_cfg = dict(engine="inverted", l_max=96, block_docs=4096, query_batch=128,
+                   weight_dtype="bfloat16", postings_cap=8192, query_terms=8,
+                   inverted_rescore_expand=16, exact_escalate=True, postings_ext_cap=24576,
+                   deep_slots=0, deep_escalate=True, incremental_postings=False)
+
+    def make(cfg, **place):
+        def go():
+            ix = SparseIndex(BIG_VOCAB, IndexConfig(**cfg), **place)
+            ix.add_topk(ids, toks, ws)
+            ix.finalize()
+            return ix
+        return go
+
+    scan_cfg = dict(engine="sparse", l_max=96, block_docs=4096, query_batch=128,
+                    weight_dtype="bfloat16")
+    scan, scan_s, scan_bytes, _ = built([dev], make(scan_cfg, device=dev))
+    t1 = time.perf_counter()
+    want = scan.search_tokens(q_tok, q_w, k=MESH_K)
+    scan_ms = (time.perf_counter() - t1) * 1e3
+    del scan
+    torch.cuda.empty_cache()
+    out = {"corpus_s": corpus_s, "corpus_wait_s": corpus_wait_s, "corpus_load_s": load_s,
+           "scan": {"build_s": scan_s, "resident_bytes": scan_bytes,
+                                          "call_ms": scan_ms}}
+    for shard_by in ("docs", "queries"):
+        ix, build_s, resident, peak = built(
+            mesh.devices, make(dict(inv_cfg, shard_by=shard_by), mesh=mesh))
+        t1 = time.perf_counter()
+        hits, (cert, esc, scan_esc), timing = timed_call(ix, q_tok, q_w)
+        timing["calls_s"] = time.perf_counter() - t1
+        n_hits = check_same_topk(hits, want, f"12b {shard_by}-sharded", rtol=MESH_INV_RTOL)
+        check(cert.all(), f"12b {shard_by}-sharded: every query certified after escalation")
+        check(np.array_equal(esc, scan_esc), f"12b {shard_by}-sharded: escalation goes straight "
+              "to the mesh's exact scan (no deep tier on a mesh)")
+        # the escalated rows are the base pass's uncertified ones, but where
+        # the k-th score and the bound lie within 2 CERT_MARGIN
+        q = ix._token_query(q_tok, q_w)
+        fns = ix._inverted_fns(MESH_K, False, "inverted")
+        s, _, b = ix._in_batches(fns.base, q, fns.batch)
+        kth, b = s[:, -1].float().cpu().numpy(), b.float().cpu().numpy()
+        base_cert = inverted.certified_mask(kth, b) | ((q_w > 0).sum(axis=1) == 0)
+        with np.errstate(invalid="ignore"):
+            band = np.abs(kth - b) <= 2 * inverted.CERT_MARGIN * np.maximum(np.abs(kth),
+                                                                              np.abs(b))
+        off = (esc != ~base_cert) & ~band
+        check(not off.any(), f"12b {shard_by}-sharded: escalated rows are the uncertified ones "
+              f"outside 2 CERT_MARGIN ({int(off.sum())} differ)")
+        timing["checks_s"] = time.perf_counter() - t1 - timing["calls_s"]
+        out[shard_by] = dict(
+            timing, build_s=build_s, resident_bytes=resident, build_peak_bytes=peak,
+            postings_source=ix.postings_source, hits=n_hits,
+            certified_before_escalation=float(1 - esc.mean()), escalated=int(esc.sum()),
+            escalated_in_band=int((esc & band).sum()))
+        t1 = time.perf_counter()
+        del ix, q, s, b
+        torch.cuda.empty_cache()
+        out[shard_by]["free_s"] = time.perf_counter() - t1
+    out["seconds"] = time.time() - t0
+    for shard_by in ("docs", "queries"):
+        r = out[shard_by]
+        print(f"12b {MESH_DOCS}-doc inverted ({shard_by}-sharded, exact escalation): all "
+              f"{MESH_QUERIES} answers equal the unsharded exact scan's ({r['hits']} hits, "
+              f"rtol {MESH_INV_RTOL:g}); certified before escalation "
+              f"{r['certified_before_escalation']:.4f}, {r['escalated']} rows escalated; host "
+              f"syncs a call {r['host_syncs_per_call']}; a {MESH_QUERIES}-query call "
+              f"{r['call_ms']:.1f} ms (host clock), busy {r['busy_ms']:.1f} ms "
+              f"({r['busy_share']:.3f}; {r['profiled_call_ms']:.1f} ms profiled) over "
+              f"{r['ops_per_call']} device operations; build {r['build_s']:.1f} s (postings "
+              f"{r['postings_source']}), the calls {r['calls_s']:.1f} s, checks "
+              f"{r['checks_s']:.1f} s, freeing {r['free_s']:.1f} s; "
+              f"index on the card {r['resident_bytes'] / 2**30:.3f} GiB (peak during the build "
+              f"{r['build_peak_bytes'] / 2**30:.3f} GiB)", flush=True)
+    print(f"12b corpus made in {corpus_s:.1f} s by a process started with the script (waited "
+          f"{corpus_wait_s:.1f} s, loaded in {load_s:.1f} s); unsharded exact scan: build {scan_s:.1f} s, "
+          f"{scan_bytes / 2**30:.3f} GiB, a {MESH_QUERIES}-query call {scan_ms:.1f} ms; step "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def mesh_eval(dev, mesh, path, test_split):
+    """12c: eval.beir.evaluate_datasets of checkpoint-50 with the index over
+    the mesh, doc-sharded on the scan and on the inverted engine with
+    escalation; launches read around each; metrics against the main path's
+    unsharded evaluation."""
+    from opensearch_sparse_model_tuning_sample_torch.core.config import parse_config
+    from opensearch_sparse_model_tuning_sample_torch.eval import beir, trec_eval
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import SparseIndex
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+
+    t0 = time.time()
+    corpus, queries, qrels = test_split
+    ckpt, cfg = path["ckpt"], path["cfg"]
+    name = cfg["beir_datasets"].lower()
+    run_cfg = dict(cfg, model_name_or_path=ckpt, tokenizer_name=ckpt, device=str(dev))
+    ma, _, ta = parse_config(dict(run_cfg))
+    model = se.from_model_args(ma, seed=ta.seed, device=dev)  # as cli.evaluate_beir builds it
+    one_dir = os.path.join(cfg["output_dir"], "beir_eval")
+    single = SparseIndex.load(os.path.join(one_dir, f"{name}.index"), device=dev)
+    k_values = [1, 10, 100]
+
+    def metrics(index):
+        res = beir.search(queries, model, index, one_dir, name, max_length=512,
+                          batch_size=50, result_size=100)
+        ndcg, _map, recall, _ = trec_eval.evaluate(qrels, res["run_res"], k_values)
+        return {**ndcg, **_map, **recall}
+
+    want = metrics(single)
+    n_batches = -(-len(corpus) // cfg["per_device_eval_batch_size"])
+    out = {}
+    for run, over in (("docs_scan", {"index_engine": "sparse"}),
+                      ("docs_inverted", {"index_engine": "inverted",
+                                         "index_exact_escalate": True})):
+        ma, da, ta = parse_config(dict(run_cfg, output_dir=os.path.join(OUT, "mesh", run),
+                                       index_shard_by="docs", **over))
+        captured = {}
+        orig = beir.ingest
+
+        def ingest(*a, **kw):
+            captured["index"] = orig(*a, **kw)
+            return captured["index"]
+
+        beir.ingest = ingest
+        t1 = time.time()
+        reset_counters()
+        try:
+            avg = beir.evaluate_datasets([cfg["beir_datasets"]], lambda n: test_split, model, ma,
+                                         da, ta, os.path.join(ta.output_dir, "beir_eval"),
+                                         mesh=mesh)
+        finally:
+            beir.ingest = orig
+        launches, plain = read_counters()
+        seconds = time.time() - t1
+        index = captured["index"]
+        check(index.mesh is mesh and index._stripes is not None and not index._shard_queries,
+              f"12c {run}: the eval's index is doc-sharded over the mesh")
+        check(launches["maxpool_head"] == n_batches,
+              f"12c {run}: {launches['maxpool_head']} maxpool_head launches for {n_batches} "
+              "ingest batches")
+        check(not any(plain.values()), f"12c {run}: no plain version ran: {plain}")
+        got = metrics(index)
+        avg_d = {k: abs(avg[k] - path["avg"][k]) for k in path["avg"] if k != "qps"}
+        met_d = max(abs(got[k] - want[k]) for k in want)
+        check(all(v == 0 for v in avg_d.values()),
+              f"12c {run}: NDCG@10, Recall@100 and FLOPS equal the unsharded eval's: {avg_d}")
+        check(met_d == 0, f"12c {run}: NDCG, MAP and Recall at {k_values} equal ({met_d:.3g})")
+        if over["index_engine"] == "inverted":
+            check(avg["certified_frac"] == 1.0, f"12c {run}: every query certified")
+        out[run] = {"launches": launches["maxpool_head"], "seconds": seconds,
+                    "avg": avg, "metrics_max_diff": met_d, "engine": index._engine,
+                    "postings_source": index.postings_source}
+        print(f"12c evaluate_datasets over the mesh ({run}): {len(corpus)} docs, maxpool_head "
+              f"launches {launches['maxpool_head']} (plain 0), NDCG@10 {avg['NDCG@10']:.5f}, "
+              f"FLOPS {avg['flops']:.6f}: equal to the unsharded eval; NDCG, MAP and Recall at "
+              f"{k_values} of a search of the mesh index equal the unsharded index's; search "
+              f"{avg['qps']:.1f} q/s; {seconds:.1f} s", flush=True)
+        del index, captured
+    out["seconds"] = time.time() - t0
+    del single, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_merge(dev, mesh):
+    """12d: step 11b's two shard dirs merged onto the mesh, against their
+    unsharded merge."""
+    from bench import make_queries
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import SparseIndex
+
+    t0 = time.time()
+    eval_dir = os.path.join(DIST, "eval", "beir_eval")
+    shards = sorted(os.path.join(eval_dir, d) for d in os.listdir(eval_dir)
+                    if ".index.shard" in d and d.endswith("of2"))
+    check(len(shards) == 2, f"12d: step 11b's two shard dirs ({shards})")
+    onto = SparseIndex.merge_saved(shards, mesh=mesh)
+    flat = SparseIndex.merge_saved(shards, device=dev)
+    check(onto._stripes is not None and onto.doc_ids == flat.doc_ids,
+          "12d: merge_saved onto the mesh is doc-sharded, with the merged ids")
+    q_tok, q_w = make_queries(MESH_QUERIES, BIG_VOCAB, n_terms=6, seed=3)
+    got, want = onto.search_tokens(q_tok, q_w, k=100), flat.search_tokens(q_tok, q_w, k=100)
+    same_hits(got, want, "12d merge_saved(mesh) against the unsharded merge")
+    out = {"docs": onto.n_docs, "hits": sum(len(h) for h in got), "seconds": time.time() - t0}
+    print(f"12d merge_saved of step 11b's {len(shards)} shards onto the mesh: {onto.n_docs} docs; "
+          f"{MESH_QUERIES} token queries, top-100 equal to the unsharded merge's "
+          f"({out['hits']} hits); {out['seconds']:.1f} s", flush=True)
+    del onto, flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(dev, path, test_split, corpus):
+    """Step 12: the device mesh inside one process."""
+    from opensearch_sparse_model_tuning_sample_torch.parallel import collectives
+
+    t0 = time.time()
+    mesh, how = make_mesh_for(dev)
+    print(f"mesh: {how}; devices {[str(d) for d in mesh.devices]}", flush=True)
+    merges = collectives.merged_topk.calls
+    out = {"mesh": how, "devices": [str(d) for d in mesh.devices]}
+    out["12a"] = mesh_scan(dev, mesh)
+    out["12b"] = mesh_big(dev, mesh, corpus)
+    out["12c"] = mesh_eval(dev, mesh, path, test_split)
+    out["12d"] = mesh_merge(dev, mesh)
+    out["merged_topk_calls"] = collectives.merged_topk.calls - merges
+    out["seconds"] = time.time() - t0
+    print(f"mesh phase {out['seconds']:.1f} s (12a {out['12a']['seconds']:.1f}, 12b "
+          f"{out['12b']['seconds']:.1f}, 12c {out['12c']['seconds']:.1f}, 12d "
+          f"{out['12d']['seconds']:.1f}); merged_topk calls {out['merged_topk_calls']}",
+          flush=True)
+    return out
+
+
+
+def mesh_only(dev, card, mesh_corpus, t_start):
+    """`python3 chip_smoke.py --mesh-only`: steps 12a and 12b alone (they
+    need nothing of the main path), for a machine with four cards, where
+    the mesh is make_mesh(4): one stripe or replica per card."""
+    mesh, how = make_mesh_for(dev)
+    print(f"mesh: {how}; devices {[str(d) for d in mesh.devices]}", flush=True)
+    out = {"mesh": how, "devices": [str(d) for d in mesh.devices],
+           "12a": mesh_scan(dev, mesh), "12b": mesh_big(dev, mesh, mesh_corpus)}
+    print(f"total {time.time() - t_start:.1f} s", flush=True)
+    print("mesh: " + json.dumps(out))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    only_mesh = sys.argv[1:] == ["--mesh-only"]
     sys.path.insert(0, HERE)
     from opensearch_sparse_model_tuning_sample_torch.cli.evaluate_beir import prepare_model_args
     from opensearch_sparse_model_tuning_sample_torch.core.config import parse_config
@@ -2342,11 +2836,17 @@ def main():
     from opensearch_sparse_model_tuning_sample_torch.ops import kernel_build
 
     # 1. device
-    card = subprocess.run(
+    cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+    card = cards[0]
     dev = resolve_device("cuda")
+    # step 12's 2.1M-doc corpus, made on one host core while steps 1-11 run
+    mesh_corpus = MeshCorpus().start()
+    atexit.register(mesh_corpus.stop)
+    if only_mesh:
+        return mesh_only(dev, "; ".join(cards), mesh_corpus, t_start)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     import datasets
     import safetensors
@@ -2488,6 +2988,10 @@ def main():
     # 11. the multi-process launch: torchrun at world 1 on NCCL, two ranks'
     # eval ingest and mining on the card, the data CLIs
     dist_out = phase_distributed(dev, path, n_docs, (corpus, queries, qrels))
+
+    # 12. the device mesh inside one process: the scan, bench.py's 2.1M-doc
+    # corpus on the inverted engine, the eval and merge_saved over a mesh
+    mesh_out = phase_mesh(dev, path, (corpus, queries, qrels), mesh_corpus)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     main_row = rows[-1]  # the eval's own first batch
@@ -2507,6 +3011,8 @@ def main():
                           "eval_rank1": dist_out["11b"]["launches"][1],
                           "mine_rank0": dist_out["11c"]["launches"][0]["maxpool_head"],
                           "mine_rank1": dist_out["11c"]["launches"][1]["maxpool_head"]},
+        "mesh_launches": {run: mesh_out["12c"][run]["launches"]
+                          for run in ("docs_scan", "docs_inverted")},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -2562,6 +3068,7 @@ def main():
     print("inverted eval: " + json.dumps(inv_eval))
     print("distill: " + json.dumps(distill))
     print("distributed: " + json.dumps(dist_out))
+    print("mesh: " + json.dumps(mesh_out))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,26 +2,27 @@
 
 The PyTorch port of `opensearch_sparse_model_tuning_sample_tpu`, which stays
 in the repository as the reference. This package imports torch, never jax,
-and nothing of the JAX package. The ported slices so far are mine -> train ->
-evaluate: `cli.mine` (hard negatives from the exact index), `cli.train_ir`
-(losses, FLOPS regulariser, AdamW, checkpoint export) and
-`cli.evaluate_beir` (encode a corpus with the BERT-MLM sparse encoder, keep
-the top `l_max` (token, weight) pairs per doc, build the exact index,
-encode inference-free queries, search, score with trec_eval NDCG). The
-encoder's masked max-pool head is a hand-written Hopper kernel with a
-gradient (ops/maxpool.py + csrc/maxpool_head.cu, csrc/maxpool_head_bwd.cu).
+and nothing of the JAX package. It covers the JAX package's paths: mining
+(`cli.mine`), training with distillation and data-parallel launches
+(`cli.train_ir`), evaluation (`cli.evaluate_beir`), serving (`cli.serve`,
+`cli.search`), and the on-device index on one device or sharded over a
+mesh of devices inside one process (`make_mesh`). The encoder's masked
+max-pool head is a hand-written Hopper kernel with a gradient
+(ops/maxpool.py + csrc/maxpool_head.cu, csrc/maxpool_head_bwd.cu).
 
 Layout:
-    core/      config system + device/dtype policy
+    core/      config system + device/dtype policy + the device mesh
     models/    BERT-MLM module, sparse encoder, tokenizer, HF import
     ops/       activations, losses, FLOPS, the fused max-pool head + kernel build
     csrc/      CUDA sources of the kernels
     data/      corpus and training datasets, collator, loader
     train/     the train step and loop
     mine/      hard-negative mining
-    index/     the exact on-device sparse index (sparse scan + dense oracle)
+    parallel/  collectives (data-parallel train step, the mesh's merge) + dry run
+    index/     the on-device sparse index (scan, dense oracle, inverted engine;
+               single-device, doc- or query-sharded over a mesh)
     eval/      BEIR harness + trec-eval metrics + metrics sink
-    cli/       mine, train_ir and evaluate_beir entry points
+    cli/       the entry points (mine, train_ir, evaluate_beir, serve, search, ...)
 """
 
 __version__ = "0.1.0"
@@ -41,6 +42,10 @@ def __getattr__(name):
         from .models import tokenizer as _tok
 
         return getattr(_tok, name)
+    if name == "make_mesh":
+        from .core.mesh import make_mesh
+
+        return make_mesh
     if name == "resolve_device":
         from .core.device import resolve_device
 

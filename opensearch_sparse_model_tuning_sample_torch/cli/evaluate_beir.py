@@ -16,6 +16,11 @@ shard index; rank 0 merges the shards, searches, and writes the metrics:
 
     RANK=0 WORLD_SIZE=2 python -m ...cli.evaluate_beir cfg.yaml --device cuda:0 &
     RANK=1 WORLD_SIZE=2 python -m ...cli.evaluate_beir cfg.yaml --device cuda:0
+
+In one process the eval index is sharded over `make_mesh(dp_size)`: every
+visible card from the run's device on (`index_shard_by` picks docs or
+queries; one card is the single-device index), or one CPU with `--device
+cpu`. Under a launch of more ranks each rank's mesh is its own card.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import sys
 from ..core import distributed
 from ..core.config import parse_config, snapshot_config
 from ..core.device import resolve_device
+from ..core.mesh import process_mesh
 from ..eval.beir import eval_suffix, evaluate_datasets, resolve_dataset
 from ..models import sparse_encoder as se
 from ..ops import maxpool
@@ -102,12 +108,13 @@ def _evaluate(model_args, data_args, training_args, device):
     set_logging(training_args.output_dir, "eval_beir.log" if main_rank else None,
                 training_args.log_level)
     model = se.from_model_args(model_args, seed=training_args.seed, device=device)
+    mesh = process_mesh(device, training_args.dp_size, distributed.world_size())
 
     eval_dir = os.path.join(training_args.output_dir, f"beir_eval{suffix}")
     avg = evaluate_datasets(
         data_args.beir_datasets.split(","), _loader(data_args),
         model, model_args, data_args, training_args,
-        eval_dir, metrics_index="beir_eval",
+        eval_dir, mesh=mesh, metrics_index="beir_eval",
     )
     logger.info("BEIR avg: %s", avg)
 
@@ -132,7 +139,7 @@ def _evaluate(model_args, data_args, training_args, device):
                 nano_names, _loader(data_args), ckpt_model, model_args, data_args,
                 training_args,
                 os.path.join(training_args.output_dir, f"nano_beir_eval{suffix}"),
-                metrics_index="nano_beir_eval", step=step,
+                mesh=mesh, metrics_index="nano_beir_eval", step=step,
             )
     return avg
 

@@ -12,6 +12,9 @@ encoder exists). Runs on the CUDA card unless `--device cpu`.
 Multi-process (torchrun, or RANK/WORLD_SIZE with `--device cuda:0` for
 ranks that share a card): every rank ingests its corpus stripe and saves a
 shard index; rank 0 merges the shards, searches and writes the dataset.
+In one process the mining index is sharded over `make_mesh(dp_size)` as in
+`cli.evaluate_beir` (one card: the single-device index; `--device cpu`: one
+CPU).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import os
 from ..core import distributed
 from ..core.config import parse_config
 from ..core.device import resolve_device
+from ..core.mesh import process_mesh
 from ..eval.beir import resolve_dataset
 from ..mine.hard_negatives import mine_hard_negatives
 from ..models import sparse_encoder as se
@@ -73,6 +77,7 @@ def _mine(model_args, data_args, training_args, mining_args, device):
         batch_size=training_args.per_device_eval_batch_size,
         result_size=50,
         inf_free=model_args.inf_free,
+        mesh=process_mesh(device, training_args.dp_size, world_size),
         doc_inf_free=data_args.mine_doc_inf_free,
         rank=rank, world_size=world_size,
     )

@@ -205,9 +205,11 @@ class TrainingArguments:
     # Device the port runs on: "cuda" (the default; raises without a card)
     # or "cpu" on request (`--device cpu`). See core/device.py.
     device: str = "cuda"
-    # Data-parallel mesh size of the JAX package. The port runs one process
-    # per card (torchrun), so this is -1 or the launch's WORLD_SIZE; any other
-    # value raises (core/distributed.py::check_dp_size).
+    # Data-parallel mesh size of the JAX package. The trainer runs one
+    # process per card (torchrun), so there it is -1 or the launch's
+    # WORLD_SIZE; any other value raises (core/distributed.py::check_dp_size).
+    # cli.evaluate_beir and cli.mine in one process shard their index over
+    # make_mesh(dp_size) (core/mesh.py::process_mesh).
     dp_size: int = -1
     donate_state: bool = True
     profile_dir: Optional[str] = None

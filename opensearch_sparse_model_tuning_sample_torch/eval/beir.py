@@ -34,6 +34,7 @@ import numpy as np
 
 from ..core import distributed
 from ..data.datasets import BEIRCorpusDataset, HostShardDataset, KeyValueDataset
+from ..core.mesh import make_mesh
 from ..index.engine import IndexConfig, SparseIndex
 from ..models.sparse_encoder import SparseEncoderModel, get_batch_encoder
 from . import trec_eval
@@ -431,13 +432,15 @@ def ingest(
     max_length: int = 512,
     batch_size: int = 50,
     index_cfg: Optional[IndexConfig] = None,
+    mesh=None,
     doc_inf_free: bool = False,
     rank: int = 0,
     world_size: int = 1,
     barrier_timeout: float = 3600.0,
     dead_rank_grace: float = 300.0,
 ) -> SparseIndex:
-    """Encode a corpus and build the index on the model's device; write the
+    """Encode a corpus and build the index on the model's device, or
+    sharded over `mesh` (`core/mesh.py`) when one is given; write the
     corpus activation statistic `{index_name}.corpus.npy` under out_dir.
 
     With world_size > 1 each rank encodes its stripe of the corpus (item i
@@ -466,7 +469,7 @@ def ingest(
     # ranks run in one process in the threaded tests
     encoder = get_batch_encoder(model, max_length=max_length, do_count=True,
                                 scope=("ingest", rank, world_size))
-    index = SparseIndex(model.vocab_size, index_cfg, device=model.device)
+    index = SparseIndex(model.vocab_size, index_cfg, **_placement(mesh, model.device))
     t0 = time.time()
     n = len(dataset)
     if index.cfg.engine != "dense" and not doc_inf_free:
@@ -611,12 +614,18 @@ def search(
     return out
 
 
+def _placement(mesh, device) -> dict:
+    """SparseIndex's placement keywords: the mesh when there is one (the
+    index then lives on its first device), else the device."""
+    return {"mesh": mesh} if mesh is not None else {"device": device}
+
+
 def save_and_merge_shards(index: SparseIndex, index_dir: str, rank: int, world_size: int,
-                          device) -> Optional[SparseIndex]:
+                          device, mesh=None) -> Optional[SparseIndex]:
     """Every rank saves its stripe as `{index_dir}.shard{rank}of{world}` and
     marks it `.done`; rank 0 waits up to an hour for every marker (failing
     fast on a heartbeat stale for 300 s) and returns the merged index on
-    `device`. Other ranks return None."""
+    `mesh`, or on `device` without one. Other ranks return None."""
     parent, base = os.path.split(index_dir)
     liveness = _Liveness(parent, f"{base}.shards", rank, world_size, grace=300.0)
     liveness.beat(force=True)
@@ -634,7 +643,7 @@ def save_and_merge_shards(index: SparseIndex, index_dir: str, rank: int, world_s
         _await(lambda: os.path.exists(done), f"shard never finished: {p}",
                deadline - time.time(), liveness, r)
     liveness.clear_own()
-    return SparseIndex.merge_saved(shards, device=device)
+    return SparseIndex.merge_saved(shards, **_placement(mesh, device))
 
 
 # ---------------------------------------------------------------------------
@@ -680,22 +689,27 @@ def evaluate_datasets(
     data_args,
     training_args,
     eval_dir: str,
+    mesh=None,
     metrics_index: str = "beir_eval",
     step: Optional[str] = None,
     rank: Optional[int] = None,
     world_size: Optional[int] = None,
 ) -> Dict[str, float]:
     """Per dataset: load -> ingest -> search -> NDCG@10; write CSV + avg
-    JSON + metrics records. Returns avg_res. On the model's device.
+    JSON + metrics records. Returns avg_res. The index is sharded over
+    `mesh` when one is given, else on the model's device.
 
     Multi-process (rank/world_size, by default from the process group, else
     from RANK/WORLD_SIZE): every rank ingests its corpus stripe and saves a
     shard index `{name}.index.shard{r}of{w}` with a `.done` marker; rank 0
     merges the shards, searches and writes the metrics (reference: all
     ranks ingest, rank 0 searches, evaluate_beir.py:159-196). Other ranks
-    return {}."""
+    return {}; under such a launch each rank's mesh is its own device
+    (the stripes are process-local, and only rank 0 searches)."""
     if rank is None or world_size is None:
         rank, world_size = distributed.rank(), distributed.world_size()
+    if world_size > 1:
+        mesh = make_mesh(devices=[model.device])
     os.makedirs(eval_dir, exist_ok=True)
     k_values = [int(k) for k in getattr(data_args, "eval_k_values", None) or [1, 10]]
     if 10 not in k_values:  # NDCG@10 is the headline metric everywhere below
@@ -729,10 +743,11 @@ def evaluate_datasets(
                 max_length=data_args.eval_max_seq_length,
                 batch_size=training_args.per_device_eval_batch_size,
                 index_cfg=index_cfg_from_args(data_args),
-                rank=rank, world_size=world_size,
+                mesh=mesh, rank=rank, world_size=world_size,
             )
             if world_size > 1:
-                index = save_and_merge_shards(index, index_dir, rank, world_size, model.device)
+                index = save_and_merge_shards(index, index_dir, rank, world_size, model.device,
+                                              mesh)
                 if index is None:
                     continue
             # persist like the reference's OpenSearch node does implicitly:
@@ -741,7 +756,7 @@ def evaluate_datasets(
         else:
             if rank != 0:
                 continue
-            index = SparseIndex.load(index_dir, device=model.device)
+            index = SparseIndex.load(index_dir, **_placement(mesh, model.device))
         if not data_args.do_search:
             continue
         res = search(

@@ -1,5 +1,5 @@
 """On-device sparse retrieval engine (the port of the JAX package's
-`index/engine.py`, on one device).
+`index/engine.py`).
 
   * **sparse engine**: a doc-major forward index — per doc, up to L_max
     (token_id, weight) pairs, impact-sorted. Scoring walks doc blocks,
@@ -22,10 +22,25 @@ kernels). The serving surface is here too: `search_tokens` (the
 `neural_sparse` token->weight query, with the inverted engine's token-entry
 fast path), two-phase search, `reopen` for the add -> refresh -> add loop,
 and the async handle API the server calls, and `merge_saved` of the shards
-a multi-process ingest saved. A device mesh (the doc- and query-sharded
-index) raises NotImplementedError naming its ROADMAP item. Saved indexes
-use the JAX package's format 2, so an index saved by either package loads
-in the other.
+a multi-process ingest saved. Saved indexes use the JAX package's format 2,
+so an index saved by either package loads in the other.
+
+On a device mesh (`core/mesh.py`, more than one position) the index is
+sharded by `cfg.shard_by`:
+
+  * "docs": the padded corpus splits into one contiguous stripe per mesh
+    position, on its device, with the stripe's own postings (local doc
+    ids). A search runs on every stripe, offsets its ids to global ones and
+    merges the stripes' top-k on the mesh's first device (`merged_topk`);
+    the inverted engine's missed-score bound is the max of the stripes'.
+    Two-phase runs inside each stripe, before the merge.
+  * "queries": every position holds the whole index and answers a
+    contiguous slice of each query batch.
+
+Rows that the inverted engine's certificate does not cover escalate on the
+host, straight to the mesh's own exact scan (no deep tier, no block-max
+tail bound on a mesh). The token entry's fast path is single-device. A
+mesh of one position is the single-device index.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ import itertools
 import json
 import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import asdict, dataclass, fields
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -41,12 +57,12 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device, resolve_dtype
+from ..core.mesh import Mesh, replicate, shard_rows
+from ..parallel.collectives import merged_topk
 from . import inverted
 
 logger = logging.getLogger(__name__)
 
-_TODO_MESH = ("not ported yet: the doc- and query-sharded index inside one process is the "
-              "next slice (ROADMAP Queue 1: the device mesh)")
 _MIN_INVERTED_ROWS = 64
 
 
@@ -134,6 +150,21 @@ def _take_rows(q, idx: torch.Tensor):
     return torch.index_select(q, 0, idx)
 
 
+class _Stripe(NamedTuple):
+    """One mesh position's part of a sharded index, on its device: a doc
+    stripe (rows [offset, offset + len(docs)) of the padded corpus, its
+    postings holding local doc ids) or, under query sharding, a replica of
+    the whole index (offset 0)."""
+
+    device: torch.device
+    offset: int
+    docs: torch.Tensor
+    toks: Optional[torch.Tensor]  # None: the dense oracle
+    post_docs: Optional[torch.Tensor] = None
+    post_w: Optional[torch.Tensor] = None
+    ext: Optional[tuple] = None  # (ext_docs, ext_w, deep_map)
+
+
 class _InvertedFns(NamedTuple):
     """One (engine, k, two_phase) instantiation of the inverted search,
     bound to the index tensors of the finalize that built it (a handle
@@ -151,8 +182,9 @@ class _InvertedFns(NamedTuple):
 @dataclass
 class IndexConfig:
     """The JAX package's IndexConfig, field for field and with its
-    defaults, so saved metas and shared configs parse. Every field is live
-    except `shard_by` (a device mesh is not ported). The inverted knobs:
+    defaults, so saved metas and shared configs parse. `shard_by` ("docs"
+    or "queries") is the layout on a mesh of more than one position (see
+    the module docstring). The inverted knobs:
 
     * `postings_cap`, `query_terms`: the top-C postings kept per token, and
       the query term slots of one lookup.
@@ -227,19 +259,29 @@ class SparseIndex:
     """Host-facing index: accumulate sparse doc reps, finalize to device
     tensors, search.
 
-        idx = SparseIndex(vocab_size, cfg, device=...)
+        idx = SparseIndex(vocab_size, cfg, device=...)   # or mesh=make_mesh(...)
         idx.add_topk(ids, token_idx, weights)   # per encoded batch
         idx.finalize()
         hits = idx.search(q_reps, k=10)         # [{doc_id: score}, ...]
+
+    With a mesh, `device` is the mesh's first device (a `device` that
+    disagrees raises): results, the query batch and the merge live there.
     """
 
     def __init__(self, vocab_size: int, cfg: Optional[IndexConfig] = None,
-                 mesh=None, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(f"a device mesh is {_TODO_MESH}")
+                 mesh: Optional[Mesh] = None, device: DeviceLike = None):
         self.vocab_size = vocab_size
         self.cfg = cfg or IndexConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            first = resolve_device(mesh.devices[0])
+            if device is not None and resolve_device(device) != first:
+                raise ValueError(f"device {device!r} disagrees with the mesh {mesh}: the index "
+                                 f"lives on the mesh's first device, {first}")
+            self.device = first
+        else:
+            self.device = resolve_device(device)
+        self._shard_queries = False  # resolved at finalize()
         self.doc_ids: List[str] = []
         self._tok_chunks: List[np.ndarray] = []
         self._w_chunks: List[np.ndarray] = []
@@ -276,6 +318,8 @@ class SparseIndex:
         self._post_w: Optional[torch.Tensor] = None
         self._ext_docs = self._ext_w = self._deep_map = None  # tiered depths
         self._bm = self._bmap = self._bm_full = self._bmap_full = None  # block maxima
+        # a sharded index's per-position parts (None: the single layout)
+        self._stripes: Optional[List[_Stripe]] = None
         self._search_fns: Dict[tuple, _InvertedFns] = {}
 
     # ------------------------------------------------------------- ingest
@@ -346,6 +390,8 @@ class SparseIndex:
             inc = self.device.type == "cuda"
         if not inc:
             return False
+        if self.mesh is not None and self.mesh.size > 1 and self.cfg.shard_by != "queries":
+            return False  # a doc-sharded mesh builds each stripe's postings at finalize
         if self.cfg.engine == "inverted":
             return True
         return self.cfg.engine == "auto" and self.n_docs >= self.cfg.auto_threshold
@@ -420,10 +466,21 @@ class SparseIndex:
             self.cfg.engine == "auto" and self._engine == "inverted"
             if self.cfg.exact_escalate is None else bool(self.cfg.exact_escalate)
         )
+        n_shards = self.mesh.size if self.mesh is not None else 1
+        # query sharding replicates the index: every position holds all the
+        # rows and answers its slice of each query batch
+        self._shard_queries = n_shards > 1 and self.cfg.shard_by == "queries"
+        # the rounded batch lives on the index: written back into cfg it
+        # would change the caller's (shared, saved) config
         self._query_batch = self.cfg.query_batch
+        if self._shard_queries and self._query_batch % n_shards:
+            self._query_batch = _round_up(self._query_batch, n_shards)
+            logger.info("shard_by=queries: query_batch rounded up to %d (a multiple of %d "
+                        "mesh positions)", self._query_batch, n_shards)
+        stripes = 1 if self._shard_queries else n_shards
         blk = self.cfg.block_docs
         n = self.n_docs
-        n_pad = _round_up(max(n, 1), blk)
+        n_pad = _round_up(max(n, 1), blk * stripes)
         wdt = resolve_dtype(self.cfg.weight_dtype)
         self._clear_device()
         self.postings_source = None
@@ -431,7 +488,10 @@ class SparseIndex:
             D = (np.concatenate(self._dense_chunks, axis=0) if self._dense_chunks
                  else np.zeros((0, self.vocab_size), np.float32))
             D = np.concatenate([D, np.zeros((n_pad - n, self.vocab_size), np.float32)])
-            self._docs_dev = torch.from_numpy(D).to(self.device, wdt)
+            if stripes > 1:
+                self._finalize_stripes(D, None, wdt)
+            else:
+                self._docs_dev = torch.from_numpy(D).to(self.device, wdt)
         else:
             L = self.cfg.l_max
             toks = (np.concatenate(self._tok_chunks, axis=0) if self._tok_chunks
@@ -440,17 +500,86 @@ class SparseIndex:
                   else np.zeros((0, L), np.float32))
             toks = np.concatenate([toks, np.zeros((n_pad - n, L), np.int32)])
             ws = np.concatenate([ws, np.zeros((n_pad - n, L), np.float32)])
-            # token ids < 32768 fit int16 — halves the dominant index array
-            tok_dtype = np.int16 if self.vocab_size < 2**15 else np.int32
-            self._tok_dev = torch.from_numpy(toks.astype(tok_dtype)).to(self.device)
-            self._docs_dev = torch.from_numpy(ws).to(self.device, wdt)
-            if self._engine == "inverted":
-                self._finalize_postings(toks, ws, n, n_pad, wdt)
+            if stripes > 1:
+                self._finalize_stripes(ws, toks, wdt)
+            else:
+                self._tok_dev = torch.from_numpy(toks.astype(self._tok_dtype)).to(self.device)
+                self._docs_dev = torch.from_numpy(ws).to(self.device, wdt)
+                if self._engine == "inverted":
+                    self._finalize_postings(toks, ws, n, n_pad, wdt)
+        if self._shard_queries:
+            self._replicate()
         self._n_pad = n_pad
         self._tok_chunks, self._w_chunks, self._dense_chunks = [], [], []
         self._finalized = True
-        logger.info("index finalized: %d docs (padded %d) engine=%s device=%s postings=%s",
-                    n, n_pad, self._engine, self.device, self.postings_source)
+        logger.info("index finalized: %d docs (padded %d) engine=%s device=%s postings=%s "
+                    "shards=%d%s", n, n_pad, self._engine, self.device, self.postings_source,
+                    n_shards, " (by queries)" if self._shard_queries else "")
+
+    @property
+    def _tok_dtype(self):
+        # token ids < 32768 fit int16 — halves the dominant index array
+        return np.int16 if self.vocab_size < 2**15 else np.int32
+
+    def _finalize_stripes(self, ws, toks, wdt):
+        """The doc-sharded layout: stripe s (rows [s, s + 1) x n_pad / n of
+        the padded corpus) on mesh position s's device, and for the
+        inverted engine its own postings over its rows (local doc ids; each
+        stripe's build on one thread, a function of its rows, the stripes
+        built side by side). The extension rows are padded to the largest
+        stripe's deep-row count; every stripe keeps its own deep map. No
+        block-max tail bound on a mesh."""
+        mesh = self.mesh
+        docs = shard_rows(mesh, torch.from_numpy(ws).to(wdt))
+        tks = (shard_rows(mesh, toks.astype(self._tok_dtype)) if toks is not None
+               else [None] * mesh.size)
+        shard_n = ws.shape[0] // mesh.size
+        posts = [(None, None, None)] * mesh.size
+        if self._engine == "inverted":
+            posts = self._stripe_postings(toks, ws, shard_n, wdt)
+            self.postings_source = "per-stripe"
+        self._stripes = [_Stripe(dev, s * shard_n, docs[s], tks[s], *posts[s])
+                         for s, dev in enumerate(mesh.devices)]
+
+    def _stripe_postings(self, toks, ws, shard_n, wdt):
+        """[(post_docs, post_w, ext | None)] per stripe, on its device."""
+        cfg, mesh = self.cfg, self.mesh
+
+        def build(s):
+            sl = slice(s * shard_n, (s + 1) * shard_n)
+            pd, pw = inverted.build_postings(toks[sl], ws[sl], self.vocab_size, self._build_cap)
+            if cfg.postings_ext_cap <= 0:
+                return pd, pw, None
+            bd, bw, ed, ew, dm = inverted.split_postings(pd, pw, cfg.postings_cap)
+            return bd, bw, (ed, ew, dm)
+
+        with ThreadPoolExecutor(max_workers=min(mesh.size, os.cpu_count() or 1)) as pool:
+            built = list(pool.map(build, range(mesh.size)))
+        rows = max((ext[0].shape[0] for *_, ext in built if ext is not None), default=0)
+        out = []
+        for dev, (pd, pw, ext) in zip(mesh.devices, built):
+            if ext is not None:
+                ed, ew, dm = ext
+                pad = ((0, rows - ed.shape[0]), (0, 0))  # all-padding rows: no token maps there
+                ext = (torch.from_numpy(np.pad(ed, pad, constant_values=inverted._PAD_ID)).to(dev),
+                       torch.from_numpy(np.pad(ew, pad)).to(dev, wdt),
+                       torch.from_numpy(dm).to(dev))
+            out.append((torch.from_numpy(pd).to(dev), torch.from_numpy(pw).to(dev, wdt), ext))
+        return out
+
+    def _replicate(self):
+        """The query-sharded layout: the single layout's tensors (built on
+        the first device) copied to every mesh position's device."""
+        parts = [self._docs_dev, self._tok_dev, self._post_docs, self._post_w]
+        reps = [replicate(self.mesh, t) if t is not None else [None] * self.mesh.size
+                for t in parts]
+        ext = None
+        if self._ext_docs is not None:
+            ext = list(zip(*(replicate(self.mesh, t)
+                             for t in (self._ext_docs, self._ext_w, self._deep_map))))
+        self._stripes = [_Stripe(dev, 0, reps[0][s], reps[1][s], reps[2][s], reps[3][s],
+                                 ext[s] if ext is not None else None)
+                         for s, dev in enumerate(self.mesh.devices)]
 
     def _finalize_postings(self, toks, ws, n, n_pad, wdt):
         """The inverted engine's device tensors: postings (finishing the
@@ -474,9 +603,10 @@ class SparseIndex:
             self._deep_map = torch.from_numpy(dm).to(self.device)
         self._post_docs = torch.from_numpy(np.ascontiguousarray(pd)).to(self.device)
         self._post_w = torch.from_numpy(np.ascontiguousarray(pw)).to(self.device, wdt)
-        if cfg.tail_block_docs > 0:
-            # one per entry mode's shallowest read: postings_cap for the
-            # inf-free and token paths, full_postings_cols for full forward
+        if cfg.tail_block_docs > 0 and not self._shard_queries:
+            # (one device only, as in JAX) one per entry mode's shallowest
+            # read: postings_cap for the inf-free and token paths,
+            # full_postings_cols for full forward
             (bm, bmap), (bmf, bmapf) = inverted.build_tail_blockmax_multi(
                 toks[:n] if n else toks, ws[:n] if n else ws, self.vocab_size,
                 (cfg.postings_cap, min(cfg.full_postings_cols, cfg.postings_cap)),
@@ -491,9 +621,11 @@ class SparseIndex:
         weights through their stored dtype to fp32, the precision search
         uses), drop the device state, and let add()/add_topk() append. This
         is the serving surface's _bulk -> _refresh -> search -> _bulk loop.
-        doc_ids stays append-only. An inverted index seeds the next postings
-        postings build with its merged postings (weights through fp32 as stored),
-        so the next finalize merges only the new rows."""
+        doc_ids stays append-only. An inverted index of a single layout (one
+        device, or query-sharded) seeds the next postings build with its
+        merged postings (weights through fp32 as stored), so the next
+        finalize merges only the new rows; doc stripes are gathered back in
+        order and rebuilt."""
         if not self._finalized:
             return
         seed = None
@@ -503,9 +635,10 @@ class SparseIndex:
         self._discard_incremental()
         n = self.n_docs
         if n:
-            w = self._docs_dev[:n].float().cpu().numpy()
-            if self._tok_dev is not None:
-                self._tok_chunks = [self._tok_dev[:n].cpu().numpy().astype(np.int32)]
+            docs, toks = self._stored_rows()
+            w = docs[:n].float().cpu().numpy()
+            if toks is not None:
+                self._tok_chunks = [toks[:n].cpu().numpy().astype(np.int32)]
                 self._w_chunks = [w]
             else:  # dense engine: the padded [n_pad, V] matrix
                 self._dense_chunks = [w]
@@ -516,6 +649,17 @@ class SparseIndex:
                 self.vocab_size, self.cfg.postings_cap,
                 unit=max(self.cfg.incremental_unit, 1), seed=seed)
             self._inc_fed = n
+
+    def _stored_rows(self):
+        """(weights, token ids | None) of the whole padded corpus as stored:
+        the single layout's tensors (a query-sharded index's first replica),
+        or the doc stripes gathered to the host in order."""
+        if self._stripes is not None and not self._shard_queries:
+            docs = torch.cat([st.docs.cpu() for st in self._stripes])
+            if self._stripes[0].toks is None:
+                return docs, None
+            return docs, torch.cat([st.toks.cpu() for st in self._stripes])
+        return self._docs_dev, self._tok_dev
 
     def delete(self):
         """Release all index state (the analog of OpenSearch
@@ -529,12 +673,13 @@ class SparseIndex:
 
     # ------------------------------------------------------------- search
     def _topk_batch(self, q: torch.Tensor, k: int, two_phase: Optional[str] = None,
-                    rows=None):
+                    rows=None, offset: int = 0):
         """Top-k of one query batch q [Bq, V] fp32 over every doc block,
         merged into a running top-k (engine.py make_scan_topk: the sparse
         scan and the dense oracle). Returns (scores, doc idx). `rows` =
         (docs, toks) to scan, the index's own by default; toks None is the
-        dense oracle.
+        dense oracle. `offset` is the global id of rows[0] (a doc stripe's
+        first row): the returned ids are global.
 
         `two_phase` ("query" or "doc", sparse engine only; the dense oracle
         ignores it) makes phase 1 approximate: "query" scores only the query
@@ -567,16 +712,50 @@ class SparseIndex:
                 tok = toks[b0:b0 + blk, :n_terms].to(torch.int64)
                 g = torch.index_select(q1, 1, tok.reshape(-1)).view(Bq, *tok.shape)
                 s = (g * docs[b0:b0 + blk, :n_terms].float()).sum(dim=-1)
-            gidx = torch.arange(b0, b0 + s.shape[1], device=q.device).expand(Bq, -1)
+            gidx = torch.arange(offset + b0, offset + b0 + s.shape[1],
+                                device=q.device).expand(Bq, -1)
             best_s, best_i = _select(torch.cat([best_s, s], dim=1),
                                      torch.cat([best_i, gidx], dim=1), k1)
         if not two_phase:
             return best_s, best_i
         # phase 2: the pool rescored exactly; empty slots (id -1) score -inf
-        cand = best_i.clamp(0, docs.shape[0] - 1)
+        cand = (best_i - offset).clamp(0, docs.shape[0] - 1)
         g = torch.gather(q, 1, toks[cand].to(torch.int64).view(Bq, -1)).view(Bq, k1, -1)
         s2 = (g * docs[cand].float()).sum(dim=-1)
         return _select(torch.where(best_i >= 0, s2, float("-inf")), best_i, k)
+
+    def _scan(self, q: torch.Tensor, k: int, two_phase: Optional[str] = None, stripes=None):
+        """`_topk_batch` of one query batch q [Bq, V] (on self.device) in
+        the index's layout: the single layout's rows; each doc stripe on its
+        device with its ids offset, the stripes' top-k merged on self.device;
+        or, query-sharded, a slice of q's rows on each replica. `stripes`
+        (default: the index's own) pins the parts of one finalize."""
+        stripes = self._stripes if stripes is None else stripes
+        if stripes is None:
+            return self._topk_batch(q, k, two_phase)
+        if self._shard_queries:  # (the layout of every finalize of this index)
+            return self._on_slices(q, stripes, lambda s, qs: self._topk_batch(
+                qs, k, two_phase, rows=(stripes[s].docs, stripes[s].toks)))
+        parts = [self._topk_batch(q.to(st.device), k, two_phase, rows=(st.docs, st.toks),
+                                  offset=st.offset) for st in stripes]
+        return merged_topk([p[0] for p in parts], [p[1] for p in parts], k)
+
+    def _on_slices(self, q, stripes, fn):
+        """fn(s, rows) over q's rows split into one contiguous slice per mesh
+        position s (the query-sharded layout), each slice on position s's
+        device; the outputs concatenated in order on self.device.
+        Every row is computed on its own, so the split changes no answer."""
+        n = _n_rows(q)
+        per = -(-n // len(stripes))
+        outs = []
+        for s, st in enumerate(stripes):
+            if s * per >= n:
+                break
+            sl = slice(s * per, (s + 1) * per)
+            rows = (tuple(a[sl].to(st.device) for a in q) if isinstance(q, tuple)
+                    else q[sl].to(st.device))
+            outs.append(fn(s, rows))
+        return tuple(torch.cat([o[j].to(self.device) for o in outs]) for j in range(len(outs[0])))
 
     def _escalate_for(self, engine: Optional[str], two_phase: bool = False) -> bool:
         """Whether a search path escalates: full-forward lookups follow
@@ -618,8 +797,9 @@ class SparseIndex:
                           token_entry=is_tok)
         ext = None
         if self._ext_docs is not None:
-            inv_kw["deep_slots"] = cfg.deep_slots
             ext = (self._ext_docs, self._ext_w, self._deep_map)
+        if ext is not None or (self._stripes is not None and self._stripes[0].ext is not None):
+            inv_kw["deep_slots"] = cfg.deep_slots
         if two_phase and cfg.two_phase_mode == "query" and inv_kw["rescore"] and not is_tok:
             # the reference's two-phase: lookup sees only the high-weight
             # terms; the rescore and the bound see the whole query
@@ -633,6 +813,17 @@ class SparseIndex:
             # the width routing guarantees every active term wins a slot:
             # the rescore rebuilds the query from the slots
             inv_kw["match_rescore"] = True
+        # rows per call: query_batch, but at least _MIN_INVERTED_ROWS: every
+        # row is computed on its own, and each call is a few hundred small
+        # device operations whose launches the host pays for
+        batch = max(self._query_batch, _MIN_INVERTED_ROWS)
+        if self._stripes is not None:
+            if self._shard_queries:
+                batch = _round_up(batch, len(self._stripes))
+            fns = _InvertedFns(self._mesh_base(k, inv_kw), None,
+                               self._mesh_scan(k), esc, is_tok, batch, self.vocab_size)
+            self._search_fns[key] = fns
+            return fns
         tensors = (self._post_docs, self._post_w, self._tok_dev, self._docs_dev)
         raw = inverted.make_search_fn(*tensors, **inv_kw)
         deep_raw = None
@@ -657,13 +848,42 @@ class SparseIndex:
         def scan(qd):
             return self._topk_batch(qd, k, None, rows=rows)
 
-        # rows per call: query_batch, but at least _MIN_INVERTED_ROWS: every
-        # row is computed on its own, and each call is a few hundred small
-        # device operations whose launches the host pays for
         fns = _InvertedFns(base, deep if deep_raw is not None else None, scan, esc, is_tok,
-                           max(self._query_batch, _MIN_INVERTED_ROWS), self.vocab_size)
+                           batch, self.vocab_size)
         self._search_fns[key] = fns
         return fns
+
+    def _mesh_base(self, k: int, inv_kw: dict):
+        """The inverted base pass on a mesh: qb [Bq, V] -> (scores, global
+        ids, bound) on self.device. Doc-sharded: every stripe searches its
+        own postings and rows, its local ids offset to global ones (-1
+        stays -1), the stripes' top-k merged, and the bound is the max of
+        the stripes' bounds (a missed doc lives in exactly one stripe).
+        Query-sharded: each replica answers its slice of the batch."""
+        stripes = self._stripes
+        raws = [inverted.make_search_fn(st.post_docs, st.post_w, st.toks, st.docs, **inv_kw)
+                for st in stripes]
+
+        def run(s, qb):
+            st = stripes[s]
+            return raws[s](qb, st.post_docs, st.post_w, st.toks, st.docs, st.ext, None)
+
+        if self._shard_queries:
+            return lambda qb: self._on_slices(qb, stripes, run)
+
+        def base(qb):
+            outs = [run(s, qb.to(st.device)) for s, st in enumerate(stripes)]
+            ids = [torch.where(i >= 0, i + st.offset, -1) for (_, i, _), st in zip(outs, stripes)]
+            s, i = merged_topk([o[0] for o in outs], ids, k)
+            return s, i, torch.stack([o[2].to(self.device) for o in outs]).amax(dim=0)
+
+        return base
+
+    def _mesh_scan(self, k: int):
+        """The mesh's exact scan (the escalation target), sharded as the
+        index is, over the parts of this finalize."""
+        stripes = self._stripes
+        return lambda qd: self._scan(qd, k, None, stripes)
 
     @staticmethod
     def _in_batches(fn, q, batch: int):
@@ -832,7 +1052,7 @@ class SparseIndex:
             return self._collect_results(s_np, i_np, n_q, k, exclude_self)
         Bq = self._query_batch
         mode = self.cfg.two_phase_mode if two_phase else None
-        parts = [self._topk_batch(q[i:i + Bq], k_eff, mode) for i in range(0, n_q, Bq)]
+        parts = [self._scan(q[i:i + Bq], k_eff, mode) for i in range(0, n_q, Bq)]
         s_np, i_np, _, _ = _fetch_packed(torch.cat([p[0] for p in parts]),
                                          torch.cat([p[1] for p in parts]), n_q)
         self.host_syncs += 1
@@ -895,13 +1115,14 @@ class SparseIndex:
     def _tokens_fast_eligible(self, q_tokens: np.ndarray, q_weights: np.ndarray,
                               kw: dict) -> bool:
         """The token-entry fast path's routing predicate: a finalized
-        inverted index, slot width within `query_terms`, no two-phase, no
+        single-device inverted index, slot width within `query_terms`, no two-phase, no
         unknown kwargs, and no duplicate active token id in a row (there
         query_prune would threshold per slot here and per merged weight on
         the dense path). The exact engines never qualify."""
         if not (
             self._finalized
             and self._engine == "inverted"
+            and (self.mesh is None or self.mesh.size == 1)
             and q_tokens.shape[1] <= self.cfg.query_terms
             and not kw.get("two_phase", False)
             and kw.get("full_forward", None) in (None, False)
@@ -1013,13 +1234,14 @@ class SparseIndex:
             raise RuntimeError("call finalize() first")
         os.makedirs(path, exist_ok=True)
         arrs = {"count_tensor": self.count_tensor}
-        w = self._docs_dev.cpu()
+        docs, toks = self._stored_rows()  # global rows, whatever the layout
+        w = docs.cpu()
         if w.dtype == torch.bfloat16:  # lossless: the raw bit pattern
             arrs["weights_bf16"] = w.view(torch.int16).numpy().view(np.uint16)
         else:
             arrs["weights"] = w.numpy()
-        if self._tok_dev is not None:
-            arrs["tokens"] = self._tok_dev.cpu().numpy()
+        if toks is not None:
+            arrs["tokens"] = toks.cpu().numpy()
         np.savez_compressed(os.path.join(path, "index.npz"), **arrs)
         meta = {
             "format": 2,

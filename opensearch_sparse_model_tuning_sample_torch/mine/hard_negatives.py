@@ -36,6 +36,7 @@ def mine_hard_negatives(
     result_size: int = 50,
     inf_free: bool = True,
     index_cfg: Optional[IndexConfig] = None,
+    mesh=None,
     doc_inf_free: bool = False,
     rank: int = 0,
     world_size: int = 1,
@@ -46,6 +47,8 @@ def mine_hard_negatives(
     `doc_inf_free=True` mines against the idf-weighted lexical index: the
     offline bootstrap when no pretrained encoder is available (the reference
     mines with a pretrained doc-v2 model, demo_train_data.py).
+
+    `mesh`: shard the mining index over a device mesh (`core/mesh.py`).
 
     Multi-process (reference: all ranks ingest, rank 0 searches and writes,
     demo_train_data.py:43-66): every rank encodes its corpus stripe and
@@ -61,9 +64,9 @@ def mine_hard_negatives(
             pass
     index = ingest(BEIRCorpusDataset(corpus), model, out_dir, index_name,
                    max_length=max_length, batch_size=batch_size, index_cfg=index_cfg,
-                   doc_inf_free=doc_inf_free, rank=rank, world_size=world_size)
+                   mesh=mesh, doc_inf_free=doc_inf_free, rank=rank, world_size=world_size)
     if world_size > 1:
-        index = save_and_merge_shards(index, index_dir, rank, world_size, model.device)
+        index = save_and_merge_shards(index, index_dir, rank, world_size, model.device, mesh)
         if index is None:
             return []
     res = search(queries, model, index, out_dir, index_name, max_length=max_length,

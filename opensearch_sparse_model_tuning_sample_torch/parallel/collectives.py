@@ -1,5 +1,6 @@
-"""Collectives of the data-parallel train step (the port of the JAX
-package's `parallel/collectives.py::all_gather_batch`).
+"""Collectives: those of the data-parallel train step and those of the
+device mesh inside one process (the port of the JAX package's
+`parallel/collectives.py`).
 
 The reference's whole custom comm surface is `gather_rep`: an all-gather
 along the batch dim whose backward keeps only this rank's slice of the
@@ -9,15 +10,23 @@ gradients are summed (not averaged) over ranks in one flattened bucket, so
 the update is the gradient of the global-batch loss, as JAX's jitted global
 step computes it. Each function counts its calls (`.calls`), so a run can
 show that its step went through them.
+
+Over the mesh of one process (`core/mesh.py`) a collective is a copy to the
+mesh's first device: `merged_topk` merges the shards' top-k lists there
+(the sharded index's merge), and `global_batch_fn` runs a function on the
+gathered global batch on every device.
 """
 
 from __future__ import annotations
 
-from typing import List
+import inspect
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+from ..core.mesh import shard_rows
 
 
 class _AllGatherBatch(torch.autograd.Function):
@@ -66,6 +75,59 @@ def all_reduce_grads(params: List[torch.Tensor]) -> None:
 
 
 all_reduce_grads.calls = 0
+
+
+def merged_topk(scores: Sequence[torch.Tensor], indices: Sequence[torch.Tensor], k: int):
+    """The global top-k of per-shard [B, k] top-k lists (scores and global
+    ids): the shards' lists concatenated in shard order on the first
+    shard's device (the all-gather's counterpart), then a stable top-k, so
+    that ties go to the lower shard (the lower global doc id), as
+    `lax.top_k` over JAX's concatenation keeps them. Counts its calls."""
+    from ..index.engine import _select
+
+    merged_topk.calls += 1
+    dev = scores[0].device
+    cat_s = torch.cat([s.to(dev) for s in scores], dim=1)
+    cat_i = torch.cat([i.to(dev) for i in indices], dim=1)
+    return _select(cat_s, cat_i, k)
+
+
+merged_topk.calls = 0
+
+
+def _cat_outputs(outs, dev):
+    """Per-device outputs (tensors, or tuples of them) concatenated on dim
+    0 on `dev`, leaf by leaf."""
+    if isinstance(outs[0], (tuple, list)):
+        return type(outs[0])(_cat_outputs([o[j] for o in outs], dev) for j in range(len(outs[0])))
+    return torch.cat([o.to(dev) for o in outs])
+
+
+def global_batch_fn(fn, mesh, *, replicated_out: bool = True, n_args: Optional[int] = None):
+    """Wrap `fn(global arrays...) -> out` so that every device of the mesh
+    runs it on the gathered global batch: each argument's rows are sharded
+    over the mesh and gathered back on every device. With `replicated_out`
+    the call returns the first device's output (every device computed the
+    same); otherwise the devices' outputs concatenated on dim 0 on the
+    first device, as JAX's out spec P("data") assembles them. Pass `n_args`
+    for callables whose positional arity `inspect.signature` cannot see."""
+    if n_args is None:
+        params = inspect.signature(fn).parameters.values()
+        if any(p.kind == p.VAR_POSITIONAL for p in params):
+            raise TypeError("global_batch_fn needs an explicit n_args for *args callables")
+        n_args = sum(p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD) for p in params)
+
+    def wrapped(*args):
+        if len(args) != n_args:
+            raise TypeError(f"global_batch_fn: {len(args)} arguments for n_args={n_args}")
+        shards = [shard_rows(mesh, a) for a in args]
+        # with a replicated output every device computes the same value:
+        # the first one's is the result
+        devices = mesh.devices[:1] if replicated_out else mesh.devices
+        outs = [fn(*[torch.cat([s.to(dev) for s in sh]) for sh in shards]) for dev in devices]
+        return outs[0] if replicated_out else _cat_outputs(outs, mesh.devices[0])
+
+    return wrapped
 
 
 def counts() -> dict:

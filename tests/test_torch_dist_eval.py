@@ -250,6 +250,39 @@ def test_evaluate_datasets_two_ranks_merge_and_search_like_jax(models, synth, tm
     assert r1b == {} and r0b["NDCG@10"] == r0["NDCG@10"] and r0b["flops"] == r0["flops"]
 
 
+@pytest.mark.parametrize("engine,shard_by", [("sparse", "docs"), ("sparse", "queries"),
+                                             ("inverted", "docs")])
+def test_evaluate_datasets_on_a_mesh_like_jax(models, synth, tmp_path, monkeypatch, mesh8,
+                                              engine, shard_by):
+    """One process, the eval index sharded over an 8-position CPU mesh
+    (doc- or query-sharded; the inverted engine with exact escalation): the
+    metrics equal JAX's evaluate_datasets on mesh8 and the port's unsharded
+    evaluation."""
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
+
+    jm, tm = models
+    monkeypatch.setenv("METRICS_DIR", str(tmp_path / "metrics"))
+    over = dict(index_engine=engine, index_shard_by=shard_by, index_postings_cap=16,
+                index_exact_escalate=engine == "inverted")
+    ma, da, ta = _eval_args(tconfig, tmp_path / "t", device="cpu", **over)
+    got = tbeir.evaluate_datasets(["synthetic"], lambda name: synth, tm, ma, da, ta,
+                                  str(tmp_path / "t_eval"), mesh=make_mesh(devices=["cpu"] * 8),
+                                  rank=0, world_size=1)
+    single = tbeir.evaluate_datasets(["synthetic"], lambda name: synth, tm, ma, da, ta,
+                                     str(tmp_path / "t_single"), rank=0, world_size=1)
+    jma, jda, jta = _eval_args(jconfig, tmp_path / "j", **over)
+    want = jbeir.evaluate_datasets(["synthetic"], lambda name: synth, jm, jma, jda, jta,
+                                   str(tmp_path / "j_eval"), mesh=mesh8, rank=0, world_size=1)
+    assert want["NDCG@10"] > 0.8  # retrieval works, so the rankings compare
+    for ref in (want, single):
+        for k in ("NDCG@10", "Recall@100"):
+            assert got[k] == pytest.approx(ref[k], abs=1e-6), k
+        for k in ("flops", "d_length", "q_length"):
+            assert got[k] == pytest.approx(ref[k], rel=1e-6), k
+    if engine == "inverted":
+        assert got["certified_frac"] == 1.0
+
+
 def _key(rows):
     return sorted((r["query"], r["pos"], tuple(sorted(r["negs"]))) for r in rows)
 

@@ -583,6 +583,69 @@ def test_inverted_out_of_range_token_ids_on_the_card_do_not_assert(cuda):
     assert torch.ones(1, device=cuda).item() == 1.0
 
 
+# ---- the device mesh inside one process (core/mesh.py) ---------------------
+
+
+def _mesh_pair(cuda, shard_by, **kw):
+    """The same corpus on a four-position mesh on the CPU and on a
+    four-position mesh on one card (make_mesh(devices=["cuda:0"] * 4))."""
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+
+    (cpu1, _), q_tok, q_w, V = _inverted_pair(cuda, postings_cap=16)
+    n = cpu1.n_docs
+    toks, ws = cpu1._tok_dev[:n].numpy().astype(np.int32), cpu1._docs_dev[:n].numpy()
+    out = []
+    for dev in ("cpu", f"cuda:{torch.cuda.current_device()}"):
+        cfg = IndexConfig(l_max=48, block_docs=256, query_batch=16, weight_dtype="float32",
+                          shard_by=shard_by, two_phase_mode="doc", two_phase_terms=8, **kw)
+        idx = SparseIndex(V, cfg, mesh=make_mesh(devices=[dev] * 4))
+        idx.add_topk([f"d{i}" for i in range(n)], toks, ws)
+        idx.finalize()
+        assert len(idx._stripes) == 4
+        out.append(idx)
+    return out, q_tok, q_w
+
+
+_MESH_MODES = {
+    "scan": dict(engine="sparse"),
+    "two_phase_doc": dict(engine="sparse"),
+    "inverted_escalation": dict(engine="inverted", postings_cap=16, exact_escalate=True),
+}
+
+
+@pytest.mark.parametrize("shard_by", ["docs", "queries"])
+@pytest.mark.parametrize("mode", list(_MESH_MODES))
+def test_mesh_on_the_card_equals_the_mesh_on_the_cpu(cuda, mode, shard_by):
+    """Doc- and query-sharded layouts over four positions of one card answer
+    as the same mesh on the CPU: the scan, per-stripe two-phase and the
+    inverted engine with the host escalation (every row certified)."""
+    (cpu, card), q_tok, q_w = _mesh_pair(cuda, shard_by, **_MESH_MODES[mode])
+    assert all(st.device.type == "cuda" for st in card._stripes)
+    kw = dict(two_phase=True) if mode == "two_phase_doc" else {}
+    got = card.search_tokens(q_tok, q_w, k=10, **kw)
+    torch.cuda.synchronize()
+    ref = cpu.search_tokens(q_tok, q_w, k=10, **kw)
+    if mode == "inverted_escalation":
+        _close_hits(got, ref)
+        assert card.last_certified.all() and cpu.last_certified.all()
+        np.testing.assert_array_equal(card.last_escalated, card.last_scan_escalated)
+    else:
+        _same_hits(got, ref)
+
+
+def test_mesh_whose_device_disagrees_raises(cuda):
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+
+    mesh = make_mesh(devices=[cuda] * 2)
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        SparseIndex(100, IndexConfig(), mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        SparseIndex(100, IndexConfig(), mesh=make_mesh(devices=["cpu"] * 2), device=cuda)
+    assert SparseIndex(100, IndexConfig(), mesh=mesh, device=cuda).device == mesh.devices[0]
+
+
 # ---- knowledge distillation: teachers on the card (train/teachers.py) -----
 
 

@@ -40,8 +40,35 @@ def test_port_has_the_slice_modules():
                  "mine.hard_negatives", "cli.mine", "cli.serve", "cli.search",
                  "train.teachers", "train.embedding_store", "cli.make_kd_scores",
                  "core.distributed", "parallel.collectives", "cli.prepare_msmarco",
-                 "cli.import_metrics"):
+                 "cli.import_metrics", "core.mesh", "parallel.dryrun"):
         assert f"{port.__name__}.{name}" in mods, name
+
+
+def test_make_mesh_is_a_lazy_top_level_name():
+    """`make_mesh` from the package itself, as the JAX package exports it,
+    loaded only when asked for."""
+    code = (
+        "import sys\n"
+        f"import {port.__name__} as p\n"
+        f"assert '{port.__name__}.core.mesh' not in sys.modules\n"
+        f"from {port.__name__}.core.mesh import make_mesh\n"
+        "assert p.make_mesh is make_mesh\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_mesh_without_a_card_raises(monkeypatch):
+    """A mesh never quietly becomes the CPU: without a card, neither the
+    default mesh nor an index on it can be made."""
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh, process_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        process_mesh(torch.device("cuda", 0))
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -132,10 +132,11 @@ def test_delete_returns_to_empty_ingest():
 
 @pytest.mark.parametrize("case", ["inverted", "auto_above_threshold", "mesh"])
 def test_not_ported_paths_raise(case, tmp_path):
-    """What is still not ported (a device mesh) raises naming its ROADMAP
-    item and the next slice; the inverted engine, auto above its threshold
-    (tests/test_torch_inverted_engine.py) and merging saved inverted shards
-    (tests/test_torch_dist_eval.py) are ported and build."""
+    """Each path that once raised as not ported now builds: the inverted
+    engine, auto above its threshold (tests/test_torch_inverted_engine.py),
+    merging saved inverted shards (tests/test_torch_dist_eval.py) and a
+    device mesh (tests/test_torch_sharded_index.py), whose doc-sharded
+    index answers as the single-device one."""
     ids, docs, _ = _corpus(n_docs=20, seed=5)
     if case == "inverted":
         shards = []
@@ -150,8 +151,16 @@ def test_not_ported_paths_raise(case, tmp_path):
         assert merged._engine == "inverted" and merged.doc_ids == ids[0::2] + ids[1::2]
         return
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*next slice|next slice.*ROADMAP"):
-            SparseIndex(V, IndexConfig(), mesh=object(), device="cpu")
+        from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
+
+        cfg = IndexConfig(engine="sparse", l_max=32, block_docs=16, weight_dtype="float32")
+        one = SparseIndex(V, cfg, device="cpu")
+        two = SparseIndex(V, cfg, mesh=make_mesh(devices=["cpu"] * 2))
+        for t in (one, two):
+            t.add(ids, docs)
+            t.finalize()
+        assert len(two._stripes) == 2
+        assert two.search(docs[:3], k=5) == one.search(docs[:3], k=5)
         return
     t = SparseIndex(V, IndexConfig(engine="auto", auto_threshold=10, l_max=32,
                                    block_docs=16), device="cpu")

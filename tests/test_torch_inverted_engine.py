@@ -477,12 +477,25 @@ def asdict_cfg(cfg):
 
 
 def test_what_stays_unported_names_its_roadmap_item():
-    """The inverted engine's sharded layouts come with the device mesh, the
-    next slice; `merge_saved` is ported (tests/test_torch_dist_eval.py)."""
+    """Nothing of the inverted engine stays unported: its sharded layouts
+    came with the device mesh (held to the JAX package's in
+    tests/test_torch_sharded_index.py) and build here on a two-position CPU
+    mesh, answering as the single-device engine."""
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
+
+    toks, ws = _diffuse_corpus(600, 300, l_max=16)
+    q_tok, q_w = _corpus_queries(toks, n_q=6, width=4)
+    kw = dict(postings_cap=600, query_terms=8)
+    single = _rows(SparseIndex, "inverted", toks, ws, 300, **kw)
+    want = single.search_tokens(q_tok, q_w, k=5)
     for shard_by in ("docs", "queries"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            SparseIndex(10, IndexConfig(engine="inverted", shard_by=shard_by), mesh=object(),
-                        device="cpu")
+        cfg = IndexConfig(engine="inverted", l_max=16, block_docs=256, query_batch=8,
+                          weight_dtype="float32", shard_by=shard_by, **kw)
+        t = SparseIndex(300, cfg, mesh=make_mesh(devices=["cpu"] * 2))
+        t.doc_ids = [str(i) for i in range(600)]
+        t._tok_chunks, t._w_chunks = [toks], [ws]
+        t.finalize()
+        _assert_hits_match(t.search_tokens(q_tok, q_w, k=5), want)
 
 
 # ------------------------------------------------------------ eval, serve
