@@ -39,16 +39,20 @@ four unsharded stripe indexes), bench.py's 2 097 152-doc corpus on its
 inverted configuration with exact escalation in both layouts against the
 unsharded exact scan, `eval.beir.evaluate_datasets` of checkpoint-50 over
 the mesh (scan and inverted engine) against the main path's evaluation,
-and `merge_saved` of the two eval ranks' shards onto the mesh. It checks
+and `merge_saved` of the two eval ranks' shards onto the mesh; then
+training over the same mesh: the infonce recipe's full-width `mini`
+student over the four positions against one position on the global batch
+(5 steps), a kd step with checkpoint-50 and checkpoint-25 as teachers, and
+a step with gradient accumulation, the mesh step timed against the
+one-position step. It checks
 what comes out, that every kernel of each path ran (launch counts, read
 around each path) and that no plain version did, and that one whole train
 step's gradients with the kernels equal those with the plain head. Any
 failed check exits non-zero. `python3 chip_smoke.py --mesh-only` runs the
-mesh's steps 12a and 12b alone (for a machine with four cards). The last
-lines of output are the `serve:`,
-`inverted eval:`, `distill:`, `distributed:` and `mesh:` lines, the `kernels`
-JSON line, the card's name and power limit, and `{"ok": true, "device":
-{...}}`.
+mesh's steps 12a, 12b and 13 alone (for a machine with four cards). The
+last lines of output are the `serve:`, `inverted eval:`, `distill:`,
+`distributed:`, `mesh:` and `mesh train:` lines, the `kernels` JSON line,
+the card's name and power limit, and `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only, never jax or the JAX package. Writes under
 `output/chip_smoke/` (there too `main_batches.pt`, the head's inputs on the
@@ -968,13 +972,14 @@ def grad_check(trainer, dev):
     against the same step with the plain head: torch autograd of
     maxpool_head_reference. Also captures the head's inputs and upstream
     gradient on this main-path batch for the kernel rows."""
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import batch_to
     from opensearch_sparse_model_tuning_sample_torch.models import bert as bert_mod
     from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
     from opensearch_sparse_model_tuning_sample_torch.train.trainer import train_loss
 
     model, ma, da = trainer.model, trainer.model_args, trainer.data_args
     np_batch = first_batch(trainer)
-    batch = trainer._to_device(np_batch)
+    batch = batch_to(np_batch, trainer.device)
 
     captured = {}
     kernel_head = bert_mod.maxpool_head_train
@@ -1038,6 +1043,12 @@ def grad_check(trainer, dev):
     return captured, above, np_batch
 
 
+# the teacher ensemble's calls in a train step: its reps of the queries and
+# of the docs (`reps` twice), then the scores: three ranges a step
+TEACHER_STAGES = ("reps", "scores_from_reps")
+TEACHER_RANGES = 3
+
+
 def profile_steps(trainer, np_batch, step_ms, n=5):
     """Where a train step's time goes: `n` more steps of the loop's own
     train_step under torch.profiler. Prints the device operations' time by
@@ -1046,21 +1057,20 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
     measured without the profiler (whose own host overhead inflates the
     wall time it sees), and the head's kernels' device time a step, by
     kernel (the forward; bwd_w; bwd_h's count, scan, scatter and reduce).
-    With a teacher ensemble, its scores run inside a `kd_teacher_scores`
-    range, whose host time and the device time of the operations it
-    launched are read apart."""
+    With a teacher ensemble, its reps and scores run inside
+    `kd_teacher_scores` ranges, whose host time and the device time of the
+    operations they launched are read apart."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ens = trainer.teacher_ensemble
-    if ens is not None:
-        get_scores = ens.get_scores
+    if ens is not None:  # the teachers' reps of a step's two sides and their scores
+        for name in TEACHER_STAGES:
+            def annotated(*args, _fn=getattr(ens, name), **kwargs):
+                with record_function("kd_teacher_scores"):
+                    return _fn(*args, **kwargs)
 
-        def annotated(*args, **kwargs):
-            with record_function("kd_teacher_scores"):
-                return get_scores(*args, **kwargs)
-
-        ens.get_scores = annotated
+            setattr(ens, name, annotated)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
@@ -1070,7 +1080,8 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
             torch.cuda.synchronize()
     finally:
         if ens is not None:
-            del ens.get_scores  # back to the class's method
+            for name in TEACHER_STAGES:
+                delattr(ens, name)  # back to the class's methods
     wall_us = (time.perf_counter() - t0) * 1e6
     on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
@@ -1102,7 +1113,8 @@ def profile_steps(trainer, np_batch, step_ms, n=5):
     if ens is not None:
         teach = [e for e in prof.key_averages() if e.key == "kd_teacher_scores"
                  and e.device_type == DeviceType.CPU]
-        check(len(teach) == 1 and teach[0].count == n, "one teacher-scores range a step")
+        check(len(teach) == 1 and teach[0].count == TEACHER_RANGES * n,
+              "the teachers' ranges every step")
         out["teacher_host_ms"] = teach[0].cpu_time_total / n / 1e3
         out["teacher_device_ms"] = teach[0].device_time_total / n / 1e3
         print(f"teacher scores a train step: host {out['teacher_host_ms']:.3f} ms under the "
@@ -1654,6 +1666,7 @@ def minmax_tol(raw, rel, scale):
 def kd_scores_check(trainer, np_batch):
     """One batch's ensemble scores on the card against the same ensemble
     built on the CPU from the same checkpoints."""
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import batch_to
     from opensearch_sparse_model_tuning_sample_torch.ops.losses import pair_scores
     from opensearch_sparse_model_tuning_sample_torch.train.teachers import (
         build_ensemble, teacher_rep)
@@ -1662,7 +1675,7 @@ def kd_scores_check(trainer, np_batch):
     cpu = build_ensemble(da.kd_ensemble_teacher_kwargs, da.use_in_batch_negatives,
                          max_length=da.max_seq_length, device="cpu")
     card = trainer.teacher_ensemble
-    on_card = trainer._to_device(np_batch)
+    on_card = batch_to(np_batch, trainer.device)
     on_cpu = {k: np_batch[k] for k in ("teacher_q", "teacher_d")}
     on_cpu = {k: [{n: torch.as_tensor(x) for n, x in f.items()} for f in v]
               for k, v in on_cpu.items()}
@@ -1697,6 +1710,7 @@ def phase_kd_train(dev, path):
     in-batch kldiv; the full-width mini student from random init) through
     cli.train_ir, 30 steps."""
     from opensearch_sparse_model_tuning_sample_torch.cli import train_ir
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import batch_to
 
     teachers = [path["ckpt"], os.path.join(path["cfg"]["output_dir"],
                                             f"checkpoint-{TRAIN_STEPS // 2}")]
@@ -1738,7 +1752,7 @@ def phase_kd_train(dev, path):
     print(f"kd teacher scores {scores['shape']}, card vs CPU: max |err| "
           f"{scores['max_abs_err']:.4g} (smallest row tolerance {scores['tol_min']:.4g}), raw "
           f"scores within {scores['raw_rel_err']:.3g} of the row max", flush=True)
-    batch = trainer._to_device(np_batch)
+    batch = batch_to(np_batch, trainer.device)
     ens = trainer.teacher_ensemble
     # at the host's pace: ~860 launches a call overflow the launch queue, so
     # cuda_ms's sleeping stream cannot time them on the card alone; the
@@ -2801,16 +2815,351 @@ def phase_mesh(dev, path, test_split, corpus):
 
 
 
+# step 13, training over the mesh: the infonce recipe's full-width mini
+# student (per-device batch 15, docs at the L = 64 bucket as in step 5) over
+# make_mesh_for's four positions against one position at the global batch,
+# from the same weights with dropout off (the positions draw their own
+# masks); a kd step of the kd recipe; a step with A = 2
+MESH_TRAIN_DIR = os.path.join(OUT, "mesh_train")
+MESH_TRAIN_STEPS = 5
+MESH_LOSS_RTOL = 1e-3  # bf16 encoders at other GEMM shapes: the first step's loss
+MESH_TIMED_STEPS = 5
+
+
+def no_dropout(model):
+    """The model with its dropout probabilities set to 0 (every module's
+    config; replicas made later copy it)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(model.cfg, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = cfg
+    return model
+
+
+def recipe_args(dev, name, **over):
+    """configs/<name>.yaml's three argument groups, on `dev`, writing under
+    MESH_TRAIN_DIR and saving nothing, with the overrides `over` (a dict
+    updates the recipe's dict of that name)."""
+    import yaml
+    from opensearch_sparse_model_tuning_sample_torch.core.config import parse_config
+
+    with open(os.path.join(HERE, "configs", f"{name}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(idf_path=os.path.join(HERE, cfg["idf_path"]), device=str(dev),
+               output_dir=os.path.join(MESH_TRAIN_DIR, name), save_strategy="no")
+    for k, v in over.items():
+        if isinstance(v, dict):
+            cfg[k].update(v)
+        else:
+            cfg[k] = v
+    return parse_config(cfg)
+
+
+def mesh_train_rows(split):
+    """(query, positive, 2 negatives) rows of synthetic-rich's 300 test
+    queries: each query's judged doc, and two docs picked by its index."""
+    corpus, queries, qrels = split
+    ids = sorted(corpus)
+
+    def text(d):
+        return (corpus[d].get("title", "") + " " + corpus[d]["text"]).strip()
+
+    rows = []
+    for i, qid in enumerate(sorted(qrels)):
+        pos = max(qrels[qid], key=qrels[qid].get)
+        negs = [ids[(7919 * i + j * 104729) % len(ids)] for j in (1, 2)]
+        rows.append((queries[qid], text(pos), [text(d) for d in negs]))
+    return rows
+
+
+def mesh_batches(trainer, rows, per_step, n):
+    """n loader batches of `per_step` rows each, through the run's collator
+    (with its teacher ensemble's features, if any)."""
+    from opensearch_sparse_model_tuning_sample_torch.data.collator import build_collator
+
+    da = trainer.data_args
+    collator = build_collator(da.data_type, trainer.model.tokenizer, da.max_seq_length,
+                              seq_buckets=da.seq_buckets,
+                              teacher_tokenizer_ids=da.kd_ensemble_teacher_kwargs.get(
+                                  "teacher_tokenizer_ids", []),
+                              teacher_ensemble=trainer.teacher_ensemble)
+    check(len(rows) >= per_step * n, f"{len(rows)} rows for {n} batches of {per_step}")
+    return [collator(rows[k * per_step:(k + 1) * per_step]) for k in range(n)]
+
+
+def trainer_pair(dev, mesh, args, ens=None):
+    """(the mesh's trainer, a one-position trainer) from one random init of
+    the recipe's student, dropout off."""
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+    from opensearch_sparse_model_tuning_sample_torch.train.trainer import Trainer
+
+    ma, da, ta = args
+    model = no_dropout(se.from_model_args(ma, seed=ta.seed, device=dev))
+    twin = no_dropout(se.from_model_args(ma, seed=ta.seed, device=dev))
+    check(all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 twin.state_dict().values())),
+          "the two students start from the same weights")
+    return (Trainer(model, ma, da, ta, teacher_ensemble=ens, mesh=mesh),
+            Trainer(twin, ma, da, ta, teacher_ensemble=ens, mesh=make_mesh(devices=[dev])))
+
+
+def counted_step(trainer, batch):
+    """One train step with the kernel, plain and collective counters set to
+    0 just before it and read just after: (metrics, launches, plain,
+    collectives)."""
+    from opensearch_sparse_model_tuning_sample_torch.parallel import collectives
+
+    reset_counters()
+    collectives.reset_counts()
+    metrics = {k: float(v) for k, v in trainer.train_step(batch).items()}
+    launches, plain = read_counters()
+    return metrics, launches, plain, collectives.mesh_counts()
+
+
+def check_mesh_step(trainer, counted, what, teachers=0):
+    """A step's counters: each training kernel launched once per position
+    per microbatch, the ingest kernel 2 x teachers per position per
+    microbatch, no plain version, and (over more than one position) the
+    mesh's gather, gradient sum and broadcast; then every replica
+    bit-equal to the model."""
+    _, launches, plain, coll = counted
+    P, A = trainer.mesh.size, trainer.accum_steps
+    for k in STUDENT_KERNELS:
+        check(launches[k] == P * A, f"{what}: {k} launched {launches[k]} times, {P * A} "
+              "expected (positions x microbatches)")
+    check(launches["maxpool_head"] == 2 * teachers * P * A,
+          f"{what}: the ingest kernel launched {launches['maxpool_head']} times, "
+          f"{2 * teachers * P * A} expected")
+    check(not any(plain.values()), f"{what}: no plain version ran: {plain}")
+    if P > 1:
+        check(coll["mesh_gather"] > 0 and coll["mesh_grad_sum"] == 1
+              and coll["mesh_broadcast"] == 1,
+              f"{what}: the mesh's gather, gradient sum and broadcast ran: {coll}")
+        lead = dict(trainer.model.named_parameters())
+        for r, replica in enumerate(trainer.replicas, 1):
+            for k, p in replica.named_parameters():
+                check(torch.equal(p, lead[k].to(p.device)),
+                      f"{what}: position {r}'s {k} equals the model's")
+
+
+def lead_grads(trainer):
+    return {k: p.grad.float().clone() for k, p in trainer.model.named_parameters()
+            if p.grad is not None}
+
+
+def grads_close(got, want, what):
+    """The full-step rule of grad_check: per tensor |g - g_ref| <= GRAD_TOL
+    |g_ref| + GRAD_FLOOR G; returns the worst relative error among the
+    tensors with |g| > 1e-3 G."""
+    check(got.keys() == want.keys(), f"{what}: the same parameters get gradients")
+    big = max(float(g.norm()) for g in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        err = float((got[k] - w).norm())
+        check(err <= GRAD_TOL * float(w.norm()) + GRAD_FLOOR * big,
+              f"{what}: gradient of {k}: |mesh - one| {err:.3g}, |one| {float(w.norm()):.3g}")
+        if float(w.norm()) > 1e-3 * big:
+            worst = max(worst, err / float(w.norm()))
+    check(worst <= GRAD_WORST, f"{what}: worst relative gradient error {worst:.3g}")
+    return worst
+
+
+def rel_err(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def timed_steps(trainer, batches, n):
+    """The card's clock over n train steps (CUDA events, synchronized at
+    both ends), ms a step."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for k in range(n):
+        trainer.train_step(batches[k % len(batches)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def mesh_train_infonce(dev, mesh, rows):
+    """13a: 5 infonce steps over the mesh and at one position."""
+    args = recipe_args(dev, "config_infonce_synthetic", max_steps=MESH_TRAIN_STEPS,
+                       warmup_steps=1)
+    pair = trainer_pair(dev, mesh, args)
+    per_step = args[2].per_device_train_batch_size * mesh.size
+    batches = mesh_batches(pair[0], rows, per_step, MESH_TRAIN_STEPS)
+    losses, grads, counts = [[], []], [None, None], []
+    for side, trainer in enumerate(pair):
+        for k, batch in enumerate(batches):
+            counted = counted_step(trainer, batch)
+            check_mesh_step(trainer, counted, f"13a {'mesh' if side == 0 else 'one'} step {k}")
+            losses[side].append(counted[0]["loss"])
+            if k == 0:
+                grads[side] = lead_grads(trainer)
+                counts.append({"launches": counted[1], "collectives": counted[3]})
+    check(all(np.isfinite(x) for x in losses[0] + losses[1]), "13a: finite losses")
+    first = rel_err(losses[0][0], losses[1][0])
+    check(first <= MESH_LOSS_RTOL, f"13a: first-step loss, mesh {losses[0][0]} vs one position "
+          f"{losses[1][0]} ({first:.3g} relative)")
+    worst = grads_close(grads[0], grads[1], "13a first step")
+    print(f"13a: {MESH_TRAIN_STEPS} infonce steps of {per_step} queries x 3 docs; loss mesh vs "
+          "one position: " + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in zip(*losses))
+          + f"; first step {first:.3g} relative; first-step gradients: worst relative "
+          f"{worst:.3g} (tolerance {GRAD_TOL} + {GRAD_FLOOR} G); counters of the mesh's first "
+          f"step {counts[0]}", flush=True)
+    return pair, batches, {"losses_mesh": losses[0], "losses_one": losses[1],
+                           "first_loss_rel_err": first, "grad_worst_rel_err": worst,
+                           "first_step": counts[0], "queries_per_step": per_step}
+
+
+def kd_teacher_capture(ens):
+    """Patch the ensemble's `scores_from_reps` to keep its last inputs and
+    output (the mesh's and one position's steps score on the lead)."""
+    seen = {}
+    scores_from_reps = ens.scores_from_reps
+
+    def capture(q_reps, d_reps):
+        out = scores_from_reps(q_reps, d_reps)
+        seen.update(q=[r.float().cpu() for r in q_reps], d=[r.float().cpu() for r in d_reps],
+                    scores=out.cpu())
+        return out
+
+    ens.scores_from_reps = capture
+    return seen
+
+
+def mesh_train_kd(dev, mesh, rows, teachers):
+    """13b: one kd step of the kd recipe over the mesh and at one
+    position, the teachers scoring at every position."""
+    from opensearch_sparse_model_tuning_sample_torch.ops.losses import pair_scores
+    from opensearch_sparse_model_tuning_sample_torch.train.teachers import build_ensemble
+
+    args = recipe_args(dev, "config_kd_synthetic", max_steps=1, warmup_steps=0,
+                       kd_ensemble_teacher_kwargs={"model_ids": teachers,
+                                                   "teacher_tokenizer_ids": teachers})
+    ma, da, ta = args
+    ens = build_ensemble(da.kd_ensemble_teacher_kwargs, da.use_in_batch_negatives,
+                         max_length=da.max_seq_length, device=dev)
+    pair = trainer_pair(dev, mesh, args, ens)
+    per_step = ta.per_device_train_batch_size * mesh.size
+    batch = mesh_batches(pair[0], rows, per_step, 1)[0]
+    seen = kd_teacher_capture(ens)
+    got, want, counted = {}, {}, []
+    try:
+        for trainer, into in zip(pair, (got, want)):
+            counted.append(counted_step(trainer, batch))
+            check_mesh_step(trainer, counted[-1], "13b " + ("mesh" if into is got else "one"),
+                            teachers=len(teachers))
+            into.update(seen)
+    finally:
+        del ens.scores_from_reps  # back to the class's method
+    raw, raw_err = [], 0.0
+    for i in range(len(teachers)):
+        for side in ("q", "d"):
+            a, b = want[side][i], got[side][i]
+            err = (a - b).abs()
+            check(bool((err <= KD_REP_TOL * a.abs().clamp_min(1.0)).all()),
+                  f"13b teacher {i} {side} reps, mesh vs one: max |err| {float(err.max()):.3g}")
+        s_one = pair_scores(want["q"][i], want["d"][i], ens.use_in_batch_negatives)
+        s_mesh = pair_scores(got["q"][i], got["d"][i], ens.use_in_batch_negatives)
+        rel = float(((s_mesh - s_one).abs() / s_one.abs().amax(1, keepdim=True)).max())
+        check(rel <= KD_SCORE_TOL, f"13b teacher {i} raw scores, mesh vs one: {rel:.3g}")
+        raw.append(s_one)
+        raw_err = max(raw_err, rel)
+    tol = minmax_tol(raw, raw_err, ens.score_scale)
+    err = (got["scores"] - want["scores"]).abs()
+    check(got["scores"].shape == (per_step, per_step * 3), f"13b scores {got['scores'].shape}")
+    check(bool((err <= tol).all()), f"13b ensemble scores, mesh vs one: max |err| "
+          f"{float(err.max()):.4g}")
+    losses = [c[0]["loss"] for c in counted]
+    check(all(np.isfinite(losses)), "13b: finite kd losses")
+    print(f"13b: one kd step of {per_step} queries, teachers {teachers}: ensemble scores "
+          f"{list(got['scores'].shape)} mesh vs one position max |err| {float(err.max()):.4g} "
+          f"(smallest row tolerance {float(tol.min()):.4g}; raw scores within {raw_err:.3g} of "
+          f"the row max); kldiv loss {losses[0]:.6f} / {losses[1]:.6f}; mesh launches "
+          f"{counted[0][1]}", flush=True)
+    out = {"queries": per_step, "teachers": teachers, "scores_max_abs_err": float(err.max()),
+           "raw_rel_err": raw_err, "tol_min": float(tol.min()), "losses": losses,
+           "launches": counted[0][1], "collectives": counted[0][3]}
+    del pair, ens
+    return out
+
+
+def mesh_train_accum(dev, mesh, rows):
+    """13c: one infonce step with A = 2 over the mesh and at one position."""
+    args = recipe_args(dev, "config_infonce_synthetic", max_steps=1, warmup_steps=0,
+                       gradient_accumulation_steps=2)
+    pair = trainer_pair(dev, mesh, args)
+    per_step = args[2].per_device_train_batch_size * mesh.size * 2
+    batch = mesh_batches(pair[0], rows, per_step, 1)[0]
+    counted = [counted_step(t, batch) for t in pair]
+    for trainer, c, what in zip(pair, counted, ("mesh", "one")):
+        check_mesh_step(trainer, c, f"13c {what}")
+    losses = [c[0]["loss"] for c in counted]
+    rel = rel_err(*losses)
+    check(rel <= MESH_LOSS_RTOL, f"13c: loss with A = 2, mesh {losses[0]} vs one {losses[1]}")
+    print(f"13c: one step of {per_step} queries with A = 2: loss {losses[0]:.6f} (mesh) vs "
+          f"{losses[1]:.6f} ({rel:.3g} relative); mesh launches {counted[0][1]}, collectives "
+          f"{counted[0][3]}", flush=True)
+    return {"queries": per_step, "losses": losses, "loss_rel_err": rel,
+            "launches": counted[0][1], "collectives": counted[0][3]}
+
+
+def phase_mesh_train(dev, split, teachers, card):
+    """Step 13: training over the mesh inside one process (13a-13c), then
+    (13e) the mesh step against the one-position step at the global batch
+    on the card's clock, with the card's busy share."""
+    t0 = time.time()
+    mesh, how = make_mesh_for(dev)
+    print(f"step 13, training over the mesh: {how}; devices {[str(d) for d in mesh.devices]}",
+          flush=True)
+    rows = mesh_train_rows(split)
+    out = {"mesh": how, "devices": [str(d) for d in mesh.devices]}
+    pair, batches, out["13a"] = mesh_train_infonce(dev, mesh, rows)
+    timing = {}
+    for name, trainer in zip(("mesh", "one"), pair):
+        step_ms = timed_steps(trainer, batches, MESH_TIMED_STEPS)
+        prof = profile_steps(trainer, batches[0], step_ms, n=3)
+        timing[name] = {"step_ms": step_ms, "busy_ms": prof["busy_ms"],
+                        "busy_share": prof["busy_share"], "ops_per_step": prof["ops_per_step"],
+                        "docs_per_s": 1e3 * len(batches[0]["d_input_ids"]) / step_ms}
+    out["13e"] = timing
+    del pair, batches
+    torch.cuda.empty_cache()
+    out["13b"] = mesh_train_kd(dev, mesh, rows, teachers)
+    out["13c"] = mesh_train_accum(dev, mesh, rows)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    out["card"] = card
+    print(f"mesh train step {timing['mesh']['step_ms']:.3f} ms ({timing['mesh']['busy_share']:.3f} "
+          f"busy) over {mesh.size} positions against {timing['one']['step_ms']:.3f} ms "
+          f"({timing['one']['busy_share']:.3f} busy) at one position, "
+          f"{out['13a']['queries_per_step']} queries a step (card's clock, CUDA events over "
+          f"{MESH_TIMED_STEPS} steps; card {card}); step 13 {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def mesh_only(dev, card, mesh_corpus, t_start):
-    """`python3 chip_smoke.py --mesh-only`: steps 12a and 12b alone (they
-    need nothing of the main path), for a machine with four cards, where
-    the mesh is make_mesh(4): one stripe or replica per card."""
+    """`python3 chip_smoke.py --mesh-only`: steps 12a, 12b and 13 alone
+    (they need nothing of the main path but its kernels, which the trainer
+    builds on first use), for a machine with four cards, where the mesh is
+    make_mesh(4): one stripe, replica or training position per card."""
     mesh, how = make_mesh_for(dev)
     print(f"mesh: {how}; devices {[str(d) for d in mesh.devices]}", flush=True)
     out = {"mesh": how, "devices": [str(d) for d in mesh.devices],
            "12a": mesh_scan(dev, mesh), "12b": mesh_big(dev, mesh, mesh_corpus)}
+    # step 13 with random-init teachers: the main path's checkpoints are not made here
+    from opensearch_sparse_model_tuning_sample_torch.eval.beir import resolve_dataset
+
+    mesh_train = phase_mesh_train(dev, resolve_dataset("synthetic-rich", ""), ["mini", "mini"],
+                                  card)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print("mesh: " + json.dumps(out))
+    print("mesh train: " + json.dumps(mesh_train))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2992,6 +3341,14 @@ def main():
     # 12. the device mesh inside one process: the scan, bench.py's 2.1M-doc
     # corpus on the inverted engine, the eval and merge_saved over a mesh
     mesh_out = phase_mesh(dev, path, (corpus, queries, qrels), mesh_corpus)
+
+    # 13. training over the mesh inside one process: the infonce recipe over
+    # four positions against one position at the global batch, a kd step with
+    # the main path's two checkpoints as teachers, a step with A = 2
+    mesh_train = phase_mesh_train(
+        dev, (corpus, queries, qrels),
+        [path["ckpt"], os.path.join(path["cfg"]["output_dir"], f"checkpoint-{TRAIN_STEPS // 2}")],
+        card)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
 
     main_row = rows[-1]  # the eval's own first batch
@@ -3013,6 +3370,7 @@ def main():
                           "mine_rank1": dist_out["11c"]["launches"][1]["maxpool_head"]},
         "mesh_launches": {run: mesh_out["12c"][run]["launches"]
                           for run in ("docs_scan", "docs_inverted")},
+        "mesh_train_launches": {"kd_step": mesh_train["13b"]["launches"]["maxpool_head"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "kernel_ms": main_row["ms"],
@@ -3055,6 +3413,10 @@ def main():
                             "l0": distill["l0"]["launches"][name]},
             "dist_launches": {"torchrun": dist_out["11a"]["kernels"][name],
                               "kd_torchrun": dist_out["11d"]["kernels"][name]},
+            "mesh_train_launches": {
+                "infonce_step": mesh_train["13a"]["first_step"]["launches"][name],
+                "kd_step": mesh_train["13b"]["launches"][name],
+                "accumulation_step": mesh_train["13c"]["launches"][name]},
             **({"bucket_ms": r["bucket_ms"]} if "bucket_ms" in r else {}),
             **({"ablation_ms": ablation_argmax} if name.endswith("argmax") else {}),
             "nnz": r["nnz"],
@@ -3069,6 +3431,7 @@ def main():
     print("distill: " + json.dumps(distill))
     print("distributed: " + json.dumps(dist_out))
     print("mesh: " + json.dumps(mesh_out))
+    print("mesh train: " + json.dumps(mesh_train))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

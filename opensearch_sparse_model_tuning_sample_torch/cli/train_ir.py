@@ -5,12 +5,19 @@
 
 Reference: train_ir.py:30-150, the same single-YAML interface as the JAX
 package's `cli.train_ir`. Runs on the CUDA card unless `--device cpu`.
-Under torchrun (or the JAX package's `tools/launch_dist.py`) each process
-joins the launch's process group (NCCL on the card, gloo on the CPU) and
-trains data-parallel on `cuda:LOCAL_RANK`: the global batch is
+In one process it trains over `make_mesh(dp_size)` of the visible cards
+from the run's device on (`core/mesh.py::process_mesh`; -1: all of them, a
+`dp_size` beyond them raises), as the JAX package does: the loader batch is
+the global batch of `per_device_train_batch_size` x mesh size x
+`gradient_accumulation_steps` rows an optimizer step (the JAX package's
+batch semantics; one host thread drives every position, and the step is
+measured slower than one card at the same batch). Under torchrun (or
+the JAX package's `tools/launch_dist.py`) each process joins the launch's
+process group (NCCL on the card, gloo on the CPU) and trains data-parallel
+on `cuda:LOCAL_RANK`, its mesh its own card: the global batch is
 `per_device_train_batch_size` x world size x `gradient_accumulation_steps`
-rows per optimizer step, each rank's loader yields its slice, and `dp_size`
-must be -1 or the world size. `kd_ensemble_teacher_kwargs` builds a teacher
+rows, each rank's loader yields its slice, and `dp_size` must be -1 or the
+world size. `kd_ensemble_teacher_kwargs` builds a teacher
 ensemble that scores each batch inside the step (with an embedding store
 under `store_root` when a teacher is `remote`). Rank 0 writes the log file,
 the config snapshot, the checkpoints and `run_summary.json` (the process
@@ -29,6 +36,7 @@ import sys
 from ..core import distributed
 from ..core.config import parse_config, snapshot_config
 from ..core.device import resolve_device
+from ..core.mesh import process_mesh
 from ..data.collator import build_collator
 from ..data.datasets import HostShardDataset, load_dataset, load_datasets
 from ..data.loader import DataLoader, epochs
@@ -48,7 +56,13 @@ def main(config_source=None):
     device = resolve_device(distributed.process_device(training_args.device))
     distributed.maybe_init_distributed(device)
     try:
-        distributed.check_dp_size(training_args.dp_size, distributed.world_size())
+        world = distributed.world_size()
+        if world > 1:
+            distributed.check_dp_size(training_args.dp_size, world)
+        try:
+            mesh = process_mesh(device, training_args.dp_size, world)
+        except ValueError as e:
+            raise ValueError(f"dp_size={training_args.dp_size}: {e}") from e
         main_rank = distributed.is_main()
         set_logging(training_args.output_dir, "train.log" if main_rank else None,
                     training_args.log_level)
@@ -67,7 +81,7 @@ def main(config_source=None):
             logger.info("embedding store ready at %s", store_root)
         try:
             trainer = _train(model_args, data_args, training_args, kd_kwargs,
-                             embedding_store, device)
+                             embedding_store, device, mesh)
         finally:
             if embedding_store is not None:
                 embedding_store.shutdown()
@@ -93,17 +107,25 @@ def _snapshot(config_source, model_args, data_args, training_args):
 def _write_summary(trainer, output_dir):
     """`run_summary.json`: the process group, the steps and log history, and
     this process's launch counts of the head's kernels, their plain versions
-    and the collectives."""
+    and the collectives (the process group's and the mesh's)."""
     summary = {"backend": distributed.backend(), "world_size": distributed.world_size(),
-               "device": str(trainer.device), "steps": trainer.step,
+               "device": str(trainer.device),
+               "mesh": [str(d) for d in trainer.mesh.devices], "steps": trainer.step,
                "log_history": trainer.log_history, **maxpool.launch_counts(),
-               "collectives": collectives.counts()}
+               "collectives": collectives.counts(),
+               "mesh_collectives": collectives.mesh_counts()}
     with open(os.path.join(output_dir, "run_summary.json"), "w") as f:
         json.dump(summary, f)
 
 
-def _train(model_args, data_args, training_args, kd_kwargs, embedding_store, device):
+def _train(model_args, data_args, training_args, kd_kwargs, embedding_store, device, mesh):
     rank, world = distributed.rank(), distributed.world_size()
+    logger.info("mesh: %d device(s) (%s)%s", mesh.size, device.type,
+                f" process {rank}/{world}" if world > 1 else "")
+    if mesh.size > 1:
+        logger.info("the mesh trains on the JAX package's global batch, driven from one "
+                    "host thread: measured slower than one card at the same batch; for "
+                    "throughput launch one process per card with torchrun")
     model = se.from_model_args(model_args, seed=training_args.seed, device=device)
     logger.info("model: %s hidden=%d layers=%d vocab=%d on %s",
                 model_args.model_name_or_path or model_args.arch, model.cfg.hidden_size,
@@ -129,11 +151,12 @@ def _train(model_args, data_args, training_args, kd_kwargs, embedding_store, dev
 
     # one loader batch per optimizer step: with gradient accumulation the
     # trainer splits it into A microbatches (HF effective batch semantics:
-    # per_device x world x A rows an update). The loader yields this rank's
-    # slice; the trainer gathers the global batch's reps.
-    batch_size = training_args.per_device_train_batch_size * max(
+    # per_device x mesh size x world x A rows an update). The loader yields
+    # this rank's slice; the trainer gathers the global batch's reps.
+    batch_size = training_args.per_device_train_batch_size * mesh.size * max(
         1, training_args.gradient_accumulation_steps)
-    logger.info("global batch %d rows an update over %d process(es)", batch_size * world, world)
+    logger.info("global batch %d rows an update over %d process(es), %d mesh position(s) "
+                "each", batch_size * world, world, mesh.size)
     ds_kwargs = dict(
         swap_times=data_args.swap_times,
         sample_num_one_query=data_args.sample_num_one_query,
@@ -159,7 +182,7 @@ def _train(model_args, data_args, training_args, kd_kwargs, embedding_store, dev
         prefetch=training_args.dataloader_prefetch_factor or 0,
     )
     trainer = Trainer(model, model_args, data_args, training_args, loss_specs=loss_specs,
-                      teacher_ensemble=teacher_ensemble)
+                      teacher_ensemble=teacher_ensemble, mesh=mesh)
     if training_args.resume:
         state_dir = os.path.join(os.path.abspath(training_args.output_dir), "train_state")
         if os.path.isdir(state_dir):

@@ -205,11 +205,13 @@ class TrainingArguments:
     # Device the port runs on: "cuda" (the default; raises without a card)
     # or "cpu" on request (`--device cpu`). See core/device.py.
     device: str = "cuda"
-    # Data-parallel mesh size of the JAX package. The trainer runs one
-    # process per card (torchrun), so there it is -1 or the launch's
-    # WORLD_SIZE; any other value raises (core/distributed.py::check_dp_size).
-    # cli.evaluate_beir and cli.mine in one process shard their index over
-    # make_mesh(dp_size) (core/mesh.py::process_mesh).
+    # Data-parallel mesh size, as in the JAX package: in one process
+    # cli.train_ir trains over make_mesh(dp_size) of the visible cards
+    # (-1: all; more than there are raises), and cli.evaluate_beir and
+    # cli.mine shard their index over it (core/mesh.py::process_mesh).
+    # Under a launch of more than one process each rank's mesh is its own
+    # card, and dp_size must be -1 or WORLD_SIZE
+    # (core/distributed.py::check_dp_size).
     dp_size: int = -1
     donate_state: bool = True
     profile_dir: Optional[str] = None

@@ -1,9 +1,10 @@
 """Multi-process launch: the process-group half of the JAX package's
 `core/mesh.py` (its `maybe_init_distributed`).
 
-One process per card is PyTorch's idiom for JAX's one-process `data` mesh
-(reference: `torchrun --nproc_per_node=N train_ir.py`, README.md:64-68).
-Two launches are understood:
+One process per card is PyTorch's idiom for a launch of several processes
+(reference: `torchrun --nproc_per_node=N train_ir.py`, README.md:64-68);
+one process trains over the `data` mesh of its visible cards instead
+(`core/mesh.py`), as the JAX package does. Two launches are understood:
 
   * torchrun's: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT;
   * the JAX package's (`tools/launch_dist.py`): OSSMT_COORDINATOR=host:port,
@@ -70,13 +71,14 @@ def backend_for(device) -> str:
 
 
 def check_dp_size(dp_size: int, world: int) -> None:
-    """The JAX package's mesh size against the process count: -1 (every
-    process) or exactly the world size."""
+    """The JAX package's mesh size against the process count of a launch of
+    more than one process: -1 (every process) or exactly the world size.
+    (In one process the mesh is `make_mesh(dp_size)`: core/mesh.py.)"""
     if dp_size not in (-1, world):
         raise ValueError(
-            f"dp_size={dp_size} but {world} process(es) were launched: the port runs one "
-            "process per card, so the data-parallel size is the launch's world size "
-            "(set dp_size to -1 or to WORLD_SIZE, or launch dp_size processes)")
+            f"dp_size={dp_size} but {world} process(es) were launched: under a launch the "
+            "port runs one process per card, so the data-parallel size is the launch's world "
+            "size (set dp_size to -1 or to WORLD_SIZE, or launch dp_size processes)")
 
 
 def maybe_init_distributed(device=None, timeout_s: float = DEFAULT_TIMEOUT_S,

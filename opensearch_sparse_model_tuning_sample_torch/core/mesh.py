@@ -6,13 +6,15 @@ its corpus (or its query batches) over it, and XLA places the shards. Here a
 mesh is an ordered tuple of torch devices, and placement is explicit:
 `shard_rows` gives device s its contiguous block of rows and `replicate` a
 copy on every device, as plain per-device lists (the counterparts of a
-`NamedSharding` with P("data") and with P()). The sharded index
+`NamedSharding` with P("data") and with P()); `shard_batch` does what
+`shard_rows` does for every entry of a batch dict. The sharded index
 (`index/engine.py`) runs each device's part of a search on that device and
-merges on the first (`parallel/collectives.py::merged_topk`).
-
-The data-parallel trainer does not use this mesh: PyTorch's idiom for JAX's
-training mesh is one process per card under torchrun, and the port of
-`maybe_init_distributed` stays in `core/distributed.py`.
+merges on the first (`parallel/collectives.py::merged_topk`). The trainer
+(`train/trainer.py`) runs one step over the mesh as JAX's jitted step runs
+over its `data` axis: each position encodes its rows with a replica of the
+model, and the loss is taken once on the gathered global batch. Under a
+launch of more than one process each rank's mesh is its own card, and the
+port of `maybe_init_distributed` stays in `core/distributed.py`.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .device import DeviceLike, resolve_device
 
@@ -101,14 +104,50 @@ def _as_tensor(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
 
 
+def _is_texts(x) -> bool:
+    return isinstance(x, tuple)
+
+
+def split_rows(x, n: int, what: str = "rows") -> list:
+    """x's rows in n contiguous blocks, in order. Dicts and lists split leaf
+    by leaf (a batch's teacher features), a tuple (a host teacher's texts)
+    by the same rows as an array. Every leaf's row count must divide by n:
+    nothing is padded."""
+    leaves, spec = pytree.tree_flatten_with_path(x, is_leaf=_is_texts)
+    blocks = []
+    for path, leaf in leaves:
+        if len(leaf) % n:
+            raise ValueError(f"{len(leaf)} rows of {what}{pytree.keystr(path)} "
+                             f"do not split into {n} blocks")
+        m = len(leaf) // n
+        blocks.append([leaf[i * m:(i + 1) * m] for i in range(n)])
+    return [pytree.tree_unflatten([b[i] for b in blocks], spec) for i in range(n)]
+
+
+def batch_to(x, device: torch.device):
+    """A batch on `device`: arrays and tensors moved (without waiting for a
+    copy to a card), dicts and lists leaf by leaf, tuples (raw texts) left
+    on the host."""
+    device = torch.device(device)
+    return pytree.tree_map(
+        lambda v: v if _is_texts(v) else _as_tensor(v).to(device,
+                                                          non_blocking=device.type == "cuda"),
+        x, is_leaf=_is_texts)
+
+
+def shard_batch(mesh: Mesh, batch) -> list:
+    """Position s's contiguous block of every entry's rows, on device s
+    (JAX's P("data") over a batch pytree). Doc rows are query-major, so
+    with n queries a position it takes queries [s n, (s+1) n) and their
+    docs [s n G, (s+1) n G)."""
+    return [batch_to(part, d)
+            for part, d in zip(split_rows(batch, mesh.size, "the batch"), mesh.devices)]
+
+
 def shard_rows(mesh: Mesh, x) -> List[torch.Tensor]:
     """Device s's contiguous block of x's rows, on device s (x's leading dim
     must divide by the mesh size, as a P("data") sharding needs)."""
-    x = _as_tensor(x)
-    if x.shape[0] % mesh.size:
-        raise ValueError(f"{x.shape[0]} rows do not split over a mesh of {mesh.size}")
-    n = x.shape[0] // mesh.size
-    return [x[s * n:(s + 1) * n].to(d) for s, d in enumerate(mesh.devices)]
+    return shard_batch(mesh, _as_tensor(x))
 
 
 def replicate(mesh: Mesh, x) -> List[torch.Tensor]:

@@ -561,10 +561,17 @@ def search(
     inf_free: bool = True,
     query_prune: float = 0.0,
     use_two_phase: bool = False,
+    return_text: bool = False,
+    corpus_texts: Optional[Dict[str, str]] = None,
+    delete: bool = False,
 ) -> Dict:
     """Encode queries, top-k search, FLOPS stats — reference search.py:13-104.
     On the inverted engine also the certificate tally: the share of queries
-    certified exact and the share that re-ran (escalated)."""
+    certified exact and the share that re-ran (escalated). With
+    `return_text` and `corpus_texts` the result also holds each query's hit
+    texts (`run_texts`). `delete`: drop the index after the search
+    (reference search.py:95-97 `indices.delete`: frees the card's memory
+    between datasets)."""
     qd = KeyValueDataset(queries)
     encoder = get_batch_encoder(model, max_length=max_length, do_count=True)
     run_res: Dict[str, Dict[str, float]] = {}
@@ -606,11 +613,16 @@ def search(
     d_length = float(count_d.sum())
     logger.info("Index_name: %s, flops: %s, d_length:%s, q_length:%s (%.1f q/s)",
                 index_name, flops, d_length, q_length, qps)
+    if delete:
+        index.delete()
     out = {"run_res": run_res, "flops": flops, "q_length": q_length,
            "d_length": d_length, "qps": qps}
     if n_flagged:
         out["certified_frac"] = n_cert / n_flagged
         out["escalated_frac"] = n_esc / n_flagged
+    if return_text and corpus_texts is not None:
+        out["run_texts"] = {qid: [corpus_texts[d] for d in docs]
+                            for qid, docs in run_res.items()}
     return out
 
 

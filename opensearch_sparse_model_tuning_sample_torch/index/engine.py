@@ -453,6 +453,12 @@ class SparseIndex:
         extension depth (split apart at finalize)."""
         return self.cfg.postings_cap + max(int(self.cfg.postings_ext_cap), 0)
 
+    @property
+    def avg_doc_activation(self) -> np.ndarray:
+        """Average per-token activation count (the `{index}.corpus.bin`
+        statistic, reference ingest.py:108-117)."""
+        return self.count_tensor.astype(np.float64) / max(self.n_docs, 1)
+
     # ----------------------------------------------------------- finalize
     def finalize(self):
         if self._finalized:

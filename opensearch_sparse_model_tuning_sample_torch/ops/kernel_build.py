@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -32,6 +33,9 @@ NVCC_FLAGS = (
 _BUILD_TIMEOUT_S = 600
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# a backward over a mesh of several cards runs on one autograd thread per
+# card, and each may ask for a library first: one builds it, the others wait
+_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -87,6 +91,9 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for `name`, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build([name])
-        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib

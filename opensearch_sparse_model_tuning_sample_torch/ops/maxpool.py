@@ -37,10 +37,21 @@ here, `activations.py:52` in JAX).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from .kernel_build import library
+
+_count_lock = threading.Lock()
+
+
+def _count(f, attr: str) -> None:
+    """One more launch (or plain call) of f. Under a lock: on distinct
+    cards autograd runs the backward on one thread per device."""
+    with _count_lock:
+        setattr(f, attr, getattr(f, attr) + 1)
+
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
@@ -57,7 +68,7 @@ def maxpool_head_reference(
     running max over the sequence. Inputs are upcast to fp32 (float64 stays)
     before the product, so bf16 inputs give exact products summed in fp32,
     as the kernel's tensor cores do (in another order). Returns [B, V]."""
-    maxpool_head_reference.calls += 1
+    _count(maxpool_head_reference, "calls")
     B, L, _ = h.shape
     acc = _acc_dtype(h)
     wt = w.to(acc).t()
@@ -75,7 +86,7 @@ def maxpool_head_argmax_reference(h, mask, w, bias, chunk: int = 64):
     """Plain version of the training forward: `maxpool_head_reference`'s
     values and, per (b, v), the first position that attains the maximum
     (int32 [B, V])."""
-    maxpool_head_argmax_reference.calls += 1
+    _count(maxpool_head_argmax_reference, "calls")
     B, L, _ = h.shape
     acc = _acc_dtype(h)
     wt = w.to(acc).t()
@@ -106,7 +117,7 @@ def _scatter_grad(g, idx, mask, L):
 def maxpool_head_bwd_w_reference(g, idx, mask, h):
     """Plain version of the decoder and bias gradients: the dense scatter,
     then one matmul. Returns (dw [V, D], dbias [V]) in fp32 (float64 stays)."""
-    maxpool_head_bwd_w_reference.calls += 1
+    _count(maxpool_head_bwd_w_reference, "calls")
     B, L, D = h.shape
     s = _scatter_grad(g, idx, mask, L).reshape(B * L, -1)
     return torch.matmul(s.t(), h.reshape(B * L, D).to(s.dtype)), s.sum(dim=0)
@@ -115,7 +126,7 @@ def maxpool_head_bwd_w_reference(g, idx, mask, h):
 def maxpool_head_bwd_h_reference(g, idx, mask, w):
     """Plain version of the hidden-state gradient: the dense scatter, then
     one matmul. Returns dh [B, L, D] in fp32 (float64 stays)."""
-    maxpool_head_bwd_h_reference.calls += 1
+    _count(maxpool_head_bwd_h_reference, "calls")
     s = _scatter_grad(g, idx, mask, mask.shape[1])
     return torch.matmul(s, w.to(s.dtype))
 
@@ -126,7 +137,7 @@ def bucket_by_argmax_reference(g, idx, mask):
     in increasing v. Returns (offsets [B*L + 1] int32, v [nnz] int32,
     coef [nnz] in g's dtype): list b*L + l is entries offsets[b*L + l] up to
     offsets[b*L + l + 1]."""
-    bucket_by_argmax_reference.calls += 1
+    _count(bucket_by_argmax_reference, "calls")
     B, V = g.shape
     L = mask.shape[1]
     pos = idx.long()
@@ -302,7 +313,7 @@ def maxpool_head(
             out.data_ptr(), B, L, D, V, _stream(h),
         )
     _raise_on(rc, "maxpool_head")
-    maxpool_head.launches += 1
+    _count(maxpool_head, "launches")
     return out
 
 
@@ -325,7 +336,7 @@ def maxpool_head_argmax(h, mask, w, bias):
             out.data_ptr(), idx.data_ptr(), B, L, D, V, _stream(h),
         )
     _raise_on(rc, "maxpool_head_argmax")
-    maxpool_head_argmax.launches += 1
+    _count(maxpool_head_argmax, "launches")
     return out, idx
 
 
@@ -346,7 +357,7 @@ def maxpool_head_bwd_w(g, idx, mask, h):
         rc = lib.maxpool_head_bwd_w(g.data_ptr(), idx.data_ptr(), mask.data_ptr(), h.data_ptr(),
                                     dw.data_ptr(), dbias.data_ptr(), B, L, D, V, _stream(g))
     _raise_on(rc, "maxpool_head_bwd_w")
-    maxpool_head_bwd_w.launches += 1
+    _count(maxpool_head_bwd_w, "launches")
     return dw, dbias
 
 
@@ -378,7 +389,7 @@ def maxpool_head_bwd_buckets(g, idx, mask):
                                           offsets.data_ptr(), entries.data_ptr(),
                                           work.data_ptr(), B, L, V, _stream(g))
     _raise_on(rc, "maxpool_head_bwd_buckets")
-    maxpool_head_bwd_buckets.launches += 1
+    _count(maxpool_head_bwd_buckets, "launches")
     return offsets, entries[:, 0], entries[:, 1].view(torch.float32)
 
 
@@ -400,7 +411,7 @@ def maxpool_head_bwd_h(g, idx, mask, w):
         rc = lib.maxpool_head_bwd_h(g.data_ptr(), idx.data_ptr(), mask.data_ptr(), w.data_ptr(),
                                     dh.data_ptr(), work.data_ptr(), B, L, D, V, _stream(g))
     _raise_on(rc, "maxpool_head_bwd_h")
-    maxpool_head_bwd_h.launches += 1
+    _count(maxpool_head_bwd_h, "launches")
     return dh
 
 
@@ -440,7 +451,7 @@ def maxpool_head_train(h, mask, w, bias) -> torch.Tensor:
     return MaxPoolHead.apply(h, mask, w, bias)
 
 
-# plain integer counters: a wrapper counts the launches of its kernel, a
+# integer counters, raised by `_count`: a wrapper counts the launches of its kernel, a
 # plain version its calls (chip_smoke.py shows from them which ran)
 _KERNELS = (maxpool_head, maxpool_head_argmax, maxpool_head_bwd_w, maxpool_head_bwd_buckets,
             maxpool_head_bwd_h)

@@ -14,7 +14,12 @@ show that its step went through them.
 Over the mesh of one process (`core/mesh.py`) a collective is a copy to the
 mesh's first device: `merged_topk` merges the shards' top-k lists there
 (the sharded index's merge), and `global_batch_fn` runs a function on the
-gathered global batch on every device.
+gathered global batch on every device. The trainer's step over the mesh
+gathers the positions' reps with `mesh_gather` (autograd carries each
+position's slice of the gradient back through the copy), adds the
+replicas' gradients onto the lead's with `mesh_grad_sum`, and copies the
+updated parameters back out with `mesh_broadcast`: the in-process
+counterparts of `all_gather_batch` and `all_reduce_grads`.
 """
 
 from __future__ import annotations
@@ -77,6 +82,57 @@ def all_reduce_grads(params: List[torch.Tensor]) -> None:
 all_reduce_grads.calls = 0
 
 
+def mesh_gather(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The positions' tensors concatenated along dim 0 on `device` (the
+    mesh's first), in position order. Differentiable: the copy and the
+    concatenation send each position its rows of the gradient."""
+    mesh_gather.calls += 1
+    return torch.cat([p.to(device) for p in parts])
+
+
+mesh_gather.calls = 0
+
+
+def _flat_grads(params: Sequence[torch.Tensor]) -> torch.Tensor:
+    return _flatten_dense_tensors([p.grad if p.grad is not None else torch.zeros_like(p)
+                                   for p in params])
+
+
+def mesh_grad_sum(lead: List[torch.Tensor], replicas: Sequence[Sequence[torch.Tensor]]) -> None:
+    """Add each replica's gradients onto the lead's (the parameters of
+    position 0), in position order, in one flattened bucket a replica; the
+    replicas' gradients are then dropped. `replicas[r][i]` is the
+    parameter `lead[i]` of position r + 1. A parameter that no position
+    gave a gradient keeps none, as on one device."""
+    mesh_grad_sum.calls += 1
+    on = [i for i, p in enumerate(lead)
+          if p.grad is not None or any(r[i].grad is not None for r in replicas)]
+    flat = _flat_grads([lead[i] for i in on])
+    for params in replicas:
+        flat += _flat_grads([params[i] for i in on]).to(flat.device)
+        for p in params:
+            p.grad = None
+    for i, g in zip(on, _unflatten_dense_tensors(flat, [lead[i] for i in on])):
+        lead[i].grad = g
+
+
+mesh_grad_sum.calls = 0
+
+
+@torch.no_grad()
+def mesh_broadcast(lead: List[torch.Tensor], replicas: Sequence[Sequence[torch.Tensor]]) -> None:
+    """Copy the lead's parameters onto every replica's, bit for bit (one
+    flattened bucket, one copy to each replica's device)."""
+    mesh_broadcast.calls += 1
+    flat = _flatten_dense_tensors([p.detach() for p in lead])
+    for params in replicas:
+        on_dev = flat.to(params[0].device)
+        torch._foreach_copy_(list(params), list(_unflatten_dense_tensors(on_dev, params)))
+
+
+mesh_broadcast.calls = 0
+
+
 def merged_topk(scores: Sequence[torch.Tensor], indices: Sequence[torch.Tensor], k: int):
     """The global top-k of per-shard [B, k] top-k lists (scores and global
     ids): the shards' lists concatenated in shard order on the first
@@ -130,11 +186,20 @@ def global_batch_fn(fn, mesh, *, replicated_out: bool = True, n_args: Optional[i
     return wrapped
 
 
+_MESH_TRAIN = (mesh_gather, mesh_grad_sum, mesh_broadcast)
+
+
 def counts() -> dict:
+    """The calls of the process group's two train-step collectives."""
     return {"all_gather_batch": all_gather_batch.calls,
             "all_reduce_grads": all_reduce_grads.calls}
 
 
+def mesh_counts() -> dict:
+    """The calls of the in-process mesh's three train-step collectives."""
+    return {f.__name__: f.calls for f in _MESH_TRAIN}
+
+
 def reset_counts() -> None:
-    all_gather_batch.calls = 0
-    all_reduce_grads.calls = 0
+    for f in (all_gather_batch, all_reduce_grads) + _MESH_TRAIN:
+        f.calls = 0

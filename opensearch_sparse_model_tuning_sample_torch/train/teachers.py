@@ -25,6 +25,8 @@ training kernels, and keeps no residuals.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import logging
 import os
 from dataclasses import dataclass
@@ -154,6 +156,16 @@ class HostTeacherModel:
         return torch.nn.functional.normalize(pooled, p=2, dim=1).float()
 
 
+def _teacher_on(teacher: Teacher, device: torch.device) -> Teacher:
+    """A frozen copy of a teacher's module on `device` (precomputed and host
+    teachers have none: their reps arrive as features)."""
+    if teacher.bert is None:
+        return teacher
+    return dataclasses.replace(
+        teacher, bert=copy.deepcopy(teacher.bert).to(device).requires_grad_(False),
+        special_mask=None if teacher.special_mask is None else teacher.special_mask.to(device))
+
+
 def minmax_normalize(score: torch.Tensor) -> torch.Tensor:
     """Per-query-row min-max normalisation (bi_encoder_wrapper.py:133-137),
     which makes teachers of different scales ensemble-able. A row whose
@@ -175,28 +187,52 @@ class TeacherEnsemble:
         self.teachers = teachers
         self.score_scale = score_scale
         self.use_in_batch_negatives = use_in_batch_negatives
+        self._copies: Dict[torch.device, "TeacherEnsemble"] = {}
 
     @torch.no_grad()
-    def get_scores(self, q_features_list: List[Dict[str, torch.Tensor]],
-                   d_features_list: List[Dict[str, torch.Tensor]],
-                   gather=None) -> torch.Tensor:
-        """[B, B*G] (in-batch negatives) or [B, G] fp32 teacher scores, no
-        gradient. The fp32 products run in fp32 on the card too: the port's
-        device policy (core/device.py) keeps TF32 off. Under data
-        parallelism `gather` (`all_gather_batch`) makes each teacher's reps
-        of this rank's slice the global batch's, so in-batch scores span
-        every rank's docs."""
-        if not (len(q_features_list) == len(d_features_list) == len(self.teachers)):
+    def reps(self, features_list: List[Dict[str, torch.Tensor]]) -> List[torch.Tensor]:
+        """Each teacher's reps of its features (one batch side), no
+        gradient."""
+        if len(features_list) != len(self.teachers):
             raise ValueError(f"{len(self.teachers)} teachers, features for "
-                             f"{len(q_features_list)} / {len(d_features_list)}")
+                             f"{len(features_list)}")
+        return [teacher_rep(t, f) for t, f in zip(self.teachers, features_list)]
+
+    @torch.no_grad()
+    def scores_from_reps(self, q_reps: List[torch.Tensor],
+                         d_reps: List[torch.Tensor]) -> torch.Tensor:
+        """[B, B*G] (in-batch negatives) or [B, G] fp32 teacher scores of the
+        teachers' reps of the whole batch: each teacher's pair scores
+        min-max normalised per row, their mean times score_scale. The fp32
+        products run in fp32 on the card too: the port's device policy
+        (core/device.py) keeps TF32 off."""
         scores = 0.0
-        for teacher, qf, df in zip(self.teachers, q_features_list, d_features_list):
-            q_rep, d_rep = teacher_rep(teacher, qf), teacher_rep(teacher, df)
-            if gather is not None:
-                q_rep, d_rep = gather(q_rep), gather(d_rep)
-            score = pair_scores(q_rep, d_rep, self.use_in_batch_negatives)
-            scores = scores + minmax_normalize(score)
+        for q_rep, d_rep in zip(q_reps, d_reps):
+            scores = scores + minmax_normalize(
+                pair_scores(q_rep, d_rep, self.use_in_batch_negatives))
         return (scores / len(self.teachers) * self.score_scale).detach()
+
+    def get_scores(self, q_features_list: List[Dict[str, torch.Tensor]],
+                   d_features_list: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+        """The teacher scores of one whole batch: `scores_from_reps` of
+        `reps`. (The train step gathers the reps of a rank's or a mesh
+        position's rows between the two.)"""
+        return self.scores_from_reps(self.reps(q_features_list), self.reps(d_features_list))
+
+    def on(self, device: torch.device) -> "TeacherEnsemble":
+        """This ensemble with its teachers' modules on `device`: itself on
+        the teachers' own device, else frozen copies made once per device
+        and kept (the positions of a mesh that share a device share them)."""
+        device = torch.device(device)
+        own = next((t.bert.embeddings.word_embeddings.device for t in self.teachers
+                    if t.bert is not None), None)
+        if own is None or own == device:
+            return self
+        if device not in self._copies:
+            self._copies[device] = TeacherEnsemble(
+                [_teacher_on(t, device) for t in self.teachers], self.score_scale,
+                self.use_in_batch_negatives)
+        return self._copies[device]
 
     @property
     def has_host(self) -> bool:

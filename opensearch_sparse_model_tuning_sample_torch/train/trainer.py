@@ -1,5 +1,6 @@
-"""Training: the train step and the host loop, on one card or data-parallel
-over a process group (one process per card).
+"""Training: the train step and the host loop, on one card, data-parallel
+over the device mesh of one process, or over a process group (one process
+per card).
 
 The port of the JAX package's `train/trainer.py` (which replaces the
 reference's HF-Trainer subclass, trainer.py:52-218). A step runs the
@@ -25,24 +26,40 @@ the backward and one AdamW update:
     teachers belong to the ensemble, not to the model, so they stay out of
     the optimizer, the clip norm, the train state and the checkpoints.
 
+A step over a mesh (`core/mesh.py`) is JAX's jitted step over its `data`
+axis: the loader batch is the global batch, each microbatch is split by
+rows over the positions, and each position encodes its rows with its own
+replica of the model on its device (position 0's is the model itself).
+The reps are gathered to the first device, where the losses, the
+regulariser and the metrics are taken once on the global microbatch; one
+backward sends each replica its rows' gradient, the replicas' gradients
+are summed onto the model's, and after the one AdamW step the parameters
+are copied back out to the replicas. The encode and the loss are separate
+functions (`encode_rows`, `loss_from_rows`), so the process group's gather
+(`all_gather_batch`) and the mesh's (`mesh_gather`) share the loss code.
+
 Metrics and the loss moving average stay on the device; the loop reads
 them only at `logging_steps`, so other steps never wait for the card.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from ..core import distributed
+from ..core.mesh import Mesh, process_mesh, shard_batch, split_rows
 from ..models import hf_import, sparse_encoder as se
 from ..ops import flops as flops_ops
 from ..ops.losses import LossSpec, build_loss_specs
-from ..parallel.collectives import all_gather_batch, all_reduce_grads
+from ..parallel.collectives import (all_gather_batch, all_reduce_grads, mesh_broadcast,
+                                    mesh_gather, mesh_grad_sum)
 
 logger = logging.getLogger(__name__)
 
@@ -74,38 +91,45 @@ def make_optimizer(model: se.SparseEncoderModel, model_args, data_args, training
     return opt, sched
 
 
-def train_loss(model: se.SparseEncoderModel, batch: Dict[str, torch.Tensor], step: int,
-               loss_specs: List[LossSpec], model_args, data_args, dropout_key=None,
-               teacher_ensemble=None, gather=None):
-    """One microbatch's loss and metrics (tensors on the device). `step` is
-    the optimizer's step count before this update, which the lambda ramp
-    reads; `dropout_key` (None: dropout off) seeds the dropout masks. With a
-    `teacher_ensemble` its scores of the batch's teacher features, computed
-    first and without gradient, take the place of the batch's `scores`.
-    `gather` (data parallelism: `all_gather_batch`) turns this rank's reps
-    and teacher scores into the global batch's before the losses."""
-    needs_scores = any(s.kind in ("kldiv", "marginmse") for s in loss_specs)
-    teacher_scores = batch.get("scores")
+def encode_rows(model: se.SparseEncoderModel, batch, model_args, dropout_key=None,
+                teacher_ensemble=None) -> dict:
+    """The student's reps of a batch's rows, with `model` on the batch's
+    device, and what the loss takes beside them: the teachers' reps of the
+    same rows (no gradient), or else the dataset's scores. One position's
+    (or one rank's) part of a microbatch; `dropout_key` (None: dropout off)
+    seeds the dropout masks."""
+    rows = {}
     if teacher_ensemble is not None:
-        teacher_scores = teacher_ensemble.get_scores(batch["teacher_q"], batch["teacher_d"],
-                                                     gather=gather)
-    elif teacher_scores is not None and gather is not None:
-        with torch.no_grad():
-            teacher_scores = gather(teacher_scores)
-    if needs_scores and teacher_scores is None:
-        raise ValueError("kldiv/marginmse losses need teacher scores")
-
+        rows["teacher_q"] = teacher_ensemble.reps(batch["teacher_q"])
+        rows["teacher_d"] = teacher_ensemble.reps(batch["teacher_d"])
+    elif batch.get("scores") is not None:
+        rows["scores"] = batch["scores"]
     key_d = None if dropout_key is None else (*dropout_key, 0)
     key_q = None if dropout_key is None else (*dropout_key, 1)
-    d_rep = se.encode_doc(model, batch["d_input_ids"], batch["d_attention_mask"],
-                          dropout_key=key_d)
+    rows["d"] = se.encode_doc(model, batch["d_input_ids"], batch["d_attention_mask"],
+                              dropout_key=key_d)
     if model_args.inf_free:
-        q_rep = se.encode_query_inf_free(model, batch["q_input_ids"])
+        rows["q"] = se.encode_query_inf_free(model, batch["q_input_ids"])
     else:
-        q_rep = se.encode_doc(model, batch["q_input_ids"], batch["q_attention_mask"],
-                              dropout_key=key_q)
-    if gather is not None:
-        d_rep, q_rep = gather(d_rep), gather(q_rep)
+        rows["q"] = se.encode_doc(model, batch["q_input_ids"], batch["q_attention_mask"],
+                                  dropout_key=key_q)
+    return rows
+
+
+def loss_from_rows(rows: dict, step: int, loss_specs: List[LossSpec], model_args, data_args,
+                   teacher_ensemble=None):
+    """One microbatch's loss and metrics (tensors on the device) from the
+    whole microbatch's `encode_rows`. `step` is the optimizer's step count
+    before this update, which the lambda ramp reads. With a
+    `teacher_ensemble` its scores of the teachers' reps take the place of
+    the dataset's `scores`."""
+    needs_scores = any(s.kind in ("kldiv", "marginmse") for s in loss_specs)
+    teacher_scores = rows.get("scores")
+    if teacher_ensemble is not None:
+        teacher_scores = teacher_ensemble.scores_from_reps(rows["teacher_q"], rows["teacher_d"])
+    if needs_scores and teacher_scores is None:
+        raise ValueError("kldiv/marginmse losses need teacher scores")
+    d_rep, q_rep = rows["d"], rows["q"]
 
     group_num = d_rep.shape[0] // q_rep.shape[0]
     d_flops = flops_ops.flops_value(d_rep, group_num, flops_threshold=data_args.flops_threshold)
@@ -132,18 +156,41 @@ def train_loss(model: se.SparseEncoderModel, batch: Dict[str, torch.Tensor], ste
     return loss, metrics
 
 
+def train_loss(model: se.SparseEncoderModel, batch: Dict[str, torch.Tensor], step: int,
+               loss_specs: List[LossSpec], model_args, data_args, dropout_key=None,
+               teacher_ensemble=None):
+    """One whole microbatch's loss and metrics on one device: `encode_rows`,
+    then `loss_from_rows`."""
+    return loss_from_rows(encode_rows(model, batch, model_args, dropout_key, teacher_ensemble),
+                          step, loss_specs, model_args, data_args, teacher_ensemble)
+
+
+def _replica(model: se.SparseEncoderModel, device: torch.device) -> se.SparseEncoderModel:
+    """A copy of the model on `device` that shares its tokenizer."""
+    return copy.deepcopy(model, {id(model.tokenizer): model.tokenizer}).to(device)
+
+
 class Trainer:
     """Host loop: batches to the card, step, log, checkpoint.
 
     Mirrors the observable behaviour of the reference SparseModelTrainer
     (moving-average ranking loss with 0.99 decay and periodic health stats,
     trainer.py:57,120-137; `checkpoint-{step}` saves, :145-156). The model's
-    parameters are updated in place. While a process group is up the step
-    is data-parallel (at world size 1 too), and each loader batch is this
-    rank's slice of the global batch."""
+    parameters are updated in place.
+
+    `mesh` (default `process_mesh(model.device, dp_size, world)`, as JAX's
+    default is `make_mesh(dp_size)`): each loader batch is the global batch
+    of `per_device x mesh.size x A` rows, and the step runs over the mesh's
+    positions. Position 0 is the model itself (the mesh's first device must
+    be the model's); every other position keeps a replica of its own, made
+    once and refreshed after each step, also where devices repeat. The
+    AdamW state lives only with the model. While a process group is up the
+    step is data-parallel over the ranks too (at world size 1 as well), and
+    each loader batch is this rank's slice of the global batch."""
 
     def __init__(self, model: se.SparseEncoderModel, model_args, data_args, training_args,
-                 loss_specs: Optional[List[LossSpec]] = None, teacher_ensemble=None):
+                 loss_specs: Optional[List[LossSpec]] = None, teacher_ensemble=None,
+                 mesh: Optional[Mesh] = None):
         self.model = model
         self.teacher_ensemble = teacher_ensemble
         self.model_args = model_args
@@ -161,57 +208,53 @@ class Trainer:
         self.log_history: List[Dict[str, float]] = []
         self.distributed = torch.distributed.is_initialized()
         self.rank = distributed.rank() if self.distributed else 0
+        self.mesh = mesh if mesh is not None else process_mesh(
+            self.device, training_args.dp_size, distributed.world_size())
+        if self.mesh.devices[0] != self.device:
+            raise ValueError(f"the mesh's first device {self.mesh.devices[0]} is not the "
+                             f"model's ({self.device})")
+        self.replicas = [_replica(model, d) for d in self.mesh.devices[1:]]
+        names = {id(p): n for n, p in model.named_parameters()}
+        self._replica_params = [[dict(r.named_parameters())[names[id(p)]] for p in self.params]
+                                for r in self.replicas]
 
     # ------------------------------------------------------------------
-    def _to_device(self, x):
-        """A loader batch on the device: arrays and tensors moved, teacher
-        feature lists and dicts moved leaf by leaf, raw texts left as they
-        are."""
-        if isinstance(x, dict):
-            return {k: self._to_device(v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [self._to_device(v) for v in x]
-        if isinstance(x, tuple):  # a host teacher's texts
-            return x
-        return torch.as_tensor(x).to(self.device, non_blocking=True)
-
-    def _split(self, x, A: int, key: str):
-        """The A microbatches of one batch entry, split on the leading dim.
-        Doc rows (student's and teachers') are query-major, so a plain split
-        keeps each query's group with it (collator layout)."""
-        if isinstance(x, dict):
-            parts = {k: self._split(v, A, key) for k, v in x.items()}
-            return [{k: p[i] for k, p in parts.items()} for i in range(A)]
-        if isinstance(x, list):
-            parts = [self._split(v, A, key) for v in x]
-            return [[p[i] for p in parts] for i in range(A)]
-        if len(x) % A:
-            raise ValueError(f"batch leading dim {len(x)} of {key} not divisible by "
-                             f"gradient_accumulation_steps={A}")
-        n = len(x) // A
-        return [x[i * n:(i + 1) * n] for i in range(A)]
+    def _microbatch_loss(self, mb, i: int):
+        """Microbatch i's loss and metrics: each position encodes its rows
+        with its replica on its device, the rows are gathered to the first
+        device (and over the ranks under a process group), and the loss is
+        taken once on the global microbatch. Position p takes the rank's
+        place in the dropout key, so the positions draw the masks that as
+        many ranks would."""
+        models = [self.model, *self.replicas]
+        ens = self.teacher_ensemble
+        parts = [encode_rows(m, part, self.model_args,
+                             (self.args.seed, self.step, i, self.rank * self.mesh.size + p),
+                             None if ens is None else ens.on(m.device))
+                 for p, (m, part) in enumerate(zip(models, shard_batch(self.mesh, mb)))]
+        if len(parts) > 1:  # leaf by leaf, in position order
+            parts = [pytree.tree_map(lambda *xs: mesh_gather(xs, self.device), *parts)]
+        rows = pytree.tree_map(all_gather_batch, parts[0]) if self.distributed else parts[0]
+        return loss_from_rows(rows, self.step, self.loss_specs, self.model_args,
+                              self.data_args, ens)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a loader batch (numpy or tensors). With
         gradient accumulation the batch's leading dim is split into A
-        microbatches. Host teachers encode their texts first."""
+        microbatches, and each microbatch over the mesh's positions (JAX
+        shards axis 1 of [A, rows]). Host teachers encode their texts first,
+        on the whole batch."""
         if self.teacher_ensemble is not None:
             batch = self.teacher_ensemble.host_precompute(batch)
-        batch = self._to_device(batch)
         A = self.accum_steps
-        parts = {k: self._split(x, A, k) for k, x in batch.items()}
         self.optimizer.zero_grad(set_to_none=True)
         per_mb = []
-        for i in range(A):
-            mb = {k: p[i] for k, p in parts.items()}
-            # the rank in the key: ranks draw their own dropout masks
-            loss, m = train_loss(self.model, mb, self.step, self.loss_specs, self.model_args,
-                                 self.data_args,
-                                 dropout_key=(self.args.seed, self.step, i, self.rank),
-                                 teacher_ensemble=self.teacher_ensemble,
-                                 gather=all_gather_batch if self.distributed else None)
+        for i, mb in enumerate(split_rows(batch, A, "the batch")):
+            loss, m = self._microbatch_loss(mb, i)
             loss.backward()  # gradients add up in .grad over the microbatches
             per_mb.append(m)
+        if self.replicas:
+            mesh_grad_sum(self.params, self._replica_params)
         if A > 1:
             for p in self.params:
                 if p.grad is not None:
@@ -227,6 +270,8 @@ class Trainer:
             torch.nn.utils.clip_grad_norm_(self.params, self.args.max_grad_norm)
         self.optimizer.step()
         self.scheduler.step()
+        if self.replicas:
+            mesh_broadcast(self.params, self._replica_params)
         self.step += 1
         self.loss_ma = 0.99 * self.loss_ma + 0.01 * metrics["ranking_loss"]
         metrics["ranking_loss_ma"] = self.loss_ma
@@ -283,8 +328,9 @@ class Trainer:
 
     def save_train_state(self, path: Optional[str] = None):
         """Everything an exact resume needs (model, optimizer, schedule, step,
-        loss moving average) as `train_state/state.pt`. The port's own
-        format: a JAX package's train_state does not load here. Rank 0
+        loss moving average) as `train_state/state.pt`; of a mesh's
+        positions only the model itself, which the replicas copy. The
+        port's own format: a JAX package's train_state does not load here. Rank 0
         writes it; every rank calls this and leaves behind a barrier, so
         the file is whole before any rank can restore from it."""
         path = self._state_path(path)
@@ -311,6 +357,8 @@ class Trainer:
         self.scheduler.load_state_dict(state["scheduler"])
         self.step = int(state["step"])
         self.loss_ma = state["loss_ma"].to(self.device)
+        if self.replicas:
+            mesh_broadcast(self.params, self._replica_params)
 
 
 def _start_profiler(device: torch.device):

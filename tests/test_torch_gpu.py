@@ -801,7 +801,7 @@ def test_nccl_at_world_one_gathers_and_sums_cuda_tensors(cuda):
         distributed.destroy()
 
 
-def test_data_parallel_step_at_world_one_equals_the_one_process_step(cuda):
+def test_data_parallel_step_at_world_one_equals_the_one_process_step(cuda, tmp_path):
     """Two train steps of the tiny model with dropout on, under an NCCL
     group of one and without a group: the losses agree to 1e-5 relative
     (one card; the attention backward may sum in another order run to run)
@@ -814,7 +814,7 @@ def test_data_parallel_step_at_world_one_equals_the_one_process_step(cuda):
     ma, da, ta = config.parse_config({
         "arch": "tiny", "loss_types": ["infonce"], "use_in_batch_negatives": True,
         "learning_rate": 1e-3, "max_steps": 2, "warmup_steps": 0, "save_strategy": "no",
-        "output_dir": "/unused", "device": "cuda:0"})
+        "output_dir": str(tmp_path / "out"), "device": "cuda:0"})
     rng = np.random.default_rng(0)
     batch = {"q_input_ids": rng.integers(1000, 5000, (4, 8)),
              "q_attention_mask": np.ones((4, 8), np.int64),
@@ -837,3 +837,52 @@ def test_data_parallel_step_at_world_one_equals_the_one_process_step(cuda):
         finally:
             distributed.destroy()
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-5)
+
+
+def test_mesh_train_step_on_the_card_matches_one_position(cuda, tmp_path):
+    """Two train steps of the tiny model (dropout off) over a mesh of four
+    positions on the card against the same steps at one position on the
+    global batch: the first step's loss to 1e-3 relative (bf16 encoders at
+    other GEMM shapes, as chip_smoke's step 13 holds it), each training
+    kernel launched once per position, the mesh's collectives run, and
+    every replica bit-equal to the model after each step."""
+    import dataclasses
+
+    from opensearch_sparse_model_tuning_sample_torch.core import config
+    from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
+    from opensearch_sparse_model_tuning_sample_torch.parallel import collectives
+    from opensearch_sparse_model_tuning_sample_torch.train.trainer import Trainer
+
+    ma, da, ta = config.parse_config({
+        "arch": "tiny", "loss_types": ["infonce"], "use_in_batch_negatives": True,
+        "learning_rate": 1e-3, "max_steps": 2, "warmup_steps": 0, "save_strategy": "no",
+        "output_dir": str(tmp_path / "out")})
+    rng = np.random.default_rng(0)
+    batch = {"q_input_ids": rng.integers(1000, 5000, (8, 8)),
+             "q_attention_mask": np.ones((8, 8), np.int64),
+             "d_input_ids": rng.integers(1000, 5000, (16, 16)),
+             "d_attention_mask": np.ones((16, 16), np.int64)}
+    losses = {}
+    for n in (4, 1):
+        model = tse.from_model_args(ma, seed=0, device=cuda)
+        cfg = dataclasses.replace(model.cfg, hidden_dropout_prob=0.0,
+                                  attention_probs_dropout_prob=0.0)
+        for m in model.modules():
+            if hasattr(m, "cfg"):
+                m.cfg = cfg
+        trainer = Trainer(model, ma, da, ta, mesh=make_mesh(devices=[cuda] * n))
+        collectives.reset_counts()
+        for f in (mp.maxpool_head_argmax, mp.maxpool_head_bwd_w, mp.maxpool_head_bwd_h):
+            f.launches = 0
+        losses[n] = []
+        for _ in range(2):
+            losses[n].append(float(trainer.train_step(batch)["loss"]))
+            lead = dict(model.named_parameters())
+            for r in trainer.replicas:
+                assert all(torch.equal(p, lead[k]) for k, p in r.named_parameters())
+        assert (mp.maxpool_head_argmax.launches, mp.maxpool_head_bwd_w.launches,
+                mp.maxpool_head_bwd_h.launches) == (2 * n,) * 3
+        assert collectives.mesh_counts()["mesh_grad_sum"] == (2 if n > 1 else 0)
+    np.testing.assert_allclose(losses[4][0], losses[1][0], rtol=1e-3)
