@@ -758,30 +758,17 @@ class StepClock:
         return self.end - self.start - self.saving_s
 
 
-def _counters():
+def reset_counters():
     from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
 
-    kernels = {f.__name__: f for f in (mp.maxpool_head, mp.maxpool_head_argmax,
-                                       mp.maxpool_head_bwd_w, mp.maxpool_head_bwd_buckets,
-                                       mp.maxpool_head_bwd_h)}
-    plains = {f.__name__: f for f in (mp.maxpool_head_reference, mp.maxpool_head_argmax_reference,
-                                      mp.maxpool_head_bwd_w_reference,
-                                      mp.bucket_by_argmax_reference,
-                                      mp.maxpool_head_bwd_h_reference)}
-    return kernels, plains
-
-
-def reset_counters():
-    kernels, plains = _counters()
-    for f in kernels.values():
-        f.launches = 0
-    for f in plains.values():
-        f.calls = 0
+    mp.reset_launch_counts()
 
 
 def read_counters():
-    kernels, plains = _counters()
-    return ({k: f.launches for k, f in kernels.items()}, {k: f.calls for k, f in plains.items()})
+    from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
+
+    c = mp.launch_counts()
+    return c["kernels"], c["plains"]
 
 
 class _IngestRate(logging.Handler):
@@ -1192,8 +1179,8 @@ def build_big_index(dev):
     built on the incremental build's thread by the native library. Saved
     in format 2 for the server."""
     from bench import make_corpus
-    from opensearch_sparse_model_tuning_sample_torch.index import inverted
     from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
 
     path = os.path.join(OUT, "serve", "big.index")
     toks, ws = make_corpus(BIG_DOCS, BIG_VOCAB, avg_terms=110, seed=1, l_max=128)
@@ -1205,12 +1192,13 @@ def build_big_index(dev):
     check(idx.cfg.engine == "auto" and idx._engine == "inverted" and idx._exact_escalate,
           f"auto resolves to the inverted engine with exact escalation ({idx._engine})")
     check(idx.postings_source == "incremental", f"big postings by {idx.postings_source}")
-    check(inverted.BUILDS["native"] > 0 and inverted.BUILDS["numpy"] == 0
-          and inverted.BUILDS["numpy_merge"] == 0,
-          f"the native postings build ran, never the numpy one: {inverted.BUILDS}")
+    builds = tracing.counters()
+    check(builds.get("postings.build.native", 0) > 0 and not builds.get("postings.build.numpy")
+          and not builds.get("postings.merge.numpy"),
+          f"the native postings build ran, never the numpy one: {builds}")
     print(f"big index: {BIG_DOCS} docs, engine auto -> {idx._engine} (exact escalation "
           f"{idx._exact_escalate}), postings {tuple(idx._post_docs.shape)} by the "
-          f"{idx.postings_source} build, native library {inverted.BUILDS}; add + finalize "
+          f"{idx.postings_source} build, counters {builds}; add + finalize "
           f"{build_s:.2f} s", flush=True)
     idx.save(path)
     return path
@@ -1552,6 +1540,7 @@ def phase_inverted_eval(dev, path):
     from opensearch_sparse_model_tuning_sample_torch.cli import evaluate_beir
     from opensearch_sparse_model_tuning_sample_torch.eval import beir
     from opensearch_sparse_model_tuning_sample_torch.index import inverted
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
 
     ckpt = path["ckpt"]
     argv = ["evaluate_beir", path["path"], "--index_engine", "inverted",
@@ -1573,7 +1562,7 @@ def phase_inverted_eval(dev, path):
         captured["postings"] = orig[2](self)
         return captured["postings"]
 
-    builds = dict(inverted.BUILDS)
+    builds = tracing.counters()
     beir.ingest, inc.feed, inc.finish, sys.argv = ingest, feed, finish, argv
     t0 = time.time()
     reset_counters()
@@ -1600,7 +1589,9 @@ def phase_inverted_eval(dev, path):
     check(np.array_equal(pd, one[0]) and np.array_equal(pw.view(np.int32), one[1].view(np.int32)),
           "incremental postings bit-equal to the one-shot build of the same rows")
     check(np.array_equal(index._post_docs.cpu().numpy(), one[0]), "the card holds those postings")
-    check(inverted.BUILDS["numpy"] == builds["numpy"], f"no numpy postings build: {inverted.BUILDS}")
+    now = tracing.counters()
+    check(now.get("postings.build.numpy", 0) == builds.get("postings.build.numpy", 0),
+          f"no numpy postings build: {now}")
     n_batches = -(-n // path["cfg"]["per_device_eval_batch_size"])
     check(launches["maxpool_head"] >= n_batches, "the ingest kernel ran for every ingest batch")
     check(not any(plain.values()), f"no plain version ran in the inverted eval: {plain}")
@@ -2794,18 +2785,18 @@ def mesh_merge(dev, mesh):
 
 def phase_mesh(dev, path, test_split, corpus):
     """Step 12: the device mesh inside one process."""
-    from opensearch_sparse_model_tuning_sample_torch.parallel import collectives
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
 
     t0 = time.time()
     mesh, how = make_mesh_for(dev)
     print(f"mesh: {how}; devices {[str(d) for d in mesh.devices]}", flush=True)
-    merges = collectives.merged_topk.calls
+    merges = tracing.counters().get("collectives.merged_topk", 0)
     out = {"mesh": how, "devices": [str(d) for d in mesh.devices]}
     out["12a"] = mesh_scan(dev, mesh)
     out["12b"] = mesh_big(dev, mesh, corpus)
     out["12c"] = mesh_eval(dev, mesh, path, test_split)
     out["12d"] = mesh_merge(dev, mesh)
-    out["merged_topk_calls"] = collectives.merged_topk.calls - merges
+    out["merged_topk_calls"] = tracing.counters().get("collectives.merged_topk", 0) - merges
     out["seconds"] = time.time() - t0
     print(f"mesh phase {out['seconds']:.1f} s (12a {out['12a']['seconds']:.1f}, 12b "
           f"{out['12b']['seconds']:.1f}, 12c {out['12c']['seconds']:.1f}, 12d "

@@ -5,7 +5,9 @@ reference's torch DataLoader + CombinedRandomSampler wiring,
 trainer.py:180-218): plain-Python iteration, numpy shuffling seeded with
 `seed + epoch` (so both packages give the same order), homogeneous batches
 for a CombinedDataset, and a thread prefetcher that overlaps tokenization
-with the device step. Worker exceptions reach the consumer.
+with the device step. Worker exceptions reach the consumer. Each batch's
+collation is the span `data.collate` (`utils/tracing.py`), which a
+profiler sees where it records: on the thread that collates.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable, Iterator
 
 import numpy as np
 
+from ..utils import tracing
 from .datasets import CombinedDataset, CombinedRandomSampler
 
 
@@ -72,7 +75,9 @@ class DataLoader:
 
     def _produce(self) -> Iterator:
         for rows in self._row_batches():
-            yield self.collate_fn(rows)
+            with tracing.span("data.collate"):
+                batch = self.collate_fn(rows)
+            yield batch
 
     def __iter__(self) -> Iterator:
         self._epoch += 1  # each full pass reshuffles

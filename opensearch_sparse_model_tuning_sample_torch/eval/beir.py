@@ -37,6 +37,7 @@ from ..data.datasets import BEIRCorpusDataset, HostShardDataset, KeyValueDataset
 from ..core.mesh import make_mesh
 from ..index.engine import IndexConfig, SparseIndex
 from ..models.sparse_encoder import SparseEncoderModel, get_batch_encoder
+from ..utils import tracing
 from . import trec_eval
 from .metrics_sink import emit_metrics
 
@@ -475,7 +476,11 @@ def ingest(
     if index.cfg.engine != "dense" and not doc_inf_free:
         # chunks of batch_size x 8 docs through the on-device top-k path; the
         # next chunk is queued on the device before the previous one is
-        # copied back and added, so host and device overlap
+        # copied back and added. The copy is on the same stream, so it waits
+        # for that next chunk's forward too: only the launches overlap the
+        # card's work, and the card idles while the host adds the previous
+        # chunk and tokenizes the one after (the spans data.tokenize and
+        # index.add, PERF.md §5)
         CH = batch_size * 8
         pending = None  # (ids, n_valid, handle)
 
@@ -487,7 +492,8 @@ def ingest(
         for start in range(0, n, CH):
             if liveness is not None:
                 liveness.beat()
-            rows = [dataset[i] for i in range(start, min(start + CH, n))]
+            with tracing.span("data.tokenize"):
+                rows = [dataset[i] for i in range(start, min(start + CH, n))]
             handle, nv = encoder.encode_chunk_sparse_async(
                 [r[1] for r in rows], l_max=index.cfg.l_max, rows=batch_size
             )
@@ -500,49 +506,51 @@ def ingest(
         for start in range(0, n, batch_size):
             if liveness is not None:
                 liveness.beat()
-            rows = [dataset[i] for i in range(start, min(start + batch_size, n))]
+            with tracing.span("data.tokenize"):
+                rows = [dataset[i] for i in range(start, min(start + batch_size, n))]
             # doc_inf_free=True gives an idf-weighted lexical index (a
             # BM25-ish baseline and the test oracle)
             reps = encoder.encode_batch([r[1] for r in rows], inf_free=doc_inf_free)
             index.add([r[0] for r in rows], reps)
     index.finalize()
-    # the corpus statistic counts every rep>0 activation of the FULL encoder
-    # output (reference SparseEncoder, sparse_encoders.py:178-179), not the
-    # top-l_max rows the index stores
-    corpus_stat = os.path.join(out_dir, f"{index_name}.corpus.npy")
-    full_counts = encoder.count_tensor
-    if world_size > 1:
-        liveness.beat(force=True)  # finalize may have been a long gap
-        counts, total_docs, t_part = _reduce_counts(
-            out_dir, index_name, rank, world_size, full_counts, index.n_docs,
-            barrier_timeout, liveness)
-        if rank == 0:  # one writer (reference: the main process saves the stat)
-            # every rank has read the parts: remove them, then publish the
-            # stat; the others leave only on seeing this fresh stat, so the
-            # next round's barrier starts clean
-            deadline = time.time() + barrier_timeout
-            for r in range(world_size):
-                m = _count_part_path(out_dir, index_name, r, world_size) + ".seen"
-                _await(lambda: os.path.exists(m), f"ingest: rank {r} never confirmed {m}",
-                       deadline - time.time(), liveness, r)
-            for r in range(world_size):
-                base = _count_part_path(out_dir, index_name, r, world_size)
-                for f in (base, base + ".seen"):
-                    try:
-                        os.remove(f)
-                    except FileNotFoundError:
-                        pass
-            tmp = corpus_stat + f".tmp{os.getpid()}.npy"
-            np.save(tmp, counts.astype(np.float64) / max(total_docs, 1))
-            os.replace(tmp, corpus_stat)
+    with tracing.span("index.stat"):
+        # the corpus statistic counts every rep>0 activation of the FULL encoder
+        # output (reference SparseEncoder, sparse_encoders.py:178-179), not the
+        # top-l_max rows the index stores
+        corpus_stat = os.path.join(out_dir, f"{index_name}.corpus.npy")
+        full_counts = encoder.count_tensor
+        if world_size > 1:
+            liveness.beat(force=True)  # finalize may have been a long gap
+            counts, total_docs, t_part = _reduce_counts(
+                out_dir, index_name, rank, world_size, full_counts, index.n_docs,
+                barrier_timeout, liveness)
+            if rank == 0:  # one writer (reference: the main process saves the stat)
+                # every rank has read the parts: remove them, then publish the
+                # stat; the others leave only on seeing this fresh stat, so the
+                # next round's barrier starts clean
+                deadline = time.time() + barrier_timeout
+                for r in range(world_size):
+                    m = _count_part_path(out_dir, index_name, r, world_size) + ".seen"
+                    _await(lambda: os.path.exists(m), f"ingest: rank {r} never confirmed {m}",
+                           deadline - time.time(), liveness, r)
+                for r in range(world_size):
+                    base = _count_part_path(out_dir, index_name, r, world_size)
+                    for f in (base, base + ".seen"):
+                        try:
+                            os.remove(f)
+                        except FileNotFoundError:
+                            pass
+                tmp = corpus_stat + f".tmp{os.getpid()}.npy"
+                np.save(tmp, counts.astype(np.float64) / max(total_docs, 1))
+                os.replace(tmp, corpus_stat)
+            else:
+                # the departure barrier: the stat this rank reads is this round's
+                # (reference gates search behind wait_for_everyone,
+                # evaluate_beir.py:196)
+                _await_fresh(corpus_stat, t_part, barrier_timeout, liveness, writer_rank=0)
+            liveness.clear_own()  # a departed rank is not a dead rank
         else:
-            # the departure barrier: the stat this rank reads is this round's
-            # (reference gates search behind wait_for_everyone,
-            # evaluate_beir.py:196)
-            _await_fresh(corpus_stat, t_part, barrier_timeout, liveness, writer_rank=0)
-        liveness.clear_own()  # a departed rank is not a dead rank
-    else:
-        np.save(corpus_stat, full_counts.astype(np.float64) / max(index.n_docs, 1))
+            np.save(corpus_stat, full_counts.astype(np.float64) / max(index.n_docs, 1))
     dt = time.time() - t0
     logger.info("ingested %d docs into %s in %.1fs (%.1f docs/s)", n, index_name,
                 dt, n / max(dt, 1e-9))

@@ -59,6 +59,7 @@ import torch
 from ..core.device import DeviceLike, resolve_device, resolve_dtype
 from ..core.mesh import Mesh, replicate, shard_rows
 from ..parallel.collectives import merged_topk
+from ..utils import tracing
 from . import inverted
 
 logger = logging.getLogger(__name__)
@@ -323,6 +324,7 @@ class SparseIndex:
         self._search_fns: Dict[tuple, _InvertedFns] = {}
 
     # ------------------------------------------------------------- ingest
+    @tracing.spanned("index.add")
     def add(self, doc_ids: Sequence[str], reps: np.ndarray):
         """Add a batch of dense doc representations [B, V] (fp32)."""
         if self._finalized:
@@ -356,6 +358,7 @@ class SparseIndex:
         self._w_chunks.append(ws)
         self._feed_incremental()
 
+    @tracing.spanned("index.add")
     def add_topk(self, doc_ids: Sequence[str], token_idx: np.ndarray, weights: np.ndarray):
         """Add pre-sparsified rows (BatchEncoder.encode_batch_sparse):
         token_idx/weights [B, k] already impact-sorted, zero-padded."""
@@ -460,6 +463,7 @@ class SparseIndex:
         return self.count_tensor.astype(np.float64) / max(self.n_docs, 1)
 
     # ----------------------------------------------------------- finalize
+    @tracing.spanned("index.finalize")
     def finalize(self):
         if self._finalized:
             return

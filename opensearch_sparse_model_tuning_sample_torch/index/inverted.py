@@ -33,12 +33,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 logger = logging.getLogger(__name__)
 
 _PAD_ID = np.iinfo(np.int32).max
-
-# which build ran, by call: the native library or the numpy fallback
-BUILDS = {"native": 0, "numpy": 0, "native_merge": 0, "numpy_merge": 0}
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _LIB_PATH = os.path.join(_REPO, "native", "build", "libpostings.so")
@@ -136,7 +135,7 @@ def build_postings(
                                 vocab_size, postings_cap, _ptr(post_docs, ctypes.c_int32),
                                 _ptr(post_w, ctypes.c_float), 1)
         if rc == 0:
-            BUILDS["native"] += 1
+            tracing.count("postings.build.native")  # which build ran
             return post_docs, post_w
         logger.warning("native postings build failed (rc=%d); numpy build", rc)
     return _build_postings_np(toks, ws, vocab_size, postings_cap)
@@ -167,7 +166,7 @@ def _ranks(flat_tok: np.ndarray, vocab_size: int):
 
 
 def _build_postings_np(toks, ws, vocab_size, postings_cap):
-    BUILDS["numpy"] += 1
+    tracing.count("postings.build.numpy")
     flat_tok, flat_w, flat_doc = _impact_order(toks, ws, np.int32)
     counts, rank = _ranks(flat_tok, vocab_size)
     keep = rank < postings_cap
@@ -211,10 +210,10 @@ def merge_postings(
                                 V, C, b_doc_offset, _ptr(out_docs, ctypes.c_int32),
                                 _ptr(out_w, ctypes.c_float), 0)
         if rc == 0:
-            BUILDS["native_merge"] += 1
+            tracing.count("postings.merge.native")
             return out_docs, out_w
         logger.warning("native postings merge failed (rc=%d); numpy merge", rc)
-    BUILDS["numpy_merge"] += 1
+    tracing.count("postings.merge.numpy")
     if b_doc_offset:
         b_docs = np.where(b_docs != _PAD_ID, b_docs + b_doc_offset, b_docs)
     V, C = a_docs.shape

@@ -9,7 +9,11 @@ The port of the JAX package's `models/sparse_encoder.py` (reference
     that module;
   * `BatchEncoder` tokenizes, runs the forward on the device, takes the
     on-device top-`l_max` sparsification, and accumulates the FLOPS count
-    statistic on the device until it is read.
+    statistic on the device until it is read. Its stages are the spans
+    `data.tokenize`, `data.copy_in`, `encoder.forward`, `encoder.topk` and
+    `encoder.copy_out` (`utils/tracing.py`), and it counts the positions
+    the encoder runs (`encoder.positions`, padding included) and the real
+    tokens among them (`encoder.tokens`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..ops.activations import (
     pooled_activation,
     special_token_mask,
 )
+from ..utils import tracing
 from ..utils.shapes import next_pow2
 from . import bert as bert_mod
 from .bert import BertConfig, BertForMaskedLM
@@ -179,7 +184,6 @@ class BatchEncoder:
     # ------------------------------------------------------------- counts
     def reset_count(self):
         self.count_tensor = np.zeros((self.model.vocab_size,), dtype=np.int64)
-        self._n_encoded = 0
 
     @property
     def count_tensor(self) -> np.ndarray:
@@ -194,43 +198,53 @@ class BatchEncoder:
         self._count_host = np.asarray(value, dtype=np.int64)
         self._count_dev = None
 
-    def _accum_count(self, count_dev: torch.Tensor, n: int):
+    def _accum_count(self, count_dev: torch.Tensor):
         if not self.do_count:
             return
         self._count_dev = count_dev if self._count_dev is None else self._count_dev + count_dev
-        self._n_encoded += n
 
     # ------------------------------------------------------------ helpers
-    def _tokenize(self, texts: List[str], pad_rows: int = 0):
-        feats = self.model.tokenizer.encode_bucketed(
-            texts, self.max_length, self.seq_buckets
-        )
-        ids, mask = feats["input_ids"], feats["attention_mask"]
-        if pad_rows:
-            ids = np.concatenate([ids, np.zeros((pad_rows, ids.shape[1]), ids.dtype)])
-            mask = np.concatenate([mask, np.zeros((pad_rows, mask.shape[1]), mask.dtype)])
-        return (torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(mask).to(self.device))
+    def _tokenize(self, texts: List[str], pad_rows: int = 0, runs_encoder: bool = True):
+        """(ids, mask) on the device, padded to the bucket of the longest
+        text and by `pad_rows` rows; counts the positions and tokens when
+        the encoder runs on them (not for inference-free queries)."""
+        with tracing.span("data.tokenize"):
+            feats = self.model.tokenizer.encode_bucketed(
+                texts, self.max_length, self.seq_buckets
+            )
+            ids, mask = feats["input_ids"], feats["attention_mask"]
+            if pad_rows:
+                ids = np.concatenate([ids, np.zeros((pad_rows, ids.shape[1]), ids.dtype)])
+                mask = np.concatenate([mask, np.zeros((pad_rows, mask.shape[1]), mask.dtype)])
+            if runs_encoder:
+                tracing.count("encoder.positions", mask.size)
+                tracing.count("encoder.tokens", int(mask.sum()))
+        with tracing.span("data.copy_in"):
+            return (torch.from_numpy(ids).to(self.device),
+                    torch.from_numpy(mask).to(self.device))
 
-    def _pack_chunk(self, texts: List[str], rows: int):
+    def _pack_chunk(self, texts: List[str], rows: int, runs_encoder: bool = True):
         """Tokenize a chunk and pad its batch count up to a power of two.
         Returns (ids [nb*rows, L], mask [nb*rows, L], n_valid, nb)."""
         n = len(texts)
         nb = next_pow2(-(-n // rows))
-        ids, mask = self._tokenize(texts, pad_rows=nb * rows - n)
+        ids, mask = self._tokenize(texts, pad_rows=nb * rows - n, runs_encoder=runs_encoder)
         return ids, mask, n, nb
 
     # ------------------------------------------------------- dense reps
     @torch.inference_mode()
     def encode_batch_device(self, texts: List[str], inf_free: bool = False) -> torch.Tensor:
         """[B, V] reps on the device."""
-        ids, mask = self._tokenize(texts)
-        reps = encode(self.model, ids, mask, inf_free)
-        self._accum_count(activation_count(reps), len(texts))
+        ids, mask = self._tokenize(texts, runs_encoder=not inf_free)
+        with tracing.span("encoder.forward"):
+            reps = encode(self.model, ids, mask, inf_free)
+        self._accum_count(activation_count(reps))
         return reps
 
     def encode_batch(self, texts: List[str], inf_free: bool = False) -> np.ndarray:
-        return self.encode_batch_device(texts, inf_free=inf_free).cpu().numpy()
+        reps = self.encode_batch_device(texts, inf_free=inf_free)
+        with tracing.span("encoder.copy_out"):
+            return reps.cpu().numpy()
 
     def encode(self, texts: List[str], inf_free: bool = False) -> List[Dict[str, float]]:
         """{token: weight} maps of `texts` (the serving `_encode` route)."""
@@ -245,14 +259,15 @@ class BatchEncoder:
         ignore. The chunk runs as a loop over its `rows`-sized batches, one
         forward each, so every forward (and the max-pool kernel) sees the
         ingest batch shape and memory stays bounded by one batch."""
-        ids, mask, n, nb = self._pack_chunk(texts, rows)
-        reps = torch.cat([
-            encode(self.model, ids[i * rows:(i + 1) * rows],
-                   mask[i * rows:(i + 1) * rows], inf_free)
-            for i in range(nb)
-        ])
+        ids, mask, n, nb = self._pack_chunk(texts, rows, runs_encoder=not inf_free)
+        with tracing.span("encoder.forward"):
+            reps = torch.cat([
+                encode(self.model, ids[i * rows:(i + 1) * rows],
+                       mask[i * rows:(i + 1) * rows], inf_free)
+                for i in range(nb)
+            ])
         valid = torch.arange(reps.shape[0], device=reps.device)[:, None] < n
-        self._accum_count(((reps > 0) & valid).sum(dim=0).to(torch.int32), n)
+        self._accum_count(((reps > 0) & valid).sum(dim=0).to(torch.int32))
         return reps, n
 
     # ------------------------------------------------------ sparse reps
@@ -261,28 +276,34 @@ class BatchEncoder:
         """Forward + on-device top-k; returns device tensors (idx, vals,
         count) without waiting for them. Resolve with `resolve_sparse`."""
         ids, mask = self._tokenize(texts)
-        rep = encode_doc(self.model, ids, mask)
-        # count the FULL rep's activations (reference SparseEncoder counts
-        # every rep>0 entry): the top-k below is an index storage decision
-        # and must not change the FLOPS/d_length statistic
-        count = activation_count(rep)
-        idx, vals = _topk_rows(rep, min(l_max, self.model.vocab_size))
+        with tracing.span("encoder.forward"):
+            rep = encode_doc(self.model, ids, mask)
+        with tracing.span("encoder.topk"):
+            # count the FULL rep's activations (reference SparseEncoder counts
+            # every rep>0 entry): the top-k below is an index storage decision
+            # and must not change the FLOPS/d_length statistic
+            count = activation_count(rep)
+            idx, vals = _topk_rows(rep, min(l_max, self.model.vocab_size))
         return idx, vals, count
 
     def resolve_sparse(self, pending, n_texts: int):
+        """(idx, vals) of an async handle on the host (`n_texts`, the
+        handle's texts, is the JAX package's signature)."""
         idx, vals, count = pending
-        self._accum_count(count, n_texts)
-        return idx.cpu().numpy(), vals.cpu().numpy()
+        with tracing.span("encoder.copy_out"):
+            self._accum_count(count)
+            return idx.cpu().numpy(), vals.cpu().numpy()
 
     def resolve_sparse_many(self, pendings, n_texts_list):
         """Resolve several async handles with one host copy per tensor kind.
-        Returns [(idx, vals), ...] in handle order."""
+        Returns [(idx, vals), ...] in handle order (`n_texts_list` as
+        resolve_sparse's `n_texts`)."""
         if not pendings:
             return []
-        idx_all = torch.cat([p[0] for p in pendings]).cpu().numpy()
-        val_all = torch.cat([p[1] for p in pendings]).cpu().numpy()
-        self._accum_count(torch.stack([p[2] for p in pendings]).sum(dim=0),
-                          int(sum(n_texts_list)))
+        with tracing.span("encoder.copy_out"):
+            idx_all = torch.cat([p[0] for p in pendings]).cpu().numpy()
+            val_all = torch.cat([p[1] for p in pendings]).cpu().numpy()
+        self._accum_count(torch.stack([p[2] for p in pendings]).sum(dim=0))
         out, off = [], 0
         for p in pendings:
             r = p[0].shape[0]
@@ -310,20 +331,24 @@ class BatchEncoder:
         count = torch.zeros(self.model.vocab_size, dtype=torch.int32, device=self.device)
         for i in range(nb):
             sl = slice(i * rows, (i + 1) * rows)
-            rep = encode_doc(self.model, ids[sl], mask[sl])
-            valid = torch.arange(i * rows, (i + 1) * rows, device=rep.device)[:, None] < n
-            count += ((rep > 0) & valid).sum(dim=0).to(torch.int32)
-            idx, vals = _topk_rows(rep, k)
+            with tracing.span("encoder.forward"):
+                rep = encode_doc(self.model, ids[sl], mask[sl])
+            with tracing.span("encoder.topk"):
+                valid = torch.arange(i * rows, (i + 1) * rows, device=rep.device)[:, None] < n
+                count += ((rep > 0) & valid).sum(dim=0).to(torch.int32)
+                idx, vals = _topk_rows(rep, k)
             idxs.append(idx)
             valss.append(vals)
-        return (torch.cat(idxs), torch.cat(valss), count), n
+        with tracing.span("encoder.topk"):
+            return (torch.cat(idxs), torch.cat(valss), count), n
 
     def resolve_chunk_sparse(self, handle, n_valid: int):
         """Fetch a chunk handle's (idx, vals) for its valid rows and fold the
         chunk's activation count into the device accumulator."""
         idx, vals, count = handle
-        self._accum_count(count, n_valid)
-        return idx[:n_valid].cpu().numpy(), vals[:n_valid].cpu().numpy()
+        with tracing.span("encoder.copy_out"):
+            self._accum_count(count)
+            return idx[:n_valid].cpu().numpy(), vals[:n_valid].cpu().numpy()
 
 
 def get_batch_encoder(

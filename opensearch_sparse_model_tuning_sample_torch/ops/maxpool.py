@@ -37,20 +37,16 @@ here, `activations.py:52` in JAX).
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
+from ..utils import tracing
 from .kernel_build import library
 
-_count_lock = threading.Lock()
-
-
-def _count(f, attr: str) -> None:
-    """One more launch (or plain call) of f. Under a lock: on distinct
-    cards autograd runs the backward on one thread per device."""
-    with _count_lock:
-        setattr(f, attr, getattr(f, attr) + 1)
+# the counters' names: a wrapper counts the launches of its kernel, a plain
+# version its calls (launch_counts() reads them)
+_LAUNCH = "head.launches."
+_PLAIN = "head.plain_calls."
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -68,7 +64,7 @@ def maxpool_head_reference(
     running max over the sequence. Inputs are upcast to fp32 (float64 stays)
     before the product, so bf16 inputs give exact products summed in fp32,
     as the kernel's tensor cores do (in another order). Returns [B, V]."""
-    _count(maxpool_head_reference, "calls")
+    tracing.count(_PLAIN + "maxpool_head_reference")
     B, L, _ = h.shape
     acc = _acc_dtype(h)
     wt = w.to(acc).t()
@@ -86,7 +82,7 @@ def maxpool_head_argmax_reference(h, mask, w, bias, chunk: int = 64):
     """Plain version of the training forward: `maxpool_head_reference`'s
     values and, per (b, v), the first position that attains the maximum
     (int32 [B, V])."""
-    _count(maxpool_head_argmax_reference, "calls")
+    tracing.count(_PLAIN + "maxpool_head_argmax_reference")
     B, L, _ = h.shape
     acc = _acc_dtype(h)
     wt = w.to(acc).t()
@@ -117,7 +113,7 @@ def _scatter_grad(g, idx, mask, L):
 def maxpool_head_bwd_w_reference(g, idx, mask, h):
     """Plain version of the decoder and bias gradients: the dense scatter,
     then one matmul. Returns (dw [V, D], dbias [V]) in fp32 (float64 stays)."""
-    _count(maxpool_head_bwd_w_reference, "calls")
+    tracing.count(_PLAIN + "maxpool_head_bwd_w_reference")
     B, L, D = h.shape
     s = _scatter_grad(g, idx, mask, L).reshape(B * L, -1)
     return torch.matmul(s.t(), h.reshape(B * L, D).to(s.dtype)), s.sum(dim=0)
@@ -126,7 +122,7 @@ def maxpool_head_bwd_w_reference(g, idx, mask, h):
 def maxpool_head_bwd_h_reference(g, idx, mask, w):
     """Plain version of the hidden-state gradient: the dense scatter, then
     one matmul. Returns dh [B, L, D] in fp32 (float64 stays)."""
-    _count(maxpool_head_bwd_h_reference, "calls")
+    tracing.count(_PLAIN + "maxpool_head_bwd_h_reference")
     s = _scatter_grad(g, idx, mask, mask.shape[1])
     return torch.matmul(s, w.to(s.dtype))
 
@@ -137,7 +133,7 @@ def bucket_by_argmax_reference(g, idx, mask):
     in increasing v. Returns (offsets [B*L + 1] int32, v [nnz] int32,
     coef [nnz] in g's dtype): list b*L + l is entries offsets[b*L + l] up to
     offsets[b*L + l + 1]."""
-    _count(bucket_by_argmax_reference, "calls")
+    tracing.count(_PLAIN + "bucket_by_argmax_reference")
     B, V = g.shape
     L = mask.shape[1]
     pos = idx.long()
@@ -290,6 +286,7 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+@tracing.spanned("encoder.head")
 def maxpool_head(
     h: torch.Tensor,  # [B, L, D] bf16 on the card
     mask: torch.Tensor,  # [B, L] int32
@@ -297,8 +294,9 @@ def maxpool_head(
     bias: torch.Tensor,  # [V] fp32
 ) -> torch.Tensor:
     """Masked max-pool of the MLM logits -> [B, V] fp32, without the
-    [B, L, V] logits (the ingest path). On the CPU this is the plain
-    version; on a CUDA tensor it launches the kernel or raises."""
+    [B, L, V] logits (the ingest path), in the span `encoder.head`. On the
+    CPU this is the plain version; on a CUDA tensor it launches the kernel
+    or raises."""
     _check_no_grad(h, w, bias)
     if _device(h) == "cpu":
         return maxpool_head_reference(h, mask, w, bias)
@@ -313,7 +311,7 @@ def maxpool_head(
             out.data_ptr(), B, L, D, V, _stream(h),
         )
     _raise_on(rc, "maxpool_head")
-    _count(maxpool_head, "launches")
+    tracing.count(_LAUNCH + "maxpool_head")
     return out
 
 
@@ -336,7 +334,7 @@ def maxpool_head_argmax(h, mask, w, bias):
             out.data_ptr(), idx.data_ptr(), B, L, D, V, _stream(h),
         )
     _raise_on(rc, "maxpool_head_argmax")
-    _count(maxpool_head_argmax, "launches")
+    tracing.count(_LAUNCH + "maxpool_head_argmax")
     return out, idx
 
 
@@ -357,7 +355,7 @@ def maxpool_head_bwd_w(g, idx, mask, h):
         rc = lib.maxpool_head_bwd_w(g.data_ptr(), idx.data_ptr(), mask.data_ptr(), h.data_ptr(),
                                     dw.data_ptr(), dbias.data_ptr(), B, L, D, V, _stream(g))
     _raise_on(rc, "maxpool_head_bwd_w")
-    _count(maxpool_head_bwd_w, "launches")
+    tracing.count(_LAUNCH + "maxpool_head_bwd_w")
     return dw, dbias
 
 
@@ -389,7 +387,7 @@ def maxpool_head_bwd_buckets(g, idx, mask):
                                           offsets.data_ptr(), entries.data_ptr(),
                                           work.data_ptr(), B, L, V, _stream(g))
     _raise_on(rc, "maxpool_head_bwd_buckets")
-    _count(maxpool_head_bwd_buckets, "launches")
+    tracing.count(_LAUNCH + "maxpool_head_bwd_buckets")
     return offsets, entries[:, 0], entries[:, 1].view(torch.float32)
 
 
@@ -411,7 +409,7 @@ def maxpool_head_bwd_h(g, idx, mask, w):
         rc = lib.maxpool_head_bwd_h(g.data_ptr(), idx.data_ptr(), mask.data_ptr(), w.data_ptr(),
                                     dh.data_ptr(), work.data_ptr(), B, L, D, V, _stream(g))
     _raise_on(rc, "maxpool_head_bwd_h")
-    _count(maxpool_head_bwd_h, "launches")
+    tracing.count(_LAUNCH + "maxpool_head_bwd_h")
     return dh
 
 
@@ -446,25 +444,29 @@ class MaxPoolHead(torch.autograd.Function):
         return dh, None, dw, dbias
 
 
+@tracing.spanned("encoder.head")
 def maxpool_head_train(h, mask, w, bias) -> torch.Tensor:
-    """`maxpool_head` with a gradient (the training path)."""
+    """`maxpool_head` with a gradient (the training path), in the span
+    `encoder.head`."""
     return MaxPoolHead.apply(h, mask, w, bias)
 
 
-# integer counters, raised by `_count`: a wrapper counts the launches of its kernel, a
-# plain version its calls (chip_smoke.py shows from them which ran)
 _KERNELS = (maxpool_head, maxpool_head_argmax, maxpool_head_bwd_w, maxpool_head_bwd_buckets,
             maxpool_head_bwd_h)
 _PLAINS = (maxpool_head_reference, maxpool_head_argmax_reference, maxpool_head_bwd_w_reference,
            bucket_by_argmax_reference, maxpool_head_bwd_h_reference)
-for _f in _KERNELS:
-    _f.launches = 0
-for _f in _PLAINS:
-    _f.calls = 0
 
 
 def launch_counts() -> dict:
     """This process's kernel launches and plain-version calls so far, by
-    function name (the CLIs log them when they end)."""
-    return {"kernels": {f.__name__: f.launches for f in _KERNELS},
-            "plains": {f.__name__: f.calls for f in _PLAINS}}
+    function name (the CLIs log them when they end; chip_smoke.py shows from
+    them which ran)."""
+    c = tracing.counters()
+    return {"kernels": {f.__name__: c.get(_LAUNCH + f.__name__, 0) for f in _KERNELS},
+            "plains": {f.__name__: c.get(_PLAIN + f.__name__, 0) for f in _PLAINS}}
+
+
+def reset_launch_counts() -> None:
+    """Set launch_counts() back to 0."""
+    tracing.reset([_LAUNCH + f.__name__ for f in _KERNELS]
+                  + [_PLAIN + f.__name__ for f in _PLAINS])

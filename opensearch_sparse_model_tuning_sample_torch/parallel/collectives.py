@@ -8,8 +8,9 @@ gradient (scripts/utils.py:16-23), plus a loss rescale for DDP's mean. Here
 the gather is an autograd Function with exactly that backward, and the
 gradients are summed (not averaged) over ranks in one flattened bucket, so
 the update is the gradient of the global-batch loss, as JAX's jitted global
-step computes it. Each function counts its calls (`.calls`), so a run can
-show that its step went through them.
+step computes it. Each function counts its calls (the counter
+`collectives.<name>` of `utils/tracing.py`), so a run can show that its
+step went through them.
 
 Over the mesh of one process (`core/mesh.py`) a collective is a copy to the
 mesh's first device: `merged_topk` merges the shards' top-k lists there
@@ -32,6 +33,7 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..core.mesh import shard_rows
+from ..utils import tracing
 
 
 class _AllGatherBatch(torch.autograd.Function):
@@ -56,18 +58,16 @@ def all_gather_batch(x: torch.Tensor) -> torch.Tensor:
     process-major device order, so in-batch labels name the same global
     rows). Differentiable: the backward is this rank's slice of the
     gradient. Under no_grad it gathers teacher scores or reps."""
-    all_gather_batch.calls += 1
+    tracing.count("collectives.all_gather_batch")
     return _AllGatherBatch.apply(x)
 
-
-all_gather_batch.calls = 0
 
 
 def all_reduce_grads(params: List[torch.Tensor]) -> None:
     """Sum every parameter's gradient over the ranks, in one flattened
     bucket (a parameter without a gradient contributes zeros, so the
     buckets line up on every rank)."""
-    all_reduce_grads.calls += 1
+    tracing.count("collectives.all_reduce_grads")
     grads = []
     for p in params:
         if p.grad is None:
@@ -79,18 +79,14 @@ def all_reduce_grads(params: List[torch.Tensor]) -> None:
         g.copy_(reduced)
 
 
-all_reduce_grads.calls = 0
-
 
 def mesh_gather(parts: Sequence[torch.Tensor], device: torch.device) -> torch.Tensor:
     """The positions' tensors concatenated along dim 0 on `device` (the
     mesh's first), in position order. Differentiable: the copy and the
     concatenation send each position its rows of the gradient."""
-    mesh_gather.calls += 1
+    tracing.count("collectives.mesh_gather")
     return torch.cat([p.to(device) for p in parts])
 
-
-mesh_gather.calls = 0
 
 
 def _flat_grads(params: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -104,7 +100,7 @@ def mesh_grad_sum(lead: List[torch.Tensor], replicas: Sequence[Sequence[torch.Te
     replicas' gradients are then dropped. `replicas[r][i]` is the
     parameter `lead[i]` of position r + 1. A parameter that no position
     gave a gradient keeps none, as on one device."""
-    mesh_grad_sum.calls += 1
+    tracing.count("collectives.mesh_grad_sum")
     on = [i for i, p in enumerate(lead)
           if p.grad is not None or any(r[i].grad is not None for r in replicas)]
     flat = _flat_grads([lead[i] for i in on])
@@ -116,21 +112,17 @@ def mesh_grad_sum(lead: List[torch.Tensor], replicas: Sequence[Sequence[torch.Te
         lead[i].grad = g
 
 
-mesh_grad_sum.calls = 0
-
 
 @torch.no_grad()
 def mesh_broadcast(lead: List[torch.Tensor], replicas: Sequence[Sequence[torch.Tensor]]) -> None:
     """Copy the lead's parameters onto every replica's, bit for bit (one
     flattened bucket, one copy to each replica's device)."""
-    mesh_broadcast.calls += 1
+    tracing.count("collectives.mesh_broadcast")
     flat = _flatten_dense_tensors([p.detach() for p in lead])
     for params in replicas:
         on_dev = flat.to(params[0].device)
         torch._foreach_copy_(list(params), list(_unflatten_dense_tensors(on_dev, params)))
 
-
-mesh_broadcast.calls = 0
 
 
 def merged_topk(scores: Sequence[torch.Tensor], indices: Sequence[torch.Tensor], k: int):
@@ -138,17 +130,16 @@ def merged_topk(scores: Sequence[torch.Tensor], indices: Sequence[torch.Tensor],
     ids): the shards' lists concatenated in shard order on the first
     shard's device (the all-gather's counterpart), then a stable top-k, so
     that ties go to the lower shard (the lower global doc id), as
-    `lax.top_k` over JAX's concatenation keeps them. Counts its calls."""
+    `lax.top_k` over JAX's concatenation keeps them. Counts its calls
+    (`collectives.merged_topk`)."""
     from ..index.engine import _select
 
-    merged_topk.calls += 1
+    tracing.count("collectives.merged_topk")
     dev = scores[0].device
     cat_s = torch.cat([s.to(dev) for s in scores], dim=1)
     cat_i = torch.cat([i.to(dev) for i in indices], dim=1)
     return _select(cat_s, cat_i, k)
 
-
-merged_topk.calls = 0
 
 
 def _cat_outputs(outs, dev):
@@ -186,20 +177,25 @@ def global_batch_fn(fn, mesh, *, replicated_out: bool = True, n_args: Optional[i
     return wrapped
 
 
-_MESH_TRAIN = (mesh_gather, mesh_grad_sum, mesh_broadcast)
+_GROUP_TRAIN = ("all_gather_batch", "all_reduce_grads")
+_MESH_TRAIN = ("mesh_gather", "mesh_grad_sum", "mesh_broadcast")
+
+
+def _calls(names) -> dict:
+    c = tracing.counters()
+    return {n: c.get("collectives." + n, 0) for n in names}
 
 
 def counts() -> dict:
     """The calls of the process group's two train-step collectives."""
-    return {"all_gather_batch": all_gather_batch.calls,
-            "all_reduce_grads": all_reduce_grads.calls}
+    return _calls(_GROUP_TRAIN)
 
 
 def mesh_counts() -> dict:
     """The calls of the in-process mesh's three train-step collectives."""
-    return {f.__name__: f.calls for f in _MESH_TRAIN}
+    return _calls(_MESH_TRAIN)
 
 
 def reset_counts() -> None:
-    for f in (all_gather_batch, all_reduce_grads) + _MESH_TRAIN:
-        f.calls = 0
+    """Set counts() and mesh_counts() back to 0."""
+    tracing.reset("collectives." + n for n in _GROUP_TRAIN + _MESH_TRAIN)

@@ -40,6 +40,11 @@ functions (`encode_rows`, `loss_from_rows`), so the process group's gather
 
 Metrics and the loss moving average stay on the device; the loop reads
 them only at `logging_steps`, so other steps never wait for the card.
+
+A step's stages are the spans `train.encode`, `train.loss` and
+`train.backward` (each microbatch), `train.grad_sum`, `train.optimizer`
+and `train.broadcast` (`utils/tracing.py`): the `profile_dir` window's
+trace shows them.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from ..ops import flops as flops_ops
 from ..ops.losses import LossSpec, build_loss_specs
 from ..parallel.collectives import (all_gather_batch, all_reduce_grads, mesh_broadcast,
                                     mesh_gather, mesh_grad_sum)
+from ..utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -228,15 +234,17 @@ class Trainer:
         many ranks would."""
         models = [self.model, *self.replicas]
         ens = self.teacher_ensemble
-        parts = [encode_rows(m, part, self.model_args,
-                             (self.args.seed, self.step, i, self.rank * self.mesh.size + p),
-                             None if ens is None else ens.on(m.device))
-                 for p, (m, part) in enumerate(zip(models, shard_batch(self.mesh, mb)))]
-        if len(parts) > 1:  # leaf by leaf, in position order
-            parts = [pytree.tree_map(lambda *xs: mesh_gather(xs, self.device), *parts)]
-        rows = pytree.tree_map(all_gather_batch, parts[0]) if self.distributed else parts[0]
-        return loss_from_rows(rows, self.step, self.loss_specs, self.model_args,
-                              self.data_args, ens)
+        with tracing.span("train.encode"):
+            parts = [encode_rows(m, part, self.model_args,
+                                 (self.args.seed, self.step, i, self.rank * self.mesh.size + p),
+                                 None if ens is None else ens.on(m.device))
+                     for p, (m, part) in enumerate(zip(models, shard_batch(self.mesh, mb)))]
+            if len(parts) > 1:  # leaf by leaf, in position order
+                parts = [pytree.tree_map(lambda *xs: mesh_gather(xs, self.device), *parts)]
+            rows = pytree.tree_map(all_gather_batch, parts[0]) if self.distributed else parts[0]
+        with tracing.span("train.loss"):
+            return loss_from_rows(rows, self.step, self.loss_specs, self.model_args,
+                                  self.data_args, ens)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a loader batch (numpy or tensors). With
@@ -251,10 +259,12 @@ class Trainer:
         per_mb = []
         for i, mb in enumerate(split_rows(batch, A, "the batch")):
             loss, m = self._microbatch_loss(mb, i)
-            loss.backward()  # gradients add up in .grad over the microbatches
+            with tracing.span("train.backward"):
+                loss.backward()  # gradients add up in .grad over the microbatches
             per_mb.append(m)
         if self.replicas:
-            mesh_grad_sum(self.params, self._replica_params)
+            with tracing.span("train.grad_sum"):
+                mesh_grad_sum(self.params, self._replica_params)
         if A > 1:
             for p in self.params:
                 if p.grad is not None:
@@ -265,13 +275,16 @@ class Trainer:
         else:
             metrics = per_mb[0]
         if self.distributed:
-            all_reduce_grads(self.params)  # a sum: each rank holds its slice's part
-        if self.args.max_grad_norm:
-            torch.nn.utils.clip_grad_norm_(self.params, self.args.max_grad_norm)
-        self.optimizer.step()
-        self.scheduler.step()
+            with tracing.span("train.grad_sum"):
+                all_reduce_grads(self.params)  # a sum: each rank holds its slice's part
+        with tracing.span("train.optimizer"):
+            if self.args.max_grad_norm:
+                torch.nn.utils.clip_grad_norm_(self.params, self.args.max_grad_norm)
+            self.optimizer.step()
+            self.scheduler.step()
         if self.replicas:
-            mesh_broadcast(self.params, self._replica_params)
+            with tracing.span("train.broadcast"):
+                mesh_broadcast(self.params, self._replica_params)
         self.step += 1
         self.loss_ma = 0.99 * self.loss_ma + 0.01 * metrics["ranking_loss"]
         metrics["ranking_loss_ma"] = self.loss_ma

@@ -1,0 +1,83 @@
+"""Host spans on the profiler's clock, and the process's counters.
+
+`span(name)` marks a stretch of host code as the range `lsr.<name>`. It is
+on exactly while a `torch.profiler` records on the calling thread: then it
+is a `record_function`, a host event on the same timeline as the card's
+operations, so a trace can place device work by the span that launched it
+and an idle gap by the span the host was in when it began. Off, it returns
+one shared null context after one check of the profiler's state, and makes
+no `RecordFunction`. A span reads only host state: it adds no wait for the
+device.
+
+Span names are `<layer>.<what>` (`data.tokenize`, `encoder.copy_out`,
+`index.add`, `train.backward`, ...); the profiler window of
+`Trainer(profile_dir=...)` and the benchmark's traces show them.
+
+`count(name, n)` adds to one of the process's integer counters (kernel
+launches, collective calls, postings builds, encoder positions and
+tokens); `counters()` returns them all, `reset()` sets them back.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+from typing import Dict, Iterable, Optional
+
+import torch
+
+PREFIX = "lsr."
+
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The host range `lsr.<name>` while a profiler records, else a null
+    context."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function in `span(name)`."""
+
+    def wrap(f):
+        @functools.wraps(f)
+        def inner(*args, **kwargs):
+            with span(name):
+                return f(*args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
+_counts: Dict[str, int] = {}
+# autograd runs the backward on one thread per device, and the head's
+# backward kernels count their launches there
+_lock = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` (created at 0)."""
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of every counter raised so far in this process."""
+    with _lock:
+        return dict(_counts)
+
+
+def reset(names: Optional[Iterable[str]] = None) -> None:
+    """Set the counters `names` (all of them by default) back to 0."""
+    with _lock:
+        if names is None:
+            _counts.clear()
+        else:
+            for k in names:
+                _counts.pop(k, None)

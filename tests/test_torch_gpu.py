@@ -13,11 +13,22 @@ import torch
 
 from opensearch_sparse_model_tuning_sample_torch.ops.maxpool import (
     _lib,
+    launch_counts,
     maxpool_head,
     maxpool_head_reference,
 )
 
 pytestmark = pytest.mark.gpu
+
+
+def _launches(f):
+    """The counted kernel launches of the wrapper f so far."""
+    return launch_counts()["kernels"][f.__name__]
+
+
+def _calls(f):
+    """The counted calls of the plain version f so far."""
+    return launch_counts()["plains"][f.__name__]
 
 
 @pytest.fixture()
@@ -57,10 +68,10 @@ def _holey_mask(B, L, seed):
 
 
 def _check(h, mask, w, bias):
-    before = maxpool_head.launches
+    before = _launches(maxpool_head)
     got = maxpool_head(h, mask, w, bias)
     torch.cuda.synchronize()
-    assert maxpool_head.launches == before + 1
+    assert _launches(maxpool_head) == before + 1
     ref = maxpool_head_reference(h, mask, w, bias)
     # both sides sum exact bf16 products in fp32, in another order
     err = (got - ref).abs()
@@ -179,15 +190,15 @@ def test_training_kernels_match_plain_versions(cuda, B, L, D, V, holey):
     counts one launch; two launches of each are bit-equal."""
     mask = _holey_mask(B, L, seed=L) if holey else None
     h, mask, w, bias = _inputs(B, L, D, V, seed=B + L + D, device=cuda, mask=mask)
-    counts = (mp.maxpool_head_argmax.launches, mp.maxpool_head_bwd_w.launches,
-              mp.maxpool_head_bwd_h.launches)
+    counts = (_launches(mp.maxpool_head_argmax), _launches(mp.maxpool_head_bwd_w),
+              _launches(mp.maxpool_head_bwd_h))
     pooled, idx = mp.maxpool_head_argmax(h, mask, w, bias)
     g = torch.randn(B, V, device=cuda) * (torch.rand(B, V, device=cuda) < 0.5)
     dw, dbias = mp.maxpool_head_bwd_w(g, idx, mask, h)
     dh = mp.maxpool_head_bwd_h(g, idx, mask, w)
     torch.cuda.synchronize()
-    assert (mp.maxpool_head_argmax.launches, mp.maxpool_head_bwd_w.launches,
-            mp.maxpool_head_bwd_h.launches) == tuple(c + 1 for c in counts)
+    assert (_launches(mp.maxpool_head_argmax), _launches(mp.maxpool_head_bwd_w),
+            _launches(mp.maxpool_head_bwd_h)) == tuple(c + 1 for c in counts)
     assert _rel_ok(pooled, mp.maxpool_head_reference(h, mask, w, bias))
     assert bool(((idx >= 0) & (idx < L)).all())
     assert _rel_ok(_value_at(h, mask, w, bias, idx), pooled)
@@ -351,10 +362,10 @@ def test_bwd_buckets_equal_plain_bucketing(cuda, case, B, L, D, V):
     """bwd_h's counting sort on the card lists the same entries in the same
     order with the same bits as the plain version; one counted launch."""
     g, idx, mask, _, _ = _bwd_case(case, B, L, D, V, seed=B + L, device=cuda)
-    before = mp.maxpool_head_bwd_buckets.launches
+    before = _launches(mp.maxpool_head_bwd_buckets)
     off, v, coef = mp.maxpool_head_bwd_buckets(g, idx, mask)
     torch.cuda.synchronize()
-    assert mp.maxpool_head_bwd_buckets.launches == before + 1
+    assert _launches(mp.maxpool_head_bwd_buckets) == before + 1
     roff, rv, rcoef = mp.bucket_by_argmax_reference(g, idx, mask)
     nnz = int(roff[-1])
     assert torch.equal(off, roff)
@@ -714,11 +725,11 @@ def test_teacher_forward_launches_the_ingest_kernel_only(cuda):
     plains = (maxpool_head_reference, mp.maxpool_head_argmax_reference,
               mp.maxpool_head_bwd_w_reference, mp.maxpool_head_bwd_h_reference,
               mp.bucket_by_argmax_reference)
-    before = [f.launches for f in kernels] + [f.calls for f in plains]
+    before = [_launches(f) for f in kernels] + [_calls(f) for f in plains]
     with torch.enable_grad():
         rep = tt.teacher_rep(t, _teacher_feats(30522, 12, 64, seed=1, device=cuda))
     torch.cuda.synchronize()
-    after = [f.launches for f in kernels] + [f.calls for f in plains]
+    after = [_launches(f) for f in kernels] + [_calls(f) for f in plains]
     assert [a - b for a, b in zip(after, before)] == [1] + [0] * 9
     assert not rep.requires_grad and rep.grad_fn is None
 
@@ -874,15 +885,14 @@ def test_mesh_train_step_on_the_card_matches_one_position(cuda, tmp_path):
                 m.cfg = cfg
         trainer = Trainer(model, ma, da, ta, mesh=make_mesh(devices=[cuda] * n))
         collectives.reset_counts()
-        for f in (mp.maxpool_head_argmax, mp.maxpool_head_bwd_w, mp.maxpool_head_bwd_h):
-            f.launches = 0
+        mp.reset_launch_counts()
         losses[n] = []
         for _ in range(2):
             losses[n].append(float(trainer.train_step(batch)["loss"]))
             lead = dict(model.named_parameters())
             for r in trainer.replicas:
                 assert all(torch.equal(p, lead[k]) for k, p in r.named_parameters())
-        assert (mp.maxpool_head_argmax.launches, mp.maxpool_head_bwd_w.launches,
-                mp.maxpool_head_bwd_h.launches) == (2 * n,) * 3
+        assert (_launches(mp.maxpool_head_argmax), _launches(mp.maxpool_head_bwd_w),
+                _launches(mp.maxpool_head_bwd_h)) == (2 * n,) * 3
         assert collectives.mesh_counts()["mesh_grad_sum"] == (2 if n > 1 else 0)
     np.testing.assert_allclose(losses[4][0], losses[1][0], rtol=1e-3)

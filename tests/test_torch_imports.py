@@ -40,7 +40,7 @@ def test_port_has_the_slice_modules():
                  "mine.hard_negatives", "cli.mine", "cli.serve", "cli.search",
                  "train.teachers", "train.embedding_store", "cli.make_kd_scores",
                  "core.distributed", "parallel.collectives", "cli.prepare_msmarco",
-                 "cli.import_metrics", "core.mesh", "parallel.dryrun"):
+                 "cli.import_metrics", "core.mesh", "parallel.dryrun", "utils.tracing"):
         assert f"{port.__name__}.{name}" in mods, name
 
 

@@ -17,6 +17,7 @@ import torch
 import jax.numpy as jnp
 from opensearch_sparse_model_tuning_sample_tpu.index import inverted as jinv
 from opensearch_sparse_model_tuning_sample_torch.index import inverted as tinv
+from opensearch_sparse_model_tuning_sample_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -89,9 +90,10 @@ def build_path(request, monkeypatch):
 
 @pytest.mark.parametrize("cap", [64, 256])
 def test_build_postings_is_bit_equal_to_the_jax_build(build_path, cap):
-    before = dict(tinv.BUILDS)
+    key = "postings.build." + build_path
+    before = tracing.counters().get(key, 0)
     pd, pw = tinv.build_postings(TOKS, WS, V, cap)
-    assert tinv.BUILDS[build_path] == before[build_path] + 1
+    assert tracing.counters()[key] == before + 1
     jd, jw = jinv.build_postings(TOKS, WS, V, cap)
     nd, nw = jinv._build_postings_np(TOKS, WS, V, cap)
     for d, w in ((jd, jw), (nd, nw)):

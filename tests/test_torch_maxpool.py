@@ -21,6 +21,7 @@ from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
 from opensearch_sparse_model_tuning_sample_torch.models.convert import params_from_jax
 from opensearch_sparse_model_tuning_sample_torch.ops.maxpool import (
     check_kernel_args,
+    launch_counts,
     maxpool_head,
     maxpool_head_reference,
 )
@@ -211,10 +212,10 @@ def test_kernel_argument_checks_raise_type_error(case):
 
 def test_wrapper_takes_the_plain_version_on_cpu_only():
     h, mask, w, bias = _inputs(3, 20, 16, 100, seed=7)
-    before = maxpool_head.launches
+    before = launch_counts()["kernels"]["maxpool_head"]
     got = maxpool_head(torch.from_numpy(h), torch.from_numpy(mask),
                        torch.from_numpy(w), torch.from_numpy(bias))
-    assert maxpool_head.launches == before  # no kernel on the CPU
+    assert launch_counts()["kernels"]["maxpool_head"] == before  # no kernel on the CPU
     np.testing.assert_array_equal(got.numpy(), _plain(h, mask, w, bias))
     with pytest.raises(ValueError):
         maxpool_head(torch.empty(2, 3, 8, device="meta"), torch.empty(2, 3, device="meta"),

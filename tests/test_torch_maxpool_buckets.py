@@ -27,6 +27,7 @@ import torch
 
 from opensearch_sparse_model_tuning_sample_tpu.models import bert as jbert
 from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
+from test_torch_gpu import _calls, _launches
 from test_torch_maxpool_grad import _close, _holey_mask, _port_model
 
 torch.set_num_threads(2)
@@ -164,11 +165,12 @@ def test_reduce_over_lists_matches_jax_grad(untied, L):
 
 def test_bucket_wrapper_takes_the_plain_version_on_the_cpu():
     g, idx, mask = (torch.from_numpy(a) for a in _case("random", 3, 10, 40, seed=1))
-    calls, launches = mp.bucket_by_argmax_reference.calls, mp.maxpool_head_bwd_buckets.launches
+    calls = _calls(mp.bucket_by_argmax_reference)
+    launches = _launches(mp.maxpool_head_bwd_buckets)
     got = mp.maxpool_head_bwd_buckets(g, idx, mask)
     want = mp.bucket_by_argmax_reference(g, idx, mask)
-    assert mp.maxpool_head_bwd_buckets.launches == launches
-    assert mp.bucket_by_argmax_reference.calls == calls + 2
+    assert _launches(mp.maxpool_head_bwd_buckets) == launches
+    assert _calls(mp.bucket_by_argmax_reference) == calls + 2
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     with pytest.raises(RuntimeError, match="no autograd"):

@@ -29,7 +29,7 @@ from opensearch_sparse_model_tuning_sample_tpu.index.engine import (
 from opensearch_sparse_model_tuning_sample_torch.core.mesh import make_mesh
 from opensearch_sparse_model_tuning_sample_torch.index import inverted as tinv
 from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig, SparseIndex
-from opensearch_sparse_model_tuning_sample_torch.parallel import collectives
+from opensearch_sparse_model_tuning_sample_torch.utils import tracing
 
 torch.set_num_threads(2)
 
@@ -447,10 +447,11 @@ def test_mesh_device_rules(cpu8):
     one.add(IDS, DOCS)
     one.finalize()
     assert one._stripes is None and one._docs_dev is not None
-    calls = collectives.merged_topk.calls
+    calls = tracing.counters().get("collectives.merged_topk", 0)
     sharded = SparseIndex(V, IndexConfig(engine="sparse", l_max=32, block_docs=64,
                                          query_batch=4, weight_dtype="float32"), mesh=cpu8)
     sharded.add(IDS, DOCS)
     sharded.finalize()
     _same(sharded.search(QS, k=10), one.search(QS, k=10))
-    assert collectives.merged_topk.calls - calls == 2  # one merge per 4-query batch
+    # one merge per 4-query batch
+    assert tracing.counters()["collectives.merged_topk"] - calls == 2
