@@ -474,7 +474,10 @@ def ingest(
     t0 = time.time()
     n = len(dataset)
     if index.cfg.engine != "dense" and not doc_inf_free:
-        # chunks of batch_size x 8 docs through the on-device top-k path; the
+        # chunks of batch_size x 8 docs through the on-device top-k path, each
+        # chunk tokenized once and sorted by length, so that each batch runs
+        # at the length its own docs need (a multiple of 64), not at the
+        # chunk's longest doc; its rows come back in corpus order. The
         # next chunk is queued on the device before the previous one is
         # copied back and added. The copy is on the same stream, so it waits
         # for that next chunk's forward too: only the launches overlap the

@@ -12,8 +12,9 @@ The port of the JAX package's `models/sparse_encoder.py` (reference
     statistic on the device until it is read. Its stages are the spans
     `data.tokenize`, `data.copy_in`, `encoder.forward`, `encoder.topk` and
     `encoder.copy_out` (`utils/tracing.py`), and it counts the positions
-    the encoder runs (`encoder.positions`, padding included) and the real
-    tokens among them (`encoder.tokens`).
+    the encoder runs (`encoder.positions`, padding included), the real
+    tokens among them (`encoder.tokens`) and, on the ingest path, the
+    batches it runs at each length L (`encoder.batch_len.<L>`).
 """
 
 from __future__ import annotations
@@ -118,6 +119,18 @@ def encode(model: SparseEncoderModel, input_ids, attention_mask, inf_free: bool)
     if inf_free:
         return encode_query_inf_free(model, input_ids)
     return encode_doc(model, input_ids, attention_mask)
+
+
+_BATCH_LEN_STEP = 64  # a sorted chunk's batch lengths are multiples of this
+
+
+def _batch_lengths(lengths: np.ndarray, rows: int, width: int) -> np.ndarray:
+    """Each `rows`-sized batch's length, over rows of the given lengths in
+    order: the smallest multiple of _BATCH_LEN_STEP that holds its longest
+    row (at least one step), capped at `width`."""
+    longest = lengths.reshape(-1, rows).max(axis=1)
+    steps = np.maximum(-(-longest // _BATCH_LEN_STEP), 1)
+    return np.minimum(steps * _BATCH_LEN_STEP, width)
 
 
 def _topk_rows(rep: torch.Tensor, k: int):
@@ -231,6 +244,55 @@ class BatchEncoder:
         ids, mask = self._tokenize(texts, pad_rows=nb * rows - n, runs_encoder=runs_encoder)
         return ids, mask, n, nb
 
+    def _pack_sorted_chunk(self, texts: List[str], rows: int):
+        """Tokenize a chunk once, pad its batch count up to a power of two
+        and order its rows by length: the padding rows first, then the real
+        rows in a stable sort by length, so that each `rows`-sized batch
+        runs at its own length (`_batch_lengths`). Counts the positions the
+        batches run, the real tokens, and each batch under
+        `encoder.batch_len.<L>`. Returns (batches, n_pad, pos): the batches'
+        (ids, mask) on the device, each [rows, L_i] and contiguous, views of
+        one copy of the chunk; the number of leading padding rows; and each
+        text's row in that order, in input order."""
+        n = len(texts)
+        pad = next_pow2(-(-n // rows)) * rows - n
+        with tracing.span("data.tokenize"):
+            feats = self.model.tokenizer.encode_bucketed(
+                texts, self.max_length, self.seq_buckets
+            )
+            ids, mask = feats["input_ids"], feats["attention_mask"]
+            lens = mask.sum(axis=1)
+            order = np.argsort(lens, kind="stable")
+            pos = np.empty(n, np.int64)
+            pos[order] = np.arange(pad, pad + n)
+            widths = _batch_lengths(np.concatenate([np.zeros(pad, lens.dtype), lens[order]]),
+                                    rows, ids.shape[1])
+            total = rows * int(widths.sum())
+            flat_ids = np.zeros(total, ids.dtype)
+            flat_mask = np.zeros(total, mask.dtype)
+            off = 0
+            for i, w in enumerate(widths):
+                lo, hi = max(i * rows - pad, 0), max((i + 1) * rows - pad, 0)
+                skip = (rows - (hi - lo)) * w  # the batch's leading padding rows
+                sel = order[lo:hi]
+                flat_ids[off + skip:off + rows * w] = ids[sel, :w].ravel()
+                flat_mask[off + skip:off + rows * w] = mask[sel, :w].ravel()
+                off += rows * w
+            tracing.count("encoder.positions", total)
+            tracing.count("encoder.tokens", int(lens.sum()))
+            for w in widths:
+                tracing.count(f"encoder.batch_len.{int(w)}")
+        with tracing.span("data.copy_in"):
+            ids_d = torch.from_numpy(flat_ids).to(self.device)
+            mask_d = torch.from_numpy(flat_mask).to(self.device)
+        batches, off = [], 0
+        for w in widths:
+            w = int(w)
+            batches.append((ids_d[off:off + rows * w].view(rows, w),
+                            mask_d[off:off + rows * w].view(rows, w)))
+            off += rows * w
+        return batches, pad, pos
+
     # ------------------------------------------------------- dense reps
     @torch.inference_mode()
     def encode_batch_device(self, texts: List[str], inf_free: bool = False) -> torch.Tensor:
@@ -319,36 +381,42 @@ class BatchEncoder:
     @torch.inference_mode()
     def encode_chunk_sparse_async(self, texts: List[str], l_max: int = 256,
                                   rows: int = 256):
-        """The ingest path: a chunk of texts, tokenized once (the longest doc
-        of the chunk picks its seq bucket) and padded to a power-of-two
-        batch count, encoded as a loop over its `rows`-sized batches (one
-        forward each, as in encode_chunk_device), each followed by its
-        validity-masked count and top-k. Returns ((idx, vals, count) device
-        tensors, n_valid); resolve with `resolve_chunk_sparse`."""
-        ids, mask, n, nb = self._pack_chunk(texts, rows)
+        """The ingest path: a chunk of texts, tokenized once, padded to a
+        power-of-two batch count and sorted by length (`_pack_sorted_chunk`),
+        encoded as a loop over its `rows`-sized batches, each at its own
+        length: the smallest multiple of 64 that holds its longest doc,
+        capped at the chunk's bucket. Each forward is followed by its
+        validity-masked count and top-k. Returns ((idx, vals, count, pos),
+        n_valid): the rows of idx and vals in the sorted order, pos the row
+        of each text; resolve with `resolve_chunk_sparse`."""
+        batches, pad, pos = self._pack_sorted_chunk(texts, rows)
         k = min(l_max, self.model.vocab_size)
         idxs, valss = [], []
         count = torch.zeros(self.model.vocab_size, dtype=torch.int32, device=self.device)
-        for i in range(nb):
-            sl = slice(i * rows, (i + 1) * rows)
+        for i, (ids, mask) in enumerate(batches):
             with tracing.span("encoder.forward"):
-                rep = encode_doc(self.model, ids[sl], mask[sl])
+                rep = encode_doc(self.model, ids, mask)
             with tracing.span("encoder.topk"):
-                valid = torch.arange(i * rows, (i + 1) * rows, device=rep.device)[:, None] < n
-                count += ((rep > 0) & valid).sum(dim=0).to(torch.int32)
+                active = rep > 0
+                if i * rows < pad:  # the padding rows lead the chunk and never count
+                    active &= torch.arange(i * rows, (i + 1) * rows,
+                                           device=rep.device)[:, None] >= pad
+                count += active.sum(dim=0).to(torch.int32)
                 idx, vals = _topk_rows(rep, k)
             idxs.append(idx)
             valss.append(vals)
         with tracing.span("encoder.topk"):
-            return (torch.cat(idxs), torch.cat(valss), count), n
+            return (torch.cat(idxs), torch.cat(valss), count, pos), len(texts)
 
     def resolve_chunk_sparse(self, handle, n_valid: int):
-        """Fetch a chunk handle's (idx, vals) for its valid rows and fold the
-        chunk's activation count into the device accumulator."""
-        idx, vals, count = handle
+        """Fetch a chunk handle's (idx, vals) for its valid rows, in the
+        order of the chunk's texts, and fold the chunk's activation count
+        into the device accumulator."""
+        idx, vals, count, pos = handle
         with tracing.span("encoder.copy_out"):
             self._accum_count(count)
-            return idx[:n_valid].cpu().numpy(), vals[:n_valid].cpu().numpy()
+            sel = pos[:n_valid]
+            return idx.cpu().numpy()[sel], vals.cpu().numpy()[sel]
 
 
 def get_batch_encoder(

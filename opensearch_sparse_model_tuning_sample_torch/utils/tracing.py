@@ -15,7 +15,8 @@ Span names are `<layer>.<what>` (`data.tokenize`, `encoder.copy_out`,
 
 `count(name, n)` adds to one of the process's integer counters (kernel
 launches, collective calls, postings builds, encoder positions and
-tokens); `counters()` returns them all, `reset()` sets them back.
+tokens, the ingest batches run at each length as `encoder.batch_len.<L>`);
+`counters()` returns them all, `reset()` sets them back.
 """
 
 from __future__ import annotations

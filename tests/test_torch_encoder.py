@@ -124,6 +124,49 @@ def test_chunk_path_matches_per_batch_path(models, texts):
     np.testing.assert_array_equal(chunk_count, enc.count_tensor)
 
 
+def _chunk_docs(texts, n, lo, hi, seed):
+    """n docs of lo..hi words drawn from the corpus's words."""
+    words = " ".join(texts[0]).split()
+    r = np.random.default_rng(seed)
+    return [" ".join(r.choice(words, int(r.integers(lo, hi + 1)))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("n,lo,hi", [(21, 3, 150), (14, 140, 200)], ids=["mixed", "all_long"])
+def test_sorted_chunk_matches_single_docs(models, texts, n, lo, hi):
+    """The length-sorted chunk path against each doc encoded alone, in
+    batches of 4: its rows come back in input order, each doc's top-k as
+    the single-doc path's, and the count is the single docs' (no padding
+    row counted). Mixed lengths: 21 docs, 6 batches padded to 8, so the
+    padding fills a whole batch and part of another, and some batches run
+    below the chunk's bucket. 14 docs that all need max_length: 4 batches,
+    each holding a real doc, all at max_length as before the sort."""
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    _, tm = models
+    docs = _chunk_docs(texts, n, lo, hi, seed=lo)
+    enc = tse.BatchEncoder(tm, max_length=128)
+    lens = tm.tokenizer.encode_bucketed(docs, 128, [128])["attention_mask"].sum(1)
+    names = [f"encoder.batch_len.{L}" for L in (64, 128)]
+    tracing.reset(names + ["encoder.positions"])
+    handle, nv = enc.encode_chunk_sparse_async(docs, l_max=16, rows=4)
+    ci, cw = enc.resolve_chunk_sparse(handle, nv)
+    c = tracing.counters()
+    chunk_count = enc.count_tensor.copy()
+    enc.reset_count()
+    for j, d in enumerate(docs):
+        si, sw = enc.encode_batch_sparse([d], l_max=16)
+        _assert_topk_match(ci[j:j + 1], cw[j:j + 1], si, sw)
+    np.testing.assert_array_equal(chunk_count, enc.count_tensor)
+    nb = 1 << (-(-n // 4) - 1).bit_length()
+    assert sum(c.get(k, 0) for k in names) == nb
+    if lo > 100:  # every doc is cut at max_length: every batch runs at it
+        assert (lens == 128).all()
+        assert c.get(names[1], 0) == nb and c["encoder.positions"] == nb * 4 * 128
+    else:
+        assert len(set(lens)) > 1 and c.get(names[0], 0) > 0
+        assert c["encoder.positions"] < nb * 4 * 128
+
+
 def test_dense_doc_reps_match_jax(models, texts):
     jm, tm = models
     docs = texts[0][:6]

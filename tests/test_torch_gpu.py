@@ -896,3 +896,62 @@ def test_mesh_train_step_on_the_card_matches_one_position(cuda, tmp_path):
                 _launches(mp.maxpool_head_bwd_h)) == (2 * n,) * 3
         assert collectives.mesh_counts()["mesh_grad_sum"] == (2 if n > 1 else 0)
     np.testing.assert_allclose(losses[4][0], losses[1][0], rtol=1e-3)
+
+
+# ---- ingest: length-sorted chunks (models/sparse_encoder.py) -------------
+
+_WORDS = ("the capital of france is paris machine learning on tensor processing units sparse "
+          "retrieval uses inverted indexes bert computes contextual token representations "
+          "protein cell gene expression study patients treatment results effect").split()
+
+
+def _row_gap(toks, w, ref, l_max):
+    """The benchmark's row_gap rule (lsr_bench's ingest check): per doc, the
+    widest of |stored weight - reference's (rounded to bfloat16)| over the
+    stored terms and the reference weight by which an unstored term beats
+    a stored one (any unstored term's where fewer than l_max are stored),
+    over the doc's largest reference weight; the widest over the docs."""
+    prog = torch.zeros_like(ref).scatter_reduce_(1, toks, w, "amax")
+    kept = prog > 0
+    val = torch.where(kept, (prog - ref.to(torch.bfloat16).float()).abs(), 0.0).amax(1)
+    rmin = torch.where(kept, ref, float("inf")).amin(1)
+    out_max = torch.where(kept, 0.0, ref).amax(1)
+    sel_gap = torch.where(kept.sum(1) >= l_max, torch.relu(out_max - rmin), out_max)
+    return float((torch.maximum(val, sel_gap) / ref.amax(1).clamp_min(1e-30)).max())
+
+
+def test_length_sorted_ingest_on_the_card_matches_docs_encoded_alone(cuda, tmp_path):
+    """A corpus of lognormal lengths (some past max_length) ingested on the
+    card, its chunks' batches each at its own length, against the same
+    docs encoded one at a time: the stored rows, read back in corpus
+    order, within the benchmark's row_gap limit (0.035), and some batches
+    below the chunk's bucket."""
+    import json
+
+    from opensearch_sparse_model_tuning_sample_torch.eval.beir import ingest
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    rng = np.random.default_rng(17)
+    lens = np.clip(rng.lognormal(np.log(178), 0.6, size=230), 20, 700).astype(int)
+    corpus = [(f"d{i}", " ".join(rng.choice(_WORDS, n))) for i, n in enumerate(lens)]
+    model = tse.build_model(arch="mini", idf_path="assets/idf.npz", seed=0, device=cuda)
+    l_max = 64
+    tracing.reset([k for k in tracing.counters() if k.startswith("encoder.batch_len.")])
+    index = ingest(corpus, model, str(tmp_path), "t", max_length=512, batch_size=10,
+                   index_cfg=IndexConfig(engine="sparse", l_max=l_max))
+    by_len = {k: v for k, v in tracing.counters().items() if k.startswith("encoder.batch_len.")}
+    assert sum(v for k, v in by_len.items() if not k.endswith(".512")) > 0, by_len
+    index.save(str(tmp_path / "saved"))
+    blob = np.load(tmp_path / "saved" / "index.npz")
+    w = (blob["weights_bf16"].astype(np.uint32) << 16).view(np.float32) \
+        if "weights_bf16" in blob else blob["weights"].astype(np.float32)
+    with open(tmp_path / "saved" / "doc_ids.json") as f:
+        assert json.load(f) == [d for d, _ in corpus]  # stored in corpus order
+    enc = tse.BatchEncoder(model, max_length=512)
+    ref = torch.cat([enc.encode_batch_device([t]) for _, t in corpus])
+    n = len(corpus)  # the rows past the docs are the index's spare capacity
+    gap = _row_gap(torch.from_numpy(blob["tokens"][:n].astype(np.int64)).to(cuda),
+                   torch.from_numpy(w[:n]).to(cuda), ref, l_max)
+    assert gap < 0.035, gap

@@ -5,8 +5,9 @@ benchmark's readers of them.
     spans, nested by the call structure; with none, no span makes a
     `record_function`;
   * `encoder.positions` and `encoder.tokens` equal a count from the
-    tokenizer's own bucketed output, and `padding_share.ingest` one from the
-    cell's corpora and the chunk and bucket rules;
+    tokenizer's own bucketed output, `encoder.batch_len.<L>` the lengths of
+    the length-sorted chunks' batches, and `padding_share.ingest` a count
+    from the cell's corpora and the chunk, sort and batch-length rules;
   * the counter views (`launch_counts`, `counts`, `mesh_counts`,
     `reset_counts`) return what they did before the registry;
   * the idle-share readers on a synthetic trace: each share, `None` on a
@@ -140,10 +141,22 @@ def test_no_record_function_without_a_profiler(path, model, tmp_path, monkeypatc
     _run(path, fresh, tmp_path)
 
 
+def _sorted_batch_lengths(lengths, rows, width):
+    """The length each batch of a sorted chunk runs at: the chunk padded with
+    empty rows up to a power-of-two batch count, those rows first and then
+    the real ones by length; each batch the smallest multiple of 64 that
+    holds its longest row (at least 64), capped at `width`."""
+    nb = 1 << (-(-len(lengths) // rows) - 1).bit_length()  # batches, up to a power of 2
+    rowlens = [0] * (nb * rows - len(lengths)) + sorted(int(x) for x in lengths)
+    return [min(max(64, -(-max(rowlens[i:i + rows]) // 64) * 64), width)
+            for i in range(0, nb * rows, rows)]
+
+
 def test_encoder_counts_positions_and_tokens(model, tmp_path):
-    """The positions the encoder runs (batch-count padding included) and
-    the real tokens among them, against the tokenizer's own bucketed
-    output of each 32-doc chunk."""
+    """The positions the encoder runs (batch-count padding included, each
+    batch of a length-sorted chunk at its own length) and the real tokens
+    among them, against the tokenizer's own bucketed output of each 32-doc
+    chunk."""
     corpus = _corpus(75, seed=5, lo=1, hi=200)
     tracing.reset(["encoder.positions", "encoder.tokens"])
     _ingest(model, tmp_path, corpus)
@@ -152,19 +165,42 @@ def test_encoder_counts_positions_and_tokens(model, tmp_path):
     for s in range(0, len(corpus), 8 * BATCH):
         texts = [t for _, t in corpus[s:s + 8 * BATCH]]
         mask = model.tokenizer.encode_bucketed(texts, 128, [64, 128])["attention_mask"]
-        nb = 1 << (-(-len(texts) // BATCH) - 1).bit_length()  # batches, up to a power of 2
-        positions += nb * BATCH * mask.shape[1]
+        positions += BATCH * sum(_sorted_batch_lengths(mask.sum(1), BATCH, mask.shape[1]))
         tokens += int(mask.sum())
     assert (c["encoder.positions"], c["encoder.tokens"]) == (positions, tokens)
     assert tokens < positions
+
+
+def test_encoder_counts_batches_by_length(model, tmp_path):
+    """`encoder.batch_len.<L>` counts the batches the ingest path runs at
+    each length: the counts sum to the number of batches, each L is a
+    batch's own length, and some batch runs below its chunk's bucket."""
+    corpus = _corpus(75, seed=5, lo=1, hi=200)
+    tracing.reset([k for k in tracing.counters() if k.startswith("encoder.batch_len.")])
+    _ingest(model, tmp_path, corpus)
+    got = {int(k.rsplit(".", 1)[1]): v for k, v in tracing.counters().items()
+           if k.startswith("encoder.batch_len.")}
+    want, below = {}, 0
+    for s in range(0, len(corpus), 8 * BATCH):
+        texts = [t for _, t in corpus[s:s + 8 * BATCH]]
+        mask = model.tokenizer.encode_bucketed(texts, 128, [64, 128])["attention_mask"]
+        for L in _sorted_batch_lengths(mask.sum(1), BATCH, mask.shape[1]):
+            want[L] = want.get(L, 0) + 1
+            below += L < mask.shape[1]
+    assert got == want
+    assert sum(got.values()) == sum(
+        1 << (-(-min(8 * BATCH, len(corpus) - s) // BATCH) - 1).bit_length()
+        for s in range(0, len(corpus), 8 * BATCH))
+    assert below > 0 and set(got) <= {64, 128}
 
 
 def test_padding_share_reads_the_cells_corpora():
     """The benchmark's ingest cell cut to the CPU: padding_share.ingest over
     the warm-up and two calls equals the share from the cell's token counts
     (words + [CLS] + [SEP], one wordpiece a word), its chunks of 8 batches
-    padded to a power of two, and the smallest bucket holding a chunk's
-    longest doc."""
+    padded to a power of two and sorted by length, and each batch at the
+    smallest multiple of 64 that holds its longest doc, within the smallest
+    bucket holding the chunk's longest doc."""
     from lsr_bench import harness
 
     cell = harness.load_cell("distil-ingest")
@@ -189,8 +225,8 @@ def test_padding_share_reads_the_cells_corpora():
         for s in range(0, len(tok), ch):
             part = tok[s:s + ch]
             bucket = min(b for b in (64, 128, 256, 512, L) if b >= part.max())
-            nb = 1 << (-(-len(part) // t["batch_size"]) - 1).bit_length()
-            positions += nb * t["batch_size"] * bucket
+            positions += t["batch_size"] * sum(
+                _sorted_batch_lengths(part, t["batch_size"], bucket))
             tokens += int(part.sum())
     assert got == pytest.approx(100.0 * (1.0 - tokens / positions), abs=0.01)
     assert 0 < got < 100
