@@ -49,7 +49,13 @@ what comes out, that every kernel of each path ran (launch counts, read
 around each path) and that no plain version did, and that one whole train
 step's gradients with the kernels equal those with the plain head. Any
 failed check exits non-zero. `python3 chip_smoke.py --mesh-only` runs the
-mesh's steps 12a, 12b and 13 alone (for a machine with four cards). The
+mesh's steps 12a, 12b and 13 alone (for a machine with four cards).
+Between the head kernels and the main path it runs ModernBERT-large (step
+3b): its fused attention, global and windowed, at the long-document
+cell's batch shapes against the plain version, and `eval/beir.py::ingest`
+of 16 of that cell's docs through `build_model`'s `modernbert-large`
+preset, with its launch and pair counters; `python3 chip_smoke.py
+--modernbert-only` runs that step alone. The
 last lines of output are the `serve:`, `inverted eval:`, `distill:`,
 `distributed:`, `mesh:` and `mesh train:` lines, the `kernels` JSON line,
 the card's name and power limit, and `{"ok": true, "device": {...}}`.
@@ -3134,6 +3140,143 @@ def phase_mesh_train(dev, split, teachers, card):
     return out
 
 
+# the ModernBERT cell's traffic: doc lengths in words, one wordpiece a word
+LONGDOC = os.path.join(HERE, "lsr_bench", "traffic", "longdoc-4096.json")
+# a (query, head) row of the fused attention against its plain version: the
+# relative L2 gap of two bf16 roundings of the probabilities and two of the
+# output, each 2^-8 (tests/test_torch_gpu.py derives them); a key tile of 64
+# dropped from a row moves it by 12 % or more
+ATTN_ROW_TOL, ATTN_MEAN_TOL = 2 ** -6, 2 ** -7
+
+
+def longdoc_batches(seed, docs=64):
+    """One ingest chunk of the ModernBERT cell's docs: lengths drawn as its
+    traffic gives them (lognormal words, min and max, [CLS] and [SEP], cut
+    at max_length), sorted and cut into batches as `BatchEncoder` runs a
+    chunk, each at the smallest multiple of 64 holding its longest doc:
+    [(L, doc lengths)]."""
+    with open(LONGDOC) as f:
+        t = json.load(f)
+    dw, cap, bs = t["doc_words"], int(t["max_length"]), int(t["batch_size"])
+    rng = np.random.default_rng(seed)
+    words = np.clip(np.round(rng.lognormal(np.log(dw["median"]), dw["sigma"], docs)),
+                    dw["min"], dw["max"])
+    lens = np.sort(np.minimum(words + 2, cap).astype(np.int64))
+    return [(int(-(-b[-1] // 64) * 64), b) for b in (lens[i:i + bs] for i in range(0, docs, bs))]
+
+
+def attention_rows(dev, H=16, hd=64):
+    """The fused attention of both kinds on the card against its plain
+    version, at the shortest, a middle and the longest batch of one of the
+    cell's chunks (8 rows, L up to 8 192, ModernBERT-large's 16 heads of
+    64): each (query, head) row of the live queries within ATTN_ROW_TOL of
+    its own scale, the mean within ATTN_MEAN_TOL, the launch counters
+    (zeroed just before) showing one kernel launch, no plain call and
+    `computed_pairs`; then each kernel's time against its bound."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    batches = longdoc_batches(18)
+    rows = []
+    for L, lens in (batches[0], batches[len(batches) // 2], batches[-1]):
+        g = torch.Generator(device=dev).manual_seed(L)
+        qkv = torch.randn((len(lens), L, 3, H, hd), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        n = torch.as_tensor(lens, device=dev)
+        mask = (torch.arange(L, device=dev)[None, :] < n[:, None]).to(torch.int32)
+        for window in (0, 64):
+            kind = "local" if window else "global"
+            launch = "attn.launches.attention_" + ("window" if window else "global") + "_kernel"
+            names = ["encoder.attn.pairs." + kind, launch, "attn.plain_calls.attention_reference"]
+            tracing.reset(names)
+            got = at.attention(q, k, v, mask, window)
+            torch.cuda.synchronize()
+            c = tracing.counters()
+            what = f"attention {kind} [{len(lens)}, {L}, {H}, {hd}]"
+            check(c.get(launch) == 1 and not c.get(names[2]), f"{what}: one launch, no plain call {c}")
+            check(c.get(names[0]) == at.computed_pairs(len(lens), L, window),
+                  f"{what}: pairs counted {c.get(names[0])}")
+            ref = at.attention_reference(q, k, v, mask, window)
+            live = mask.bool()
+            gg, rr = got.float()[live], ref.float()[live]
+            rel = (gg - rr).norm(dim=-1) / rr.norm(dim=-1)
+            worst, mean = float(rel.max()), float(rel.mean())
+            check(bool(torch.isfinite(got.float()).all()), f"{what}: finite")
+            check(worst <= ATTN_ROW_TOL and mean <= ATTN_MEAN_TOL,
+                  f"{what}: row gap worst {worst}, mean {mean}")
+            del ref, gg, rr
+            ms = cuda_ms(lambda: at.attention(q, k, v, mask, window), 5)
+            nf = n.double()
+            pairs = nf * nf if not window else torch.where(
+                nf <= window + 1, nf * nf, nf * (2 * window + 1) - window * (window + 1))
+            D = H * hd
+            bound_s = float(torch.maximum(4 * pairs * D / PEAK_BF16_FLOPS,
+                                          4 * nf * D * 2 / PEAK_BYTES_PER_S).sum())
+            rows.append({"kind": kind, "shape": [len(lens), L, H, hd], "lens": lens.tolist(),
+                         "row_gap_worst": worst, "row_gap_mean": mean, "ms": ms,
+                         "bound_ms": bound_s * 1e3, "share_of_bound": bound_s * 1e3 / ms})
+            print(f"modernbert attention: {json.dumps(rows[-1])}", flush=True)
+        del qkv, q, k, v
+    return rows
+
+
+def phase_modernbert(dev):
+    """ModernBERT-large through the cell's path: `build_model`'s preset on
+    the card, `eval/beir.py::ingest` of 16 of the cell's docs (two chunks of
+    8, batch 8, max_length 8 192), after the attention rows. Every batch
+    launches the global kernel 10 times, the windowed one 18 times and the
+    head kernel once, no plain version runs, the pair counters add the
+    batches' `computed_pairs`, and every stored row is finite and holds
+    terms."""
+    from opensearch_sparse_model_tuning_sample_torch.eval.beir import ingest
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    t0 = time.time()
+    rows = attention_rows(dev)
+    model = se.build_model(arch="modernbert-large", seed=0, device=dev)
+    cfg = model.cfg
+    words = [w for w in model.tokenizer.vocab if w.isalpha() and w.isascii() and len(w) > 2]
+    rng = np.random.default_rng(18)
+    lens = np.concatenate([b for _, b in longdoc_batches(19, docs=16)]) - 2
+    corpus = [(f"d{i}", " ".join(rng.choice(words, int(n)))) for i, n in enumerate(lens)]
+    tracing.reset()
+    out = os.path.join(OUT, "modernbert")
+    os.makedirs(out, exist_ok=True)
+    with torch.no_grad():
+        index = ingest(corpus, model, out, "longdoc", max_length=8192, batch_size=8,
+                       index_cfg=IndexConfig(engine="sparse", l_max=256))
+    torch.cuda.synchronize()
+    c = tracing.counters()
+    batches = {int(k.rsplit(".", 1)[1]): v for k, v in c.items()
+               if k.startswith("encoder.batch_len.")}
+    n_batches = sum(batches.values())
+    glob = sum(cfg.is_global(i) for i in range(cfg.num_hidden_layers))
+    want = {"attn.launches.attention_global_kernel": glob * n_batches,
+            "attn.launches.attention_window_kernel": (cfg.num_hidden_layers - glob) * n_batches,
+            "head.launches.maxpool_head": n_batches,
+            "encoder.attn.pairs.global": sum(
+                v * glob * at.computed_pairs(8, L, 0) for L, v in batches.items()),
+            "encoder.attn.pairs.local": sum(
+                v * (cfg.num_hidden_layers - glob) * at.computed_pairs(8, L, cfg.window(1))
+                for L, v in batches.items())}
+    for k, v in want.items():
+        check(c.get(k) == v, f"modernbert ingest: {k} {c.get(k)}, {v} expected")
+    plains = {k: v for k, v in c.items() if ".plain_calls." in k and v}
+    check(not plains, f"modernbert ingest: no plain version ({plains})")
+    w, _ = index._stored_rows()
+    w = w[:index.n_docs].float()  # the stored rows, padded to whole blocks
+    check(index.n_docs == len(corpus) and bool(torch.isfinite(w).all())
+          and bool(((w > 0).sum(1) > 0).all()), "modernbert ingest: every row finite, with terms")
+    res = {"attention": rows, "batches": batches, "docs": len(corpus),
+           "counters": {k: c.get(k) for k in want}, "seconds": time.time() - t0}
+    del model, index
+    torch.cuda.empty_cache()
+    return res
+
+
 def mesh_only(dev, card, mesh_corpus, t_start):
     """`python3 chip_smoke.py --mesh-only`: steps 12a, 12b and 13 alone
     (they need nothing of the main path but its kernels, which the trainer
@@ -3163,6 +3306,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     only_mesh = sys.argv[1:] == ["--mesh-only"]
+    only_modernbert = sys.argv[1:] == ["--modernbert-only"]
     sys.path.insert(0, HERE)
     from opensearch_sparse_model_tuning_sample_torch.cli.evaluate_beir import prepare_model_args
     from opensearch_sparse_model_tuning_sample_torch.core.config import parse_config
@@ -3182,6 +3326,14 @@ def main():
     ).stdout.strip().splitlines()
     card = cards[0]
     dev = resolve_device("cuda")
+    if only_modernbert:
+        print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+        print("modernbert: " + json.dumps(phase_modernbert(dev)), flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
     # step 12's 2.1M-doc corpus, made on one host core while steps 1-11 run
     mesh_corpus = MeshCorpus().start()
     atexit.register(mesh_corpus.stop)
@@ -3225,6 +3377,9 @@ def main():
     ingest_batch = [t.cpu() for t in batch]
     del batch, model
     print(f"kernel phase {time.time() - t0:.1f} s", flush=True)
+    # 3b. ModernBERT-large: the fused attention of both kinds at the long-doc
+    # cell's shapes against its plain version, then its ingest path
+    print("modernbert: " + json.dumps(phase_modernbert(dev)), flush=True)
     # the training forward's ablations at the train step's L = 64 bucket, the
     # longest, L = 512 (eight chunks a doc), and D = 768 (2-stage rings); its
     # main-path batch later

@@ -6,7 +6,9 @@ Reads and writes the same `config.json` + `model.safetensors` + `vocab.txt`
 writes, byte for byte, so a checkpoint made by either package loads in the
 other. It hosts the BERT, RoBERTa and DistilBERT layout families, both
 ways: their state dicts are mapped to one canonical (BERT) key space on
-import and back to their own on export. Any other `model_type` raises
+import and back to their own on export. ModernBERT (`model_type`
+"modernbert", `models/modernbert.py`) maps its own names: the port's are
+HF's without the `model.` prefix. Any other `model_type` raises
 `UnsupportedArchitecture`, which `train/teachers.py::build_teacher` catches
 to host the checkpoint through `transformers` instead.
 """
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from .bert import BertConfig
+from .modernbert import ModernBertConfig
 
 logger = logging.getLogger(__name__)
 
@@ -70,14 +73,43 @@ def _bert_like(hf: Dict, path: str, max_pos: int, type_vocab: int, eps: float,
     )
 
 
-def config_from_hf_json(path: str, param_dtype=torch.float32,
-                        compute_dtype=torch.bfloat16) -> BertConfig:
+# ModernBertConfig fields read from config.json under the same key
+_MODERNBERT_KEYS = ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
+                    "intermediate_size", "max_position_embeddings",
+                    "global_attn_every_n_layers", "local_attention", "global_rope_theta",
+                    "local_rope_theta", "norm_eps")
+
+
+# the port's ModernBERT parameters with a row per (padded) vocab entry
+_MODERNBERT_VOCAB_ROWS = ("embeddings.tok_embeddings.weight", "decoder.bias")
+
+
+def _modernbert_config(hf: Dict, path: str, common: Dict) -> ModernBertConfig:
+    """ModernBERT's config.json -> ModernBertConfig. Biases (norm, attention,
+    MLP, classifier), an untied decoder and activations other than gelu are
+    not hosted: a checkpoint with any raises."""
+    biased = [k for k in ("norm_bias", "attention_bias", "mlp_bias", "classifier_bias")
+              if hf.get(k)]
+    if not hf.get("tie_word_embeddings", True):
+        biased.append("tie_word_embeddings false")
+    if biased:
+        raise UnsupportedArchitecture(f"{path}: ModernBERT with {biased} is not hosted")
+    for k in ("hidden_activation", "classifier_activation"):
+        if hf.get(k, "gelu") != "gelu":
+            raise UnsupportedArchitecture(f"{path}: {k} {hf[k]!r} (only gelu is hosted)")
+    return ModernBertConfig(**{k: hf[k] for k in _MODERNBERT_KEYS if k in hf}, **common)
+
+
+def config_from_hf_json(path: str, param_dtype=torch.float32, compute_dtype=torch.bfloat16):
     """HF config.json -> BertConfig for the BERT / RoBERTa / DistilBERT
-    layout families; anything else raises UnsupportedArchitecture."""
+    layout families, ModernBertConfig for ModernBERT; anything else raises
+    UnsupportedArchitecture."""
     with open(path) as f:
         hf = json.load(f)
     mt = hf.get("model_type", "bert") or "bert"
     common = dict(param_dtype=param_dtype, compute_dtype=compute_dtype)
+    if mt == "modernbert":
+        return _modernbert_config(hf, path, common)
     if mt == "bert":
         return BertConfig(**_bert_like(hf, path, 512, 2, 1e-12, 0), **common)
     if mt in ("roberta", "xlm-roberta"):
@@ -300,6 +332,30 @@ def params_from_state_dict(sd: Dict[str, np.ndarray],
     return out
 
 
+def modernbert_params(sd: Dict[str, np.ndarray],
+                      cfg: ModernBertConfig) -> Dict[str, torch.Tensor]:
+    """ModernBertForMaskedLM's HF state dict -> the port's: `model.` taken
+    off, vocab rows zero-padded to cfg.padded_vocab_size; the tied
+    `decoder.weight`, where the file has it, is the token embeddings and
+    is not read."""
+    from .modernbert import state_dict_names
+
+    pv = cfg.padded_vocab_size
+    own = {(k[len("model."):] if k.startswith("model.") else k): v for k, v in sd.items()}
+    want = state_dict_names(cfg)
+    missing = [k for k in want if k not in own]
+    if missing:
+        raise UnsupportedArchitecture(
+            f"checkpoint does not map to the ModernBERT-MLM layout: {len(missing)} "
+            f"required keys missing, first few: {missing[:6]}")
+    out = {}
+    for k in want:
+        v = np.asarray(own[k], dtype=np.float32)
+        out[k] = torch.from_numpy(_pad_rows(v, pv) if k in _MODERNBERT_VOCAB_ROWS
+                                  else np.array(v))
+    return out
+
+
 def load_checkpoint(
     ckpt_dir: str, param_dtype=torch.float32, compute_dtype=torch.bfloat16,
 ) -> Tuple[BertConfig, Dict[str, torch.Tensor], Optional[np.ndarray]]:
@@ -307,7 +363,8 @@ def load_checkpoint(
     checkpoint dir."""
     cfg = config_from_hf_json(os.path.join(ckpt_dir, "config.json"),
                               param_dtype, compute_dtype)
-    sd = params_from_state_dict(_read_state_dict(ckpt_dir), cfg)
+    read = modernbert_params if isinstance(cfg, ModernBertConfig) else params_from_state_dict
+    sd = read(_read_state_dict(ckpt_dir), cfg)
     idf = None
     idf_path = os.path.join(ckpt_dir, "idf.json")
     if os.path.exists(idf_path):
@@ -396,9 +453,31 @@ def _decanon_distilbert(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _config_json_for_export(cfg: BertConfig) -> Dict:
+def modernbert_state_dict(bert, cfg: ModernBertConfig) -> Dict[str, np.ndarray]:
+    """The port's ModernBertForMaskedLM -> HF's ModernBertForMaskedLM state
+    dict (numpy fp32, contiguous; padded vocab rows cut; the tied decoder
+    written out, as HF does)."""
+    v = cfg.vocab_size
+    sd = {}
+    for k, t in bert.state_dict().items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if k in _MODERNBERT_VOCAB_ROWS:
+            a = a[:v]
+        hf_key = k if k.startswith(("head.", "decoder.")) else "model." + k
+        sd[hf_key] = np.ascontiguousarray(a)
+    sd["decoder.weight"] = sd["model.embeddings.tok_embeddings.weight"]
+    return sd
+
+
+def _config_json_for_export(cfg) -> Dict:
     """config.json of the backbone's own layout family, as the JAX
-    package's export writes it."""
+    package's export writes it (ModernBERT: the published keys)."""
+    if isinstance(cfg, ModernBertConfig):
+        return {"architectures": ["ModernBertForMaskedLM"], "model_type": "modernbert",
+                **{k: getattr(cfg, k) for k in _MODERNBERT_KEYS},
+                "norm_bias": False, "attention_bias": False, "mlp_bias": False,
+                "classifier_bias": False, "decoder_bias": True, "tie_word_embeddings": True,
+                "hidden_activation": "gelu", "classifier_activation": "gelu"}
     if cfg.model_type == "roberta":
         return {
             "architectures": ["RobertaForMaskedLM"],
@@ -455,7 +534,7 @@ def _config_json_for_export(cfg: BertConfig) -> Dict:
 
 def save_checkpoint(model, output_dir: str):
     """Write an HF-layout checkpoint dir from a SparseEncoderModel, in the
-    backbone's own layout family (bert, roberta or distilbert): backbone
+    backbone's own layout family (bert, roberta, distilbert or modernbert): backbone
     (`model.safetensors`), `config.json` and the tokenizer always, `idf.json`
     only when the IDF vector trains (reference ModelWrapper.save,
     trainer.py:37-49). The JAX package's `save_checkpoint` writes the same
@@ -464,7 +543,10 @@ def save_checkpoint(model, output_dir: str):
 
     os.makedirs(output_dir, exist_ok=True)
     cfg = model.cfg
-    sd = state_dict_from_module(model.bert, cfg)
+    if isinstance(cfg, ModernBertConfig):
+        sd = modernbert_state_dict(model.bert, cfg)
+    else:
+        sd = state_dict_from_module(model.bert, cfg)
     if cfg.model_type == "roberta":
         sd = _decanon_roberta(sd)
     elif cfg.model_type == "distilbert":

@@ -38,6 +38,7 @@ from ..ops.activations import (
 from ..utils import tracing
 from ..utils.shapes import next_pow2
 from . import bert as bert_mod
+from . import modernbert
 from .bert import BertConfig, BertForMaskedLM
 from .tokenizer import load_idf_weights, load_tokenizer
 
@@ -45,11 +46,14 @@ logger = logging.getLogger(__name__)
 
 
 class SparseEncoderModel(nn.Module):
-    """BERT-MLM module + IDF vector + tokenizer (reference SparseModel)."""
+    """Masked-LM module + IDF vector + tokenizer (reference SparseModel).
+    The module (`bert`) is a `BertForMaskedLM` of the BERT family or a
+    `ModernBertForMaskedLM`: both give `encode_hidden`, `mlm_maxpool` and
+    `decoder_weight`."""
 
     def __init__(
         self,
-        cfg: BertConfig,
+        cfg: BertConfig,  # or modernbert.ModernBertConfig
         bert: BertForMaskedLM,
         idf_vector: torch.Tensor,  # [vocab_size] fp32
         tokenizer,
@@ -60,7 +64,7 @@ class SparseEncoderModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.bert = bert
-        device = bert.embeddings.word_embeddings.device
+        device = bert.decoder_weight().device
         self.idf_vector = nn.Parameter(
             idf_vector.to(device=device, dtype=torch.float32),
             requires_grad=idf_requires_grad,
@@ -122,6 +126,14 @@ def encode(model: SparseEncoderModel, input_ids, attention_mask, inf_free: bool)
 
 
 _BATCH_LEN_STEP = 64  # a sorted chunk's batch lengths are multiples of this
+
+
+def _doubling_buckets(max_length: int) -> List[int]:
+    """The default buckets: 64, 128, 256, ... up to max_length."""
+    out = [64]
+    while out[-1] * 2 <= max_length:
+        out.append(out[-1] * 2)
+    return out
 
 
 def _batch_lengths(lengths: np.ndarray, rows: int, width: int) -> np.ndarray:
@@ -187,7 +199,7 @@ class BatchEncoder:
         self.device = model.device
         self.max_length = max_length
         self.seq_buckets = sorted(
-            b for b in (seq_buckets or [64, 128, 256, 512]) if b <= max_length
+            b for b in (seq_buckets or _doubling_buckets(max_length)) if b <= max_length
         ) or [max_length]
         if self.seq_buckets[-1] < max_length:
             self.seq_buckets.append(max_length)
@@ -463,8 +475,10 @@ def build_model(
 ) -> SparseEncoderModel:
     """Factory mirroring reference `get_model` (utils.py:50-68). Weights come
     from a local HF-layout checkpoint dir, else a seeded random init of an
-    `arch` preset ("mini" by default). Runs on the CUDA card unless
-    `device="cpu"`; raises without a card."""
+    `arch` preset ("mini" by default; "modernbert-large" and
+    "modernbert-tiny" are ModernBERT, with their own vocab, the BERT presets
+    take the tokenizer's). Runs on the CUDA card unless `device="cpu"`;
+    raises without a card."""
     from . import hf_import
 
     dev = resolve_device(device)
@@ -477,14 +491,20 @@ def build_model(
             model_name_or_path, param_dtype=param_dtype, compute_dtype=compute_dtype
         )
     else:
-        cfg = bert_mod.config_from_preset(
-            arch or "mini", vocab_size=tokenizer.vocab_size,
-            param_dtype=param_dtype, compute_dtype=compute_dtype,
-        )
-        sd = bert_mod.init_state_dict(cfg, seed)
+        arch = arch or "mini"
+        if arch in modernbert.PRESETS:
+            cfg = modernbert.config_from_preset(arch, param_dtype=param_dtype,
+                                                compute_dtype=compute_dtype)
+        else:
+            cfg = bert_mod.config_from_preset(
+                arch, vocab_size=tokenizer.vocab_size,
+                param_dtype=param_dtype, compute_dtype=compute_dtype,
+            )
+        sd = backbone_module(cfg).init_state_dict(cfg, seed)
         loaded_idf = None
     # a training knob, not a checkpoint property: loaded checkpoints take it too
-    if cfg.remat != remat:
+    # (a ModernBERT backbone does not train)
+    if isinstance(cfg, BertConfig) and cfg.remat != remat:
         cfg = dataclasses.replace(cfg, remat=remat)
 
     if loaded_idf is not None and idf_path is None:
@@ -506,13 +526,19 @@ def build_model(
 
     return SparseEncoderModel(
         cfg=cfg,
-        bert=bert_mod.from_state_dict(cfg, sd, dev),
+        bert=backbone_module(cfg).from_state_dict(cfg, sd, dev),
         idf_vector=torch.from_numpy(idf),
         tokenizer=tokenizer,
         use_l0=use_l0,
         prune_ratio=prune_ratio,
         idf_requires_grad=idf_requires_grad,
     )
+
+
+def backbone_module(cfg):
+    """The module (`models/bert.py` or `models/modernbert.py`) that builds
+    and initialises the backbone of `cfg`."""
+    return modernbert if isinstance(cfg, modernbert.ModernBertConfig) else bert_mod
 
 
 def from_model_args(model_args, seed: int = 0, device: DeviceLike = None) -> SparseEncoderModel:

@@ -345,6 +345,8 @@ class WordPieceTokenizer(_TokenizerBase):
 
 
 _BPE_SPECIALS = ("<s>", "<pad>", "</s>", "<unk>", "<mask>")
+# a BPE vocab with BERT-style specials (ModernBERT's) names them so
+_BPE_BRACKET_SPECIALS = {"<s>": CLS, "</s>": SEP, "<pad>": PAD, "<unk>": UNK, "<mask>": MASK}
 
 
 def _bytes_to_unicode() -> Dict[int, str]:
@@ -392,11 +394,13 @@ class ByteLevelBPETokenizer(_TokenizerBase):
             r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+|"""
             r""" ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"""
         )
-        self.pad_id = vocab.get("<pad>", 1)
-        self.unk_id = vocab.get("<unk>", 3)
-        self.bos_id = vocab.get("<s>", 0)
-        self.eos_id = vocab.get("</s>", 2)
-        self.special_token_ids = [vocab[t] for t in _BPE_SPECIALS if t in vocab]
+        # RoBERTa's <s> ... names, else their [CLS] ... counterparts
+        names = {t: t if t in vocab else _BPE_BRACKET_SPECIALS[t] for t in _BPE_SPECIALS}
+        self.pad_id = vocab.get(names["<pad>"], 1)
+        self.unk_id = vocab.get(names["<unk>"], 3)
+        self.bos_id = vocab.get(names["<s>"], 0)
+        self.eos_id = vocab.get(names["</s>"], 2)
+        self.special_token_ids = [vocab[n] for n in names.values() if n in vocab]
         self.do_lower_case = False
         self._init_base(preprocess_func)
 

@@ -284,6 +284,9 @@ def build_teacher(kind: str, model_id: str, seed: int = 1, pooling: str = "cls",
     if os.path.isdir(model_id):
         try:
             cfg, sd, _ = hf_import.load_checkpoint(model_id)
+            if not isinstance(cfg, bert_mod.BertConfig):
+                raise hf_import.UnsupportedArchitecture(
+                    f"{cfg.model_type} teachers run through the host path")
             tokenizer = load_tokenizer(model_id)
         except (hf_import.UnsupportedArchitecture, FileNotFoundError, ValueError) as e:
             try:

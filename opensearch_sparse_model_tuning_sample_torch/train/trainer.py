@@ -61,6 +61,7 @@ from torch.utils import _pytree as pytree
 from ..core import distributed
 from ..core.mesh import Mesh, process_mesh, shard_batch, split_rows
 from ..models import hf_import, sparse_encoder as se
+from ..models.modernbert import ModernBertConfig
 from ..ops import flops as flops_ops
 from ..ops.losses import LossSpec, build_loss_specs
 from ..parallel.collectives import (all_gather_batch, all_reduce_grads, mesh_broadcast,
@@ -197,6 +198,10 @@ class Trainer:
     def __init__(self, model: se.SparseEncoderModel, model_args, data_args, training_args,
                  loss_specs: Optional[List[LossSpec]] = None, teacher_ensemble=None,
                  mesh: Optional[Mesh] = None):
+        if isinstance(model.cfg, ModernBertConfig):
+            raise NotImplementedError(
+                "training a ModernBERT backbone is not supported: the port runs it for "
+                "encoding (ingest, evaluation, serving) only")
         self.model = model
         self.teacher_ensemble = teacher_ensemble
         self.model_args = model_args

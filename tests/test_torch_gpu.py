@@ -955,3 +955,90 @@ def test_length_sorted_ingest_on_the_card_matches_docs_encoded_alone(cuda, tmp_p
     gap = _row_gap(torch.from_numpy(blob["tokens"][:n].astype(np.int64)).to(cuda),
                    torch.from_numpy(w[:n]).to(cuda), ref, l_max)
     assert gap < 0.035, gap
+
+
+# --------------------------------------------------------------------------
+# ModernBERT's fused attention (ops/attention.py) and its head at D = 1 024
+
+
+def _attn_inputs(B, L, H, hd, seed, device, holey=False):
+    """q, k, v [B, L, H, hd] bf16 as views of one qkv tensor (the model's
+    layout) and a mask: rows of lengths drawn in [1, L], one row full, and
+    with `holey` a row with interior holes."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    qkv = torch.randn((B, L, 3, H, hd), generator=g).to(device, torch.bfloat16)
+    lens = torch.randint(1, L + 1, (B,), generator=g)
+    lens[0] = L
+    mask = (torch.arange(L)[None, :] < lens[:, None]).to(torch.int32)
+    if holey and B > 1:
+        mask[1, torch.randperm(L, generator=g)[: L // 3]] = 0
+        mask[1, 0] = 1
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], mask.to(device)
+
+
+@pytest.mark.parametrize("B,L,holey", [(8, 8192, False), (3, 1000, True), (2, 4417, False),
+                                       (5, 65, True)], ids=["8x8192", "odd1000", "odd4417",
+                                                           "odd65"])
+@pytest.mark.parametrize("window", [0, 64], ids=["global", "local"])
+def test_fused_attention_matches_the_plain_masked_path(cuda, B, L, holey, window):
+    """The kernel against the plain version on the live query rows (a
+    padding row's values are unused), each (query, head) row held to its
+    own scale. Both sum exact bf16 products in fp32 and round the
+    probabilities to bf16 before ·v (the kernel's unnormalised, relative to
+    the running max; the plain one's normalised): two independent roundings
+    of 2^-8 each on a weighted mean of v. Both round the output to bf16,
+    another 2^-8 each. So a row's relative L2 gap is about 2^-8: the worst
+    row within 2^-6, the mean within 2^-7. A key tile of 64 dropped from a
+    row of 4 480 live keys moves it by about 12 %, and one dropped from a
+    window of 129 keys by half. The launch adds `computed_pairs` to its
+    counter and its kernel's name to the launch counts, and allocates its
+    output alone, no [L, L] tensor."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    q, k, v, mask = _attn_inputs(B, L, 16, 64, 1000 + L + window, cuda, holey)
+    kind = "local" if window else "global"
+    launches = "attn.launches.attention_" + ("window" if window else "global") + "_kernel"
+    tracing.reset(["encoder.attn.pairs." + kind, launches])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = at.attention(q, k, v, mask, window)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= got.numel() * got.element_size() + (1 << 20)
+    c = tracing.counters()
+    assert c["encoder.attn.pairs." + kind] == at.computed_pairs(B, L, window)
+    assert c[launches] == 1
+    ref = at.attention_reference(q, k, v, mask, window)
+    assert bool(torch.isfinite(got.float()).all())
+    live = mask.bool()
+    g, r = got.float()[live], ref.float()[live]  # [live rows, H, hd]
+    rel = (g - r).norm(dim=-1) / r.norm(dim=-1)
+    assert float(rel.max()) <= 2 ** -6, float(rel.max())
+    assert float(rel.mean()) <= 2 ** -7, float(rel.mean())
+
+
+def test_head_kernel_at_modernbert_width_matches_plain(cuda):
+    """The ingest head kernel at D = 1 024 (its narrowest plan), L = 8 192
+    and ModernBERT's padded vocab (50 432 columns) against its plain
+    version, as `_check` holds the other shapes."""
+    _check(*_inputs(2, 8192, 1024, 50432, 31, cuda))
+
+
+def test_tiny_modernbert_on_the_card_matches_the_cpu(cuda):
+    """encode_doc of a ModernBERT at test widths (two periods, head dim 16)
+    on the card (the attention and head kernels) against the CPU (their
+    plain versions), bf16 compute on both: the reps within the rounding of
+    bf16 products summed in another order (2e-2 of each row's largest)."""
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(5, 512, (4, 200), generator=g)
+    mask = (torch.arange(200)[None, :] < torch.tensor([200, 150, 64, 7])[:, None]).int()
+    reps = []
+    for dev in (cuda, torch.device("cpu")):
+        model = tse.build_model(arch="modernbert-tiny", seed=3, device=dev)
+        with torch.no_grad():
+            reps.append(tse.encode_doc(model, ids.to(dev), mask.to(dev)).cpu())
+    scale = reps[1].abs().amax(1, keepdim=True)
+    assert bool(((reps[0] - reps[1]).abs() <= 2e-2 * scale).all())

@@ -391,3 +391,50 @@ def test_idle_split_covers_the_idle_time():
     assert sum(split.values()) == pytest.approx(sum(idle.values()))
     assert split["head"] == pytest.approx(1e-9) and "index.add" not in idle
     assert split["index.add"] == pytest.approx(100e-9)
+
+
+def _kernel_pairs(rows, L, window, global_tile=(128, 64), local_tile=(64, 64)):
+    """The query-key pairs the attention kernel computes for [rows, L]: a
+    global layer every (query tile, key tile) pair of the padded grid; a
+    local one, for each 64-query tile from m0, the 64-key tiles from the
+    one holding m0 - window to the one holding min(m0 + 63 + window, L - 1)."""
+    if not window:
+        bm, bn = global_tile
+        return rows * (-(-L // bm) * bm) * (-(-L // bn) * bn)
+    bm, bn = local_tile
+    tiles = sum(min(m0 + bm - 1 + window, L - 1) // bn - max(m0 - window, 0) // bn + 1
+                for m0 in range(0, L, bm))
+    return rows * bm * bn * tiles
+
+
+def test_modernbert_attention_spans_and_pair_counters(tmp_path):
+    """A ModernBERT ingest under a profiler: each layer's attention core is
+    the span `encoder.attn.global` or `encoder.attn.local` inside
+    `encoder.forward`, and the counters `encoder.attn.pairs.*` add, for
+    every batch the sorted chunks run (`encoder.batch_len.<L>`), its
+    layers' kernel pairs at that length (padding and masked pairs
+    included)."""
+    (tmp_path / "vocab").mkdir()
+    (tmp_path / "vocab" / "vocab.txt").write_text(
+        "\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + sorted(set(WORDS))) + "\n")
+    model = tse.build_model(arch="modernbert-tiny", tokenizer_name=str(tmp_path / "vocab"),
+                            seed=0, device="cpu", compute_dtype=torch.float32)
+    cfg = model.cfg
+    names = ["encoder.attn.pairs.global", "encoder.attn.pairs.local"]
+    tracing.reset(names + [k for k in tracing.counters() if k.startswith("encoder.batch_len.")])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _ingest(model, tmp_path, _corpus(40, seed=3, lo=2, hi=150))
+    spans = _spans(prof)
+    forward = [s for s in spans if s[3] == "encoder.forward"]
+    by_kind = {k: [s for s in spans if s[3] == "encoder.attn." + k] for k in ("global", "local")}
+    layers = {"global": sum(cfg.is_global(i) for i in range(cfg.num_hidden_layers))}
+    layers["local"] = cfg.num_hidden_layers - layers["global"]
+    for kind, found in by_kind.items():
+        assert len(found) == layers[kind] * len(forward)
+        assert all(any(f[0] <= s[0] and s[1] <= f[1] for f in forward) for s in found)
+    c = tracing.counters()
+    batches = {int(k.rsplit(".", 1)[1]): v for k, v in c.items()
+               if k.startswith("encoder.batch_len.")}
+    for kind, window in (("global", 0), ("local", cfg.local_attention // 2)):
+        want = sum(n * layers[kind] * _kernel_pairs(BATCH, L, window) for L, n in batches.items())
+        assert c["encoder.attn.pairs." + kind] == want
