@@ -477,13 +477,12 @@ def ingest(
         # chunks of batch_size x 8 docs through the on-device top-k path, each
         # chunk tokenized once and sorted by length, so that each batch runs
         # at the length its own docs need (a multiple of 64), not at the
-        # chunk's longest doc; its rows come back in corpus order. The
-        # next chunk is queued on the device before the previous one is
-        # copied back and added. The copy is on the same stream, so it waits
-        # for that next chunk's forward too: only the launches overlap the
-        # card's work, and the card idles while the host adds the previous
-        # chunk and tokenizes the one after (the spans data.tokenize and
-        # index.add, PERF.md §5)
+        # chunk's longest doc; its rows come back in corpus order. Chunk j
+        # is queued on the device before chunk j-1 is resolved and added.
+        # On a CUDA card neither the copy in nor the copy out syncs the
+        # stream, and the resolve waits only for chunk j-1's own event, so
+        # the host adds j-1, tokenizes j+1 and launches it while the card
+        # runs chunk j
         CH = batch_size * 8
         pending = None  # (ids, n_valid, handle)
 

@@ -14,7 +14,10 @@ The port of the JAX package's `models/sparse_encoder.py` (reference
     `encoder.copy_out` (`utils/tracing.py`), and it counts the positions
     the encoder runs (`encoder.positions`, padding included), the real
     tokens among them (`encoder.tokens`) and, on the ingest path, the
-    batches it runs at each length L (`encoder.batch_len.<L>`).
+    batches it runs at each length L (`encoder.batch_len.<L>`) and the
+    chunks resolved through their own event on a CUDA device
+    (`encoder.copy_out.async`, of which `encoder.copy_out.waited` found
+    the chunk's copy still running).
 """
 
 from __future__ import annotations
@@ -265,7 +268,12 @@ class BatchEncoder:
         `encoder.batch_len.<L>`. Returns (batches, n_pad, pos): the batches'
         (ids, mask) on the device, each [rows, L_i] and contiguous, views of
         one copy of the chunk; the number of leading padding rows; and each
-        text's row in that order, in input order."""
+        text's row in that order, in input order.
+
+        On a CUDA device the chunk is packed in page-locked host memory and
+        copied without blocking: the copy is queued on the stream behind
+        the work already there, and the host goes on at once. The caching
+        host allocator keeps the block until that copy has run."""
         n = len(texts)
         pad = next_pow2(-(-n // rows)) * rows - n
         with tracing.span("data.tokenize"):
@@ -280,8 +288,9 @@ class BatchEncoder:
             widths = _batch_lengths(np.concatenate([np.zeros(pad, lens.dtype), lens[order]]),
                                     rows, ids.shape[1])
             total = rows * int(widths.sum())
-            flat_ids = np.zeros(total, ids.dtype)
-            flat_mask = np.zeros(total, mask.dtype)
+            flat = torch.zeros((2, total), dtype=torch.from_numpy(ids).dtype,
+                               pin_memory=self.device.type == "cuda")
+            flat_ids, flat_mask = flat.numpy()
             off = 0
             for i, w in enumerate(widths):
                 lo, hi = max(i * rows - pad, 0), max((i + 1) * rows - pad, 0)
@@ -295,8 +304,7 @@ class BatchEncoder:
             for w in widths:
                 tracing.count(f"encoder.batch_len.{int(w)}")
         with tracing.span("data.copy_in"):
-            ids_d = torch.from_numpy(flat_ids).to(self.device)
-            mask_d = torch.from_numpy(flat_mask).to(self.device)
+            ids_d, mask_d = flat.to(self.device, non_blocking=True)
         batches, off = [], 0
         for w in widths:
             w = int(w)
@@ -398,9 +406,16 @@ class BatchEncoder:
         encoded as a loop over its `rows`-sized batches, each at its own
         length: the smallest multiple of 64 that holds its longest doc,
         capped at the chunk's bucket. Each forward is followed by its
-        validity-masked count and top-k. Returns ((idx, vals, count, pos),
-        n_valid): the rows of idx and vals in the sorted order, pos the row
-        of each text; resolve with `resolve_chunk_sparse`."""
+        validity-masked count and top-k. Returns ((idx, vals, count, pos,
+        done, idx_host, vals_host), n_valid): the rows of idx and vals in
+        the sorted order, pos the row of each text; resolve with
+        `resolve_chunk_sparse`.
+
+        On a CUDA device nothing here waits for the stream: the chunk's rows
+        are queued for a copy into page-locked host buffers (idx_host,
+        vals_host) right behind its top-k, and `done` is an event recorded
+        after that copy, so the resolve waits for this chunk alone and not
+        for work queued after it. On the CPU the last three are None."""
         batches, pad, pos = self._pack_sorted_chunk(texts, rows)
         k = min(l_max, self.model.vocab_size)
         idxs, valss = [], []
@@ -418,17 +433,37 @@ class BatchEncoder:
             idxs.append(idx)
             valss.append(vals)
         with tracing.span("encoder.topk"):
-            return (torch.cat(idxs), torch.cat(valss), count, pos), len(texts)
+            idx, vals = torch.cat(idxs), torch.cat(valss)
+            done = idx_host = vals_host = None
+            if self.device.type == "cuda":
+                idx_host = torch.empty(idx.shape, dtype=idx.dtype, pin_memory=True)
+                vals_host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+                idx_host.copy_(idx, non_blocking=True)
+                vals_host.copy_(vals, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            return (idx, vals, count, pos, done, idx_host, vals_host), len(texts)
 
     def resolve_chunk_sparse(self, handle, n_valid: int):
         """Fetch a chunk handle's (idx, vals) for its valid rows, in the
         order of the chunk's texts, and fold the chunk's activation count
-        into the device accumulator."""
-        idx, vals, count, pos = handle
+        into the device accumulator. A handle with an event waits for that
+        event alone (`encoder.copy_out.async` counts these resolves,
+        `encoder.copy_out.waited` those that found the copy not yet done);
+        the rows returned are copies, never views of its host buffers,
+        which the allocator hands out again once the handle is dropped."""
+        idx, vals, count, pos, done, idx_host, vals_host = handle
         with tracing.span("encoder.copy_out"):
+            if done is None:
+                idx_host, vals_host = idx.cpu(), vals.cpu()
+            else:
+                tracing.count("encoder.copy_out.async")
+                if not done.query():
+                    tracing.count("encoder.copy_out.waited")
+                    done.synchronize()
             self._accum_count(count)
             sel = pos[:n_valid]
-            return idx.cpu().numpy()[sel], vals.cpu().numpy()[sel]
+            return idx_host.numpy()[sel], vals_host.numpy()[sel]
 
 
 def get_batch_encoder(

@@ -15,7 +15,10 @@ Span names are `<layer>.<what>` (`data.tokenize`, `encoder.copy_out`,
 
 `count(name, n)` adds to one of the process's integer counters (kernel
 launches, collective calls, postings builds, encoder positions and
-tokens, the ingest batches run at each length as `encoder.batch_len.<L>`);
+tokens, the ingest batches run at each length as `encoder.batch_len.<L>`,
+the ingest chunks resolved through their own event as
+`encoder.copy_out.async` and, of those, the ones still being copied when
+resolved as `encoder.copy_out.waited`);
 `counters()` returns them all, `reset()` sets them back.
 """
 

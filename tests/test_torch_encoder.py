@@ -167,6 +167,37 @@ def test_sorted_chunk_matches_single_docs(models, texts, n, lo, hi):
         assert c["encoder.positions"] < nb * 4 * 128
 
 
+@pytest.mark.parametrize("n,lo,hi", [(3, 3, 40), (21, 3, 150), (14, 140, 200)],
+                         ids=["short", "mixed", "all_long"])
+def test_chunk_resolved_after_a_later_chunk_matches_resolved_at_once(models, texts, n, lo, hi):
+    """ingest's order: a chunk's handle resolved only after the next chunk
+    was queued gives the rows and the count it gives when resolved at once
+    (the count folds in at the resolve, not when a chunk is queued). A
+    chunk shorter than one batch, a mixed one and one all at max_length.
+    On the CPU no chunk resolves through an event."""
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    _, tm = models
+    docs = _chunk_docs(texts, n, lo, hi, seed=lo + n)
+    later = _chunk_docs(texts, 9, 3, 150, seed=7)
+    enc = tse.BatchEncoder(tm, max_length=128)
+    names = ["encoder.copy_out.async", "encoder.copy_out.waited"]
+    tracing.reset(names)
+    ai, aw = enc.resolve_chunk_sparse(*enc.encode_chunk_sparse_async(docs, l_max=16, rows=4))
+    at_once = enc.count_tensor.copy()
+    enc.reset_count()
+    handle, nv = enc.encode_chunk_sparse_async(docs, l_max=16, rows=4)
+    nxt = enc.encode_chunk_sparse_async(later, l_max=16, rows=4)
+    li, lw = enc.resolve_chunk_sparse(handle, nv)
+    np.testing.assert_array_equal(enc.count_tensor, at_once)
+    enc.resolve_chunk_sparse(*nxt)
+    assert li.shape == (n, 16)
+    np.testing.assert_array_equal(li, ai)
+    np.testing.assert_array_equal(lw, aw)
+    assert handle[4:] == (None, None, None)
+    assert all(tracing.counters().get(k, 0) == 0 for k in names)
+
+
 def test_dense_doc_reps_match_jax(models, texts):
     jm, tm = models
     docs = texts[0][:6]

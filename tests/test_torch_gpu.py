@@ -938,11 +938,14 @@ def test_length_sorted_ingest_on_the_card_matches_docs_encoded_alone(cuda, tmp_p
     corpus = [(f"d{i}", " ".join(rng.choice(_WORDS, n))) for i, n in enumerate(lens)]
     model = tse.build_model(arch="mini", idf_path="assets/idf.npz", seed=0, device=cuda)
     l_max = 64
-    tracing.reset([k for k in tracing.counters() if k.startswith("encoder.batch_len.")])
+    tracing.reset([k for k in tracing.counters() if k.startswith("encoder.batch_len.")]
+                  + ["encoder.copy_out.async"])
     index = ingest(corpus, model, str(tmp_path), "t", max_length=512, batch_size=10,
                    index_cfg=IndexConfig(engine="sparse", l_max=l_max))
     by_len = {k: v for k, v in tracing.counters().items() if k.startswith("encoder.batch_len.")}
     assert sum(v for k, v in by_len.items() if not k.endswith(".512")) > 0, by_len
+    # every chunk of 80 docs resolved through its own event
+    assert tracing.counters()["encoder.copy_out.async"] == -(-len(corpus) // 80)
     index.save(str(tmp_path / "saved"))
     blob = np.load(tmp_path / "saved" / "index.npz")
     w = (blob["weights_bf16"].astype(np.uint32) << 16).view(np.float32) \
@@ -955,6 +958,80 @@ def test_length_sorted_ingest_on_the_card_matches_docs_encoded_alone(cuda, tmp_p
     gap = _row_gap(torch.from_numpy(blob["tokens"][:n].astype(np.int64)).to(cuda),
                    torch.from_numpy(w[:n]).to(cuda), ref, l_max)
     assert gap < 0.035, gap
+
+
+def _mixed_chunks(seed, sizes=(37, 80, 13, 80)):
+    """Chunks of docs of lognormal lengths (some past 512 tokens)."""
+    rng = np.random.default_rng(seed)
+    return [[" ".join(rng.choice(_WORDS, k))
+             for k in np.clip(rng.lognormal(np.log(178), 0.6, size=n), 3, 700).astype(int)]
+            for n in sizes]
+
+
+def test_chunk_encode_and_resolve_make_no_stream_sync(cuda):
+    """Ingest's chunk path on the card queues its copies in and out without
+    an implicit sync of the stream: under the sync debug mode's "error", a
+    chunk is encoded and the one before it resolved, as `ingest` does."""
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+
+    model = tse.build_model(arch="mini", idf_path="assets/idf.npz", seed=0, device=cuda)
+    enc = tse.BatchEncoder(model, max_length=512)
+    chunks = _mixed_chunks(23)
+    enc.resolve_chunk_sparse(*enc.encode_chunk_sparse_async(chunks[0], l_max=64, rows=10))
+    torch.cuda.synchronize()
+    first = enc.encode_chunk_sparse_async(chunks[0], l_max=64, rows=10)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = enc.encode_chunk_sparse_async(chunks[1], l_max=64, rows=10)
+        enc.resolve_chunk_sparse(*first)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enc.resolve_chunk_sparse(*second)
+
+
+def test_chunks_resolved_late_equal_chunks_resolved_at_once(cuda):
+    """Four chunks of mixed lengths queued in turn: the second to fourth
+    each resolved after the next was queued (ingest's order), the first
+    only after the other three had run and been resolved. Each gives, bit
+    for bit, the rows it gave resolved at once and the rows the blocking
+    copy of its own device tensors gives; and the rows returned at once
+    are unchanged after all of that, so no returned array shares a host
+    buffer that the allocator handed out again."""
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    model = tse.build_model(arch="mini", idf_path="assets/idf.npz", seed=0, device=cuda)
+    enc = tse.BatchEncoder(model, max_length=512)
+    chunks = _mixed_chunks(29)
+
+    def blocking(handle, nv):  # the copy back as it was made before the events
+        sel = handle[3][:nv]
+        return handle[0].cpu().numpy()[sel], handle[1].cpu().numpy()[sel]
+
+    at_once = [enc.resolve_chunk_sparse(*enc.encode_chunk_sparse_async(c, l_max=64, rows=10))
+               for c in chunks]
+    kept = [(i.copy(), w.copy()) for i, w in at_once]
+    tracing.reset(["encoder.copy_out.async"])
+    first = enc.encode_chunk_sparse_async(chunks[0], l_max=64, rows=10)
+    late, prev = {}, None
+    for j in (1, 2, 3):
+        handle = enc.encode_chunk_sparse_async(chunks[j], l_max=64, rows=10)
+        if prev is not None:
+            late[j - 1] = (enc.resolve_chunk_sparse(*prev), blocking(*prev))
+        prev = handle
+    late[3] = (enc.resolve_chunk_sparse(*prev), blocking(*prev))
+    late[0] = (enc.resolve_chunk_sparse(*first), blocking(*first))
+    assert tracing.counters()["encoder.copy_out.async"] == 4
+    for j, ((gi, gw), (bi, bw)) in late.items():
+        ri, rw = at_once[j]
+        assert gi.shape == (len(chunks[j]), 64)
+        for got in (gi, bi):
+            np.testing.assert_array_equal(got, ri)
+        for got in (gw, bw):
+            np.testing.assert_array_equal(got, rw)
+    for (ri, rw), (ki, kw) in zip(at_once, kept):
+        np.testing.assert_array_equal(ri, ki)
+        np.testing.assert_array_equal(rw, kw)
 
 
 # --------------------------------------------------------------------------

@@ -8,6 +8,8 @@ benchmark's readers of them.
     tokenizer's own bucketed output, `encoder.batch_len.<L>` the lengths of
     the length-sorted chunks' batches, and `padding_share.ingest` a count
     from the cell's corpora and the chunk, sort and batch-length rules;
+    `encoder.copy_out.async` and `encoder.copy_out.waited` (chunks resolved
+    through a CUDA event) stay 0 on the CPU;
   * the counter views (`launch_counts`, `counts`, `mesh_counts`,
     `reset_counts`) return what they did before the registry;
   * the idle-share readers on a synthetic trace: each share, `None` on a
@@ -156,11 +158,13 @@ def test_encoder_counts_positions_and_tokens(model, tmp_path):
     """The positions the encoder runs (batch-count padding included, each
     batch of a length-sorted chunk at its own length) and the real tokens
     among them, against the tokenizer's own bucketed output of each 32-doc
-    chunk."""
+    chunk. The CPU resolves no chunk through an event."""
     corpus = _corpus(75, seed=5, lo=1, hi=200)
-    tracing.reset(["encoder.positions", "encoder.tokens"])
+    events = ["encoder.copy_out.async", "encoder.copy_out.waited"]
+    tracing.reset(["encoder.positions", "encoder.tokens"] + events)
     _ingest(model, tmp_path, corpus)
     c = tracing.counters()
+    assert all(c.get(k, 0) == 0 for k in events)
     positions = tokens = 0
     for s in range(0, len(corpus), 8 * BATCH):
         texts = [t for _, t in corpus[s:s + 8 * BATCH]]
