@@ -238,10 +238,8 @@ def main_path_batch(model, texts, dev):
     cast of the decoder weight (models/bert.py, mlm_maxpool)."""
     from opensearch_sparse_model_tuning_sample_torch.models.sparse_encoder import BatchEncoder
 
-    enc = BatchEncoder(model, max_length=512)
-    feats = model.tokenizer.encode_bucketed(texts, 512, enc.seq_buckets)
-    ids = torch.from_numpy(feats["input_ids"]).to(dev)
-    mask = torch.from_numpy(feats["attention_mask"]).to(dev)
+    # the ids and mask of one batch of `texts`, at the length the encoder runs it
+    [(ids, mask)], _, _ = BatchEncoder(model, max_length=512)._pack(texts, len(texts))
     bert = model.bert
     with torch.inference_mode():
         h = bert.head_hidden(bert.encode_hidden(ids, mask)).to(torch.bfloat16).contiguous()
@@ -843,10 +841,13 @@ def encoder_check(model, texts, l_max, dev):
         maxpool_head, maxpool_head_reference)
 
     enc = BatchEncoder(model, max_length=512)
-    enc_idx, enc_w = enc.encode_batch_sparse(texts, l_max=l_max)
-    feats = model.tokenizer.encode_bucketed(texts, 512, enc.seq_buckets)
-    ids = torch.from_numpy(feats["input_ids"]).to(dev)
-    mask = torch.from_numpy(feats["attention_mask"]).to(dev)
+    enc_idx, enc_w = enc.resolve_chunk_sparse(*enc.encode_chunk_sparse_async(
+        texts, l_max=l_max, rows=len(texts)))
+    # the one batch the chunk ran, its rows in length order (text r is row
+    # pos[r]): the encoder's rows are put in that order too
+    [(ids, mask)], pos, _ = enc._pack(texts, len(texts))
+    order = np.argsort(pos)
+    enc_idx, enc_w = enc_idx[order], enc_w[order]
     bert, V = model.bert, model.vocab_size
     with torch.inference_mode():
         h = bert.head_hidden(bert.encode_hidden(ids, mask)).to(torch.bfloat16).contiguous()
@@ -3439,8 +3440,8 @@ def main():
     ckpt_model = se.from_model_args(ma, seed=ta.seed, device=dev)
     qd = KeyValueDataset(queries)
     enc = se.BatchEncoder(ckpt_model, max_length=512)
-    q, nq = enc.encode_chunk_device([qd[i][1] for i in range(len(qd))], inf_free=True, rows=50)
-    q = q[:nq]
+    q = enc.encode_batch_device([qd[i][1] for i in range(len(qd))], inf_free=True, rows=50)
+    nq = q.shape[0]
     index_dir = os.path.join(ta.output_dir, "beir_eval", "synthetic-rich.index")
     index = SparseIndex.load(index_dir, device=dev)
     hits = index.search(q, k=10)

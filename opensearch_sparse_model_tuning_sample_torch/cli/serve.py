@@ -426,8 +426,11 @@ class ServingState:
                             toks[r, c], ws[r, c] = i, w
                     index.add_topk([d for d, _ in sp_docs], toks, ws)
                 if enc_docs:
+                    # in batches of max_batch rows: memory bounded by one batch
                     texts = [s.get("text", "") for _, s in enc_docs]
-                    toks, ws = self.encoder.encode_batch_sparse(texts, l_max=index.cfg.l_max)
+                    handle, n = self.encoder.encode_chunk_sparse_async(
+                        texts, l_max=index.cfg.l_max, rows=self.batcher.max_batch)
+                    toks, ws = self.encoder.resolve_chunk_sparse(handle, n)
                     index.add_topk([d for d, _ in enc_docs], toks, ws)
         return {"took": int((time.time() - t0) * 1000), "errors": False, "items": items}
 

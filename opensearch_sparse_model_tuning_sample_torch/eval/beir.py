@@ -588,27 +588,23 @@ def search(
     n_cert = n_esc = n_flagged = 0
     t0 = time.time()
     n = len(qd)
-    # chunks of a power-of-two count of batches (~4096 rows), so full chunks
-    # need no batch padding; only the tail chunk pays it
-    nb_chunk = 1
-    while nb_chunk * 2 * batch_size <= 4096:
-        nb_chunk *= 2
-    chunk_rows = nb_chunk * batch_size
+    # chunks of the whole batches that fit in 4096 rows, each chunk one
+    # search call over its queries' reps
+    chunk_rows = max(4096 // batch_size, 1) * batch_size
     for cstart in range(0, n, chunk_rows):
         rows = [qd[i] for i in range(cstart, min(cstart + chunk_rows, n))]
-        reps, _ = encoder.encode_chunk_device([r[1] for r in rows], inf_free=inf_free,
-                                              rows=batch_size)
+        reps = encoder.encode_batch_device([r[1] for r in rows], inf_free=inf_free,
+                                           rows=batch_size)
         hits = index.search(reps, k=result_size, query_prune=query_prune,
                             two_phase=use_two_phase,
                             full_forward=True if not inf_free else None)
-        # reps rows beyond len(rows) are chunk padding; zip drops their hits
         for (qid, _), h in zip(rows, hits):
             run_res[qid] = h
         cert = index.last_certified
         if cert is not None:
-            n_cert += int(cert[:len(rows)].sum())
+            n_cert += int(cert.sum())
             if index.last_escalated is not None:
-                n_esc += int(index.last_escalated[:len(rows)].sum())
+                n_esc += int(index.last_escalated.sum())
             n_flagged += len(rows)
     qps = n / max(time.time() - t0, 1e-9)
 

@@ -360,7 +360,7 @@ class SparseIndex:
 
     @tracing.spanned("index.add")
     def add_topk(self, doc_ids: Sequence[str], token_idx: np.ndarray, weights: np.ndarray):
-        """Add pre-sparsified rows (BatchEncoder.encode_batch_sparse):
+        """Add pre-sparsified rows (BatchEncoder.resolve_chunk_sparse):
         token_idx/weights [B, k] already impact-sorted, zero-padded."""
         if self._finalized:
             raise RuntimeError("index already finalized")

@@ -12,9 +12,9 @@ The port of the JAX package's `models/sparse_encoder.py` (reference
     statistic on the device until it is read. Its stages are the spans
     `data.tokenize`, `data.copy_in`, `encoder.forward`, `encoder.topk` and
     `encoder.copy_out` (`utils/tracing.py`), and it counts the positions
-    the encoder runs (`encoder.positions`, padding included), the real
-    tokens among them (`encoder.tokens`) and, on the ingest path, the
-    batches it runs at each length L (`encoder.batch_len.<L>`) and the
+    the encoder runs (`encoder.positions`, each row padded to its batch's
+    length), the real tokens among them (`encoder.tokens`), the batches
+    it runs at each length L (`encoder.batch_len.<L>`) and the ingest
     chunks resolved through their own event on a CUDA device
     (`encoder.copy_out.async`, of which `encoder.copy_out.waited` found
     the chunk's copy still running).
@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,7 +39,6 @@ from ..ops.activations import (
     special_token_mask,
 )
 from ..utils import tracing
-from ..utils.shapes import next_pow2
 from . import bert as bert_mod
 from . import modernbert
 from .bert import BertConfig, BertForMaskedLM
@@ -128,22 +127,31 @@ def encode(model: SparseEncoderModel, input_ids, attention_mask, inf_free: bool)
     return encode_doc(model, input_ids, attention_mask)
 
 
-_BATCH_LEN_STEP = 64  # a sorted chunk's batch lengths are multiples of this
+_BATCH_LEN_STEP = 64  # a batch's length is a multiple of this
 
 
 def _doubling_buckets(max_length: int) -> List[int]:
-    """The default buckets: 64, 128, 256, ... up to max_length."""
-    out = [64]
-    while out[-1] * 2 <= max_length:
-        out.append(out[-1] * 2)
-    return out
+    """The widths the tokenizer pads a chunk to: 64, 128, 256, ... below
+    max_length, then max_length."""
+    out, b = [], 64
+    while b < max_length:
+        out.append(b)
+        b *= 2
+    return out + [max_length]
+
+
+def _batch_bounds(n: int, rows: int):
+    """(starts, ends) of the ceil(n / rows) batches of a chunk of n rows:
+    each of `rows` rows but the first, which holds what is left over."""
+    ends = np.arange(n, 0, -rows)[::-1]
+    return np.maximum(ends - rows, 0), ends
 
 
 def _batch_lengths(lengths: np.ndarray, rows: int, width: int) -> np.ndarray:
-    """Each `rows`-sized batch's length, over rows of the given lengths in
-    order: the smallest multiple of _BATCH_LEN_STEP that holds its longest
-    row (at least one step), capped at `width`."""
-    longest = lengths.reshape(-1, rows).max(axis=1)
+    """Each batch's length, over rows of the given lengths in order cut as
+    `_batch_bounds` cuts them: the smallest multiple of _BATCH_LEN_STEP that
+    holds its longest row (at least one step), capped at `width`."""
+    longest = np.maximum.reduceat(lengths, _batch_bounds(len(lengths), rows)[0])
     steps = np.maximum(-(-longest // _BATCH_LEN_STEP), 1)
     return np.minimum(steps * _BATCH_LEN_STEP, width)
 
@@ -186,26 +194,36 @@ def sparse_to_token_weight_dicts(reps: np.ndarray, tokenizer) -> List[Dict[str, 
     return out
 
 
+class ChunkHandle(NamedTuple):
+    """A chunk queued by `BatchEncoder.encode_chunk_sparse_async`: its rows
+    on the device in length-sorted order (idx, vals), the activation count
+    of its full reps, each text's row (pos), and on a CUDA device the event
+    recorded after the rows' copy out and the page-locked buffers that copy
+    fills (all three None on the CPU)."""
+
+    idx: torch.Tensor
+    vals: torch.Tensor
+    count: torch.Tensor
+    pos: np.ndarray
+    done: Optional[torch.cuda.Event]
+    idx_host: Optional[torch.Tensor]
+    vals_host: Optional[torch.Tensor]
+
+
 class BatchEncoder:
     """Tokenize -> forward on the device -> sparse reps; accumulates the
     per-token activation counts for the FLOPS statistic on the device
-    (reference SparseEncoder, sparse_encoders.py:153-181)."""
+    (reference SparseEncoder, sparse_encoders.py:153-181). Every text
+    reaches the card through one packer (`_pack`); the sparse rows of a
+    chunk (`encode_chunk_sparse_async` / `resolve_chunk_sparse`) and the
+    dense reps (`encode_batch_device`, with `encode_batch` and `encode` its
+    host views) are two products of the same batch loop."""
 
-    def __init__(
-        self,
-        model: SparseEncoderModel,
-        max_length: int = 512,
-        seq_buckets: Optional[List[int]] = None,
-        do_count: bool = True,
-    ):
+    def __init__(self, model: SparseEncoderModel, max_length: int = 512,
+                 do_count: bool = True):
         self.model = model
         self.device = model.device
         self.max_length = max_length
-        self.seq_buckets = sorted(
-            b for b in (seq_buckets or _doubling_buckets(max_length)) if b <= max_length
-        ) or [max_length]
-        if self.seq_buckets[-1] < max_length:
-            self.seq_buckets.append(max_length)
         self.do_count = do_count
         self.reset_count()
 
@@ -231,97 +249,78 @@ class BatchEncoder:
             return
         self._count_dev = count_dev if self._count_dev is None else self._count_dev + count_dev
 
-    # ------------------------------------------------------------ helpers
-    def _tokenize(self, texts: List[str], pad_rows: int = 0, runs_encoder: bool = True):
-        """(ids, mask) on the device, padded to the bucket of the longest
-        text and by `pad_rows` rows; counts the positions and tokens when
-        the encoder runs on them (not for inference-free queries)."""
+    # ------------------------------------------------------------- packer
+    def _pack(self, texts: List[str], rows: int, runs_encoder: bool = True):
+        """Tokenize texts once and order them by length (a stable sort), cut
+        into ceil(n / rows) batches (`_batch_bounds`): all of `rows` rows
+        but the first, which holds the shortest texts and whatever `rows`
+        does not divide, so that the full batches keep the batch shape and
+        the short one costs least. Each batch runs at its own length
+        (`_batch_lengths`). When the encoder runs on them (not for
+        inference-free queries) counts the positions the batches run, the
+        real tokens, and each batch under `encoder.batch_len.<L>`.
+
+        Returns (batches, pos, pos_dev): each batch's (ids, mask) on the
+        device, [rows_i, L_i] and contiguous, views of one copy of the
+        chunk; each text's row in that order, in input order, on the host
+        and on the device. On a CUDA device the chunk is packed in
+        page-locked host memory and copied without blocking: the copy is
+        queued on the stream behind the work already there, and the host
+        goes on at once. The caching host allocator keeps the block until
+        that copy has run."""
+        n = len(texts)
         with tracing.span("data.tokenize"):
             feats = self.model.tokenizer.encode_bucketed(
-                texts, self.max_length, self.seq_buckets
-            )
-            ids, mask = feats["input_ids"], feats["attention_mask"]
-            if pad_rows:
-                ids = np.concatenate([ids, np.zeros((pad_rows, ids.shape[1]), ids.dtype)])
-                mask = np.concatenate([mask, np.zeros((pad_rows, mask.shape[1]), mask.dtype)])
-            if runs_encoder:
-                tracing.count("encoder.positions", mask.size)
-                tracing.count("encoder.tokens", int(mask.sum()))
-        with tracing.span("data.copy_in"):
-            return (torch.from_numpy(ids).to(self.device),
-                    torch.from_numpy(mask).to(self.device))
-
-    def _pack_chunk(self, texts: List[str], rows: int, runs_encoder: bool = True):
-        """Tokenize a chunk and pad its batch count up to a power of two.
-        Returns (ids [nb*rows, L], mask [nb*rows, L], n_valid, nb)."""
-        n = len(texts)
-        nb = next_pow2(-(-n // rows))
-        ids, mask = self._tokenize(texts, pad_rows=nb * rows - n, runs_encoder=runs_encoder)
-        return ids, mask, n, nb
-
-    def _pack_sorted_chunk(self, texts: List[str], rows: int):
-        """Tokenize a chunk once, pad its batch count up to a power of two
-        and order its rows by length: the padding rows first, then the real
-        rows in a stable sort by length, so that each `rows`-sized batch
-        runs at its own length (`_batch_lengths`). Counts the positions the
-        batches run, the real tokens, and each batch under
-        `encoder.batch_len.<L>`. Returns (batches, n_pad, pos): the batches'
-        (ids, mask) on the device, each [rows, L_i] and contiguous, views of
-        one copy of the chunk; the number of leading padding rows; and each
-        text's row in that order, in input order.
-
-        On a CUDA device the chunk is packed in page-locked host memory and
-        copied without blocking: the copy is queued on the stream behind
-        the work already there, and the host goes on at once. The caching
-        host allocator keeps the block until that copy has run."""
-        n = len(texts)
-        pad = next_pow2(-(-n // rows)) * rows - n
-        with tracing.span("data.tokenize"):
-            feats = self.model.tokenizer.encode_bucketed(
-                texts, self.max_length, self.seq_buckets
+                texts, self.max_length, _doubling_buckets(self.max_length)
             )
             ids, mask = feats["input_ids"], feats["attention_mask"]
             lens = mask.sum(axis=1)
             order = np.argsort(lens, kind="stable")
             pos = np.empty(n, np.int64)
-            pos[order] = np.arange(pad, pad + n)
-            widths = _batch_lengths(np.concatenate([np.zeros(pad, lens.dtype), lens[order]]),
-                                    rows, ids.shape[1])
-            total = rows * int(widths.sum())
-            flat = torch.zeros((2, total), dtype=torch.from_numpy(ids).dtype,
+            pos[order] = np.arange(n)
+            starts, ends = _batch_bounds(n, rows)
+            widths = _batch_lengths(lens[order], rows, ids.shape[1])
+            total = int(((ends - starts) * widths).sum())
+            flat = torch.empty(2 * total + n, dtype=torch.from_numpy(ids).dtype,
                                pin_memory=self.device.type == "cuda")
-            flat_ids, flat_mask = flat.numpy()
+            host = flat.numpy()
             off = 0
-            for i, w in enumerate(widths):
-                lo, hi = max(i * rows - pad, 0), max((i + 1) * rows - pad, 0)
-                skip = (rows - (hi - lo)) * w  # the batch's leading padding rows
-                sel = order[lo:hi]
-                flat_ids[off + skip:off + rows * w] = ids[sel, :w].ravel()
-                flat_mask[off + skip:off + rows * w] = mask[sel, :w].ravel()
-                off += rows * w
-            tracing.count("encoder.positions", total)
-            tracing.count("encoder.tokens", int(lens.sum()))
-            for w in widths:
-                tracing.count(f"encoder.batch_len.{int(w)}")
+            for lo, hi, w in zip(starts, ends, widths):
+                sel, size = order[lo:hi], (hi - lo) * w
+                host[off:off + size] = ids[sel, :w].ravel()
+                host[total + off:total + off + size] = mask[sel, :w].ravel()
+                off += size
+            host[2 * total:] = pos
+            if runs_encoder:
+                tracing.count("encoder.positions", total)
+                tracing.count("encoder.tokens", int(lens.sum()))
+                for w in widths:
+                    tracing.count(f"encoder.batch_len.{int(w)}")
         with tracing.span("data.copy_in"):
-            ids_d, mask_d = flat.to(self.device, non_blocking=True)
+            dev = flat.to(self.device, non_blocking=True)
         batches, off = [], 0
-        for w in widths:
-            w = int(w)
-            batches.append((ids_d[off:off + rows * w].view(rows, w),
-                            mask_d[off:off + rows * w].view(rows, w)))
-            off += rows * w
-        return batches, pad, pos
+        for lo, hi, w in zip(starts, ends, widths):
+            shape, size = (int(hi - lo), int(w)), int((hi - lo) * w)
+            batches.append((dev[off:off + size].view(shape),
+                            dev[total + off:total + off + size].view(shape)))
+            off += size
+        return batches, pos, dev[2 * total:]
 
     # ------------------------------------------------------- dense reps
     @torch.inference_mode()
-    def encode_batch_device(self, texts: List[str], inf_free: bool = False) -> torch.Tensor:
-        """[B, V] reps on the device."""
-        ids, mask = self._tokenize(texts, runs_encoder=not inf_free)
+    def encode_batch_device(self, texts: List[str], inf_free: bool = False,
+                            rows: Optional[int] = None) -> torch.Tensor:
+        """[len(texts), V] reps on the device, in input order. The texts run
+        as the packer's length-sorted batches of `rows` (one batch when
+        None), so memory is bounded by one batch's forward; their rows are
+        gathered back to input order through `pos`."""
+        if not texts:  # the packer makes no batch of no texts
+            return torch.zeros((0, self.model.vocab_size), device=self.device)
+        batches, _, pos = self._pack(texts, rows or len(texts), runs_encoder=not inf_free)
         with tracing.span("encoder.forward"):
-            reps = encode(self.model, ids, mask, inf_free)
+            reps = torch.cat([encode(self.model, ids, mask, inf_free) for ids, mask in batches])
         self._accum_count(activation_count(reps))
-        return reps
+        return reps.index_select(0, pos)
 
     def encode_batch(self, texts: List[str], inf_free: bool = False) -> np.ndarray:
         reps = self.encode_batch_device(texts, inf_free=inf_free)
@@ -333,102 +332,33 @@ class BatchEncoder:
         reps = self.encode_batch(texts, inf_free=inf_free)
         return sparse_to_token_weight_dicts(reps, self.model.tokenizer)
 
-    @torch.inference_mode()
-    def encode_chunk_device(self, texts: List[str], inf_free: bool = False,
-                            rows: int = 256):
-        """Encode a large chunk of texts. Returns (reps [nb*rows, V] on the
-        device, n_valid): rows beyond n_valid are padding the caller must
-        ignore. The chunk runs as a loop over its `rows`-sized batches, one
-        forward each, so every forward (and the max-pool kernel) sees the
-        ingest batch shape and memory stays bounded by one batch."""
-        ids, mask, n, nb = self._pack_chunk(texts, rows, runs_encoder=not inf_free)
-        with tracing.span("encoder.forward"):
-            reps = torch.cat([
-                encode(self.model, ids[i * rows:(i + 1) * rows],
-                       mask[i * rows:(i + 1) * rows], inf_free)
-                for i in range(nb)
-            ])
-        valid = torch.arange(reps.shape[0], device=reps.device)[:, None] < n
-        self._accum_count(((reps > 0) & valid).sum(dim=0).to(torch.int32))
-        return reps, n
-
     # ------------------------------------------------------ sparse reps
-    @torch.inference_mode()
-    def encode_batch_sparse_async(self, texts: List[str], l_max: int = 256):
-        """Forward + on-device top-k; returns device tensors (idx, vals,
-        count) without waiting for them. Resolve with `resolve_sparse`."""
-        ids, mask = self._tokenize(texts)
-        with tracing.span("encoder.forward"):
-            rep = encode_doc(self.model, ids, mask)
-        with tracing.span("encoder.topk"):
-            # count the FULL rep's activations (reference SparseEncoder counts
-            # every rep>0 entry): the top-k below is an index storage decision
-            # and must not change the FLOPS/d_length statistic
-            count = activation_count(rep)
-            idx, vals = _topk_rows(rep, min(l_max, self.model.vocab_size))
-        return idx, vals, count
-
-    def resolve_sparse(self, pending, n_texts: int):
-        """(idx, vals) of an async handle on the host (`n_texts`, the
-        handle's texts, is the JAX package's signature)."""
-        idx, vals, count = pending
-        with tracing.span("encoder.copy_out"):
-            self._accum_count(count)
-            return idx.cpu().numpy(), vals.cpu().numpy()
-
-    def resolve_sparse_many(self, pendings, n_texts_list):
-        """Resolve several async handles with one host copy per tensor kind.
-        Returns [(idx, vals), ...] in handle order (`n_texts_list` as
-        resolve_sparse's `n_texts`)."""
-        if not pendings:
-            return []
-        with tracing.span("encoder.copy_out"):
-            idx_all = torch.cat([p[0] for p in pendings]).cpu().numpy()
-            val_all = torch.cat([p[1] for p in pendings]).cpu().numpy()
-        self._accum_count(torch.stack([p[2] for p in pendings]).sum(dim=0))
-        out, off = [], 0
-        for p in pendings:
-            r = p[0].shape[0]
-            out.append((idx_all[off:off + r], val_all[off:off + r]))
-            off += r
-        return out
-
-    def encode_batch_sparse(self, texts: List[str], l_max: int = 256):
-        """(token_idx [B, l_max] int32, weights [B, l_max] fp32) via the
-        on-device top-k; inactive slots hold (0, 0.0)."""
-        return self.resolve_sparse(self.encode_batch_sparse_async(texts, l_max), len(texts))
-
     @torch.inference_mode()
     def encode_chunk_sparse_async(self, texts: List[str], l_max: int = 256,
                                   rows: int = 256):
-        """The ingest path: a chunk of texts, tokenized once, padded to a
-        power-of-two batch count and sorted by length (`_pack_sorted_chunk`),
-        encoded as a loop over its `rows`-sized batches, each at its own
+        """The ingest path: a chunk of texts through the packer, encoded as
+        a loop over its length-sorted batches of `rows`, each at its own
         length: the smallest multiple of 64 that holds its longest doc,
-        capped at the chunk's bucket. Each forward is followed by its
-        validity-masked count and top-k. Returns ((idx, vals, count, pos,
-        done, idx_host, vals_host), n_valid): the rows of idx and vals in
-        the sorted order, pos the row of each text; resolve with
-        `resolve_chunk_sparse`.
+        capped at the chunk's bucket. Each forward is followed by the count
+        of its full rep (the top-k below is an index storage decision and
+        must not change the FLOPS/d_length statistic) and its top-`l_max`.
+        Returns (ChunkHandle, n_valid): the rows in the sorted order and the
+        row of each text; resolve with `resolve_chunk_sparse`.
 
         On a CUDA device nothing here waits for the stream: the chunk's rows
         are queued for a copy into page-locked host buffers (idx_host,
         vals_host) right behind its top-k, and `done` is an event recorded
         after that copy, so the resolve waits for this chunk alone and not
-        for work queued after it. On the CPU the last three are None."""
-        batches, pad, pos = self._pack_sorted_chunk(texts, rows)
+        for work queued after it."""
+        batches, pos, _ = self._pack(texts, rows)
         k = min(l_max, self.model.vocab_size)
         idxs, valss = [], []
         count = torch.zeros(self.model.vocab_size, dtype=torch.int32, device=self.device)
-        for i, (ids, mask) in enumerate(batches):
+        for ids, mask in batches:
             with tracing.span("encoder.forward"):
                 rep = encode_doc(self.model, ids, mask)
             with tracing.span("encoder.topk"):
-                active = rep > 0
-                if i * rows < pad:  # the padding rows lead the chunk and never count
-                    active &= torch.arange(i * rows, (i + 1) * rows,
-                                           device=rep.device)[:, None] >= pad
-                count += active.sum(dim=0).to(torch.int32)
+                count += activation_count(rep)
                 idx, vals = _topk_rows(rep, k)
             idxs.append(idx)
             valss.append(vals)
@@ -442,16 +372,18 @@ class BatchEncoder:
                 vals_host.copy_(vals, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(self.device))
-            return (idx, vals, count, pos, done, idx_host, vals_host), len(texts)
+            return ChunkHandle(idx, vals, count, pos, done, idx_host, vals_host), len(texts)
 
-    def resolve_chunk_sparse(self, handle, n_valid: int):
-        """Fetch a chunk handle's (idx, vals) for its valid rows, in the
-        order of the chunk's texts, and fold the chunk's activation count
-        into the device accumulator. A handle with an event waits for that
-        event alone (`encoder.copy_out.async` counts these resolves,
-        `encoder.copy_out.waited` those that found the copy not yet done);
-        the rows returned are copies, never views of its host buffers,
-        which the allocator hands out again once the handle is dropped."""
+    def resolve_chunk_sparse(self, handle: ChunkHandle, n_valid: int):
+        """(token_idx [n_valid, l_max] int32, weights [n_valid, l_max] fp32)
+        of a chunk handle's first n_valid texts, in the order of the chunk's
+        texts (inactive slots hold (0, 0.0)), and fold the chunk's
+        activation count into the device accumulator. A handle with an
+        event waits for that event alone (`encoder.copy_out.async` counts
+        these resolves, `encoder.copy_out.waited` those that found the copy
+        not yet done); the rows returned are copies, never views of its
+        host buffers, which the allocator hands out again once the handle
+        is dropped."""
         idx, vals, count, pos, done, idx_host, vals_host = handle
         with tracing.span("encoder.copy_out"):
             if done is None:
@@ -469,19 +401,17 @@ class BatchEncoder:
 def get_batch_encoder(
     model: SparseEncoderModel,
     max_length: int = 512,
-    seq_buckets: Optional[List[int]] = None,
     do_count: bool = True,
     scope=None,
 ) -> BatchEncoder:
-    """One BatchEncoder per (model, shape config, scope), reused across
-    calls with its count state reset, as a fresh encoder would have it."""
-    key = (max_length, tuple(seq_buckets or ()), do_count, scope)
+    """One BatchEncoder per (model, max_length, do_count, scope), reused
+    across calls with its count state reset, as a fresh encoder would have
+    it."""
+    key = (max_length, do_count, scope)
     cache = model.__dict__.setdefault("_encoder_cache", {})
     enc = cache.get(key)
     if enc is None:
-        enc = cache[key] = BatchEncoder(
-            model, max_length=max_length, seq_buckets=seq_buckets, do_count=do_count,
-        )
+        enc = cache[key] = BatchEncoder(model, max_length=max_length, do_count=do_count)
     else:
         enc.reset_count()
     return enc

@@ -199,7 +199,7 @@ def test_build_model_from_a_roberta_dir(roberta_dir):
     assert model.cfg.model_type == "roberta"
     assert isinstance(model.tokenizer, ByteLevelBPETokenizer)
     texts = ["the quick brown fox", "sparse retrieval"]
-    enc = tse.get_batch_encoder(model, max_length=16, seq_buckets=[16])
+    enc = tse.get_batch_encoder(model, max_length=16)
     reps = enc.encode_batch(texts)
     assert reps.shape == (2, model.cfg.vocab_size) and (reps >= 0).all()
 

@@ -1,7 +1,7 @@
 """The port's BatchEncoder against the JAX package's, with the same weights
-and the same texts: the ingest path's top-l_max (ids, weights), the chunked
-path with its power-of-two batch padding, the FLOPS count taken on the full
-rep, and inference-free queries.
+and the same texts: the ingest path's top-l_max (ids, weights), the chunk
+path's length-sorted batches, the dense reps gathered back to input order,
+the FLOPS count taken on the full rep, and inference-free queries.
 
 fp32 compute on both sides, so reps agree to fp32 summation noise (1e-5);
 top-k ids agree except where two weights tie within that noise.
@@ -65,7 +65,7 @@ def test_topk_ingest_path_matches_jax(models, texts):
     jenc = jse.BatchEncoder(jm, max_length=64)
     tenc = tse.BatchEncoder(tm, max_length=64)
     ji, jw = jenc.encode_batch_sparse(docs, l_max=16)
-    ti, tw = tenc.encode_batch_sparse(docs, l_max=16)
+    ti, tw = tenc.resolve_chunk_sparse(*tenc.encode_chunk_sparse_async(docs, l_max=16, rows=10))
     assert ti.dtype == np.int32 and tw.dtype == np.float32
     _assert_topk_match(ti, tw, np.asarray(ji), np.asarray(jw))
     # the count is taken on the FULL rep, before the top-k
@@ -73,29 +73,10 @@ def test_topk_ingest_path_matches_jax(models, texts):
     assert tenc.count_tensor.sum() > 16 * len(docs)
 
 
-def test_resolve_sparse_many_matches_jax(models, texts):
-    """A window of async handles resolved with one fetch per tensor kind."""
-    jm, tm = models
-    batches = [texts[0][0:4], texts[0][4:7], texts[0][7:12]]
-    jenc = jse.BatchEncoder(jm, max_length=64)
-    tenc = tse.BatchEncoder(tm, max_length=64)
-    ref = jenc.resolve_sparse_many(
-        [jenc.encode_batch_sparse_async(b, l_max=16) for b in batches],
-        [len(b) for b in batches])
-    got = tenc.resolve_sparse_many(
-        [tenc.encode_batch_sparse_async(b, l_max=16) for b in batches],
-        [len(b) for b in batches])
-    assert len(got) == len(ref) == len(batches)
-    for (ti, tw), (ji, jw), b in zip(got, ref, batches):
-        assert ti.shape == (len(b), 16)
-        _assert_topk_match(ti, tw, np.asarray(ji), np.asarray(jw))
-    np.testing.assert_array_equal(tenc.count_tensor, jenc.count_tensor)
-    assert tenc.resolve_sparse_many([], []) == []
-
-
 @pytest.mark.parametrize("n,rows", [(20, 8), (16, 8), (5, 4)])
 def test_chunk_path_matches_jax(models, texts, n, rows):
-    """n=20, rows=8 pads 3 batches to 4; padding rows must not count."""
+    """n=20, rows=8 runs 3 batches, the first of 4 rows; the JAX package
+    pads its chunk to 4 batches, whose padding rows must not count."""
     jm, tm = models
     docs = texts[0][:n]
     jenc = jse.BatchEncoder(jm, max_length=64)
@@ -103,7 +84,7 @@ def test_chunk_path_matches_jax(models, texts, n, rows):
     jh, jn = jenc.encode_chunk_sparse_async(docs, l_max=16, rows=rows)
     th, tn = tenc.encode_chunk_sparse_async(docs, l_max=16, rows=rows)
     assert jn == tn == n
-    assert th[0].shape[0] == jh[0].shape[0]  # same power-of-two batch count
+    assert th.idx.shape[0] == n  # no padding rows
     ji, jw = jenc.resolve_chunk_sparse(jh, jn)
     ti, tw = tenc.resolve_chunk_sparse(th, tn)
     _assert_topk_match(ti, tw, ji, jw)
@@ -111,16 +92,20 @@ def test_chunk_path_matches_jax(models, texts, n, rows):
 
 
 def test_chunk_path_matches_per_batch_path(models, texts):
+    """The two products of one chunk loop: the sparse chunk's rows are the
+    top-l_max of the dense reps of the same texts, with the same count."""
     _, tm = models
     docs = texts[0][:12]
-    enc = tse.BatchEncoder(tm, max_length=64, seq_buckets=[64])
+    enc = tse.BatchEncoder(tm, max_length=64)
     handle, n = enc.encode_chunk_sparse_async(docs, l_max=16, rows=4)
     ci, cw = enc.resolve_chunk_sparse(handle, n)
     chunk_count = enc.count_tensor.copy()
     enc.reset_count()
-    parts = [enc.encode_batch_sparse(docs[i:i + 4], l_max=16) for i in range(0, 12, 4)]
-    np.testing.assert_array_equal(ci, np.concatenate([p[0] for p in parts]))
-    np.testing.assert_allclose(cw, np.concatenate([p[1] for p in parts]), rtol=0, atol=TOL)
+    dense = enc.encode_batch_device(docs, rows=4)
+    w, i = torch.topk(dense, 16, dim=1)
+    di = torch.where(w > 0, i, 0).to(torch.int32).numpy()
+    dw = torch.where(w > 0, w, 0.0).numpy()
+    _assert_topk_match(ci, cw, di, dw)
     np.testing.assert_array_equal(chunk_count, enc.count_tensor)
 
 
@@ -135,11 +120,10 @@ def _chunk_docs(texts, n, lo, hi, seed):
 def test_sorted_chunk_matches_single_docs(models, texts, n, lo, hi):
     """The length-sorted chunk path against each doc encoded alone, in
     batches of 4: its rows come back in input order, each doc's top-k as
-    the single-doc path's, and the count is the single docs' (no padding
-    row counted). Mixed lengths: 21 docs, 6 batches padded to 8, so the
-    padding fills a whole batch and part of another, and some batches run
-    below the chunk's bucket. 14 docs that all need max_length: 4 batches,
-    each holding a real doc, all at max_length as before the sort."""
+    the single-doc path's, and the count is the single docs'. Mixed
+    lengths: 21 docs in 6 batches, the first of one doc, and some batches
+    run below the chunk's bucket. 14 docs that all need max_length: 4
+    batches, the first of 2 docs, all at max_length as before the sort."""
     from opensearch_sparse_model_tuning_sample_torch.utils import tracing
 
     _, tm = models
@@ -154,17 +138,17 @@ def test_sorted_chunk_matches_single_docs(models, texts, n, lo, hi):
     chunk_count = enc.count_tensor.copy()
     enc.reset_count()
     for j, d in enumerate(docs):
-        si, sw = enc.encode_batch_sparse([d], l_max=16)
+        si, sw = enc.resolve_chunk_sparse(*enc.encode_chunk_sparse_async([d], l_max=16, rows=4))
         _assert_topk_match(ci[j:j + 1], cw[j:j + 1], si, sw)
     np.testing.assert_array_equal(chunk_count, enc.count_tensor)
-    nb = 1 << (-(-n // 4) - 1).bit_length()
+    nb = -(-n // 4)
     assert sum(c.get(k, 0) for k in names) == nb
     if lo > 100:  # every doc is cut at max_length: every batch runs at it
         assert (lens == 128).all()
-        assert c.get(names[1], 0) == nb and c["encoder.positions"] == nb * 4 * 128
+        assert c.get(names[1], 0) == nb and c["encoder.positions"] == n * 128
     else:
         assert len(set(lens)) > 1 and c.get(names[0], 0) > 0
-        assert c["encoder.positions"] < nb * 4 * 128
+        assert c["encoder.positions"] < n * 128
 
 
 @pytest.mark.parametrize("n,lo,hi", [(3, 3, 40), (21, 3, 150), (14, 140, 200)],
@@ -198,13 +182,19 @@ def test_chunk_resolved_after_a_later_chunk_matches_resolved_at_once(models, tex
     assert all(tracing.counters().get(k, 0) == 0 for k in names)
 
 
-def test_dense_doc_reps_match_jax(models, texts):
+@pytest.mark.parametrize("rows", [None, 4], ids=["one_batch", "rows4"])
+def test_dense_doc_reps_match_jax(models, texts, rows):
+    """Dense doc reps in input order: one batch, and 10 docs of mixed
+    lengths in batches of 4 (the first of 2), gathered back from the
+    length-sorted order; no texts give no rows (serving's `_encode` may
+    be sent none)."""
     jm, tm = models
-    docs = texts[0][:6]
+    docs = texts[0][:6] if rows is None else _chunk_docs(texts, 10, 3, 80, seed=3)
     ref = jse.BatchEncoder(jm, max_length=64).encode_batch(docs)
-    got = tse.BatchEncoder(tm, max_length=64).encode_batch(docs)
-    assert got.shape == ref.shape == (6, jm.cfg.vocab_size)
+    got = tse.BatchEncoder(tm, max_length=64).encode_batch_device(docs, rows=rows).numpy()
+    assert got.shape == ref.shape == (len(docs), jm.cfg.vocab_size)
     np.testing.assert_allclose(got, ref, rtol=0, atol=TOL)
+    assert tse.BatchEncoder(tm, max_length=64).encode_batch([]).shape == (0, jm.cfg.vocab_size)
 
 
 def test_inf_free_queries_match_jax(models, texts):
@@ -213,16 +203,16 @@ def test_inf_free_queries_match_jax(models, texts):
     jenc = jse.BatchEncoder(jm, max_length=64)
     tenc = tse.BatchEncoder(tm, max_length=64)
     jr, jn = jenc.encode_chunk_device(queries, inf_free=True, rows=5)
-    tr, tn = tenc.encode_chunk_device(queries, inf_free=True, rows=5)
-    assert jn == tn == len(queries)
-    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=0, atol=1e-6)
+    tr = tenc.encode_batch_device(queries, inf_free=True, rows=5)
+    assert jn == tr.shape[0] == len(queries)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr)[:jn], rtol=0, atol=1e-6)
     np.testing.assert_array_equal(tenc.count_tensor, jenc.count_tensor)
 
 
 def test_get_batch_encoder_reuses_and_resets(models, texts):
     _, tm = models
     a = tse.get_batch_encoder(tm, max_length=64)
-    a.encode_batch_sparse(texts[0][:2], l_max=4)
+    a.resolve_chunk_sparse(*a.encode_chunk_sparse_async(texts[0][:2], l_max=4))
     assert a.count_tensor.sum() > 0
     b = tse.get_batch_encoder(tm, max_length=64)
     assert b is a and b.count_tensor.sum() == 0

@@ -5,7 +5,8 @@ requests: `query_tokens`, `query_text` (inference-free and full forward),
 `size`, `query_prune`, `_bulk` (`text`, `text_sparse`, mixed), `_refresh`,
 bulk -> search -> bulk (`reopen`), two-phase by the body flag and by
 `search_pipeline` on an index in each mode, `_encode`, the 400/404 cases, a
-16-client burst; and, in process, the micro-batcher's power-of-two padding.
+16-client burst; and, in process, the micro-batcher's power-of-two padding
+and a raw-text bulk run in batches of at most `max_batch` rows.
 
 Compared: status codes, `hits.total`, the `_id` order (ties excepted),
 scores within 1e-5 relative (fp32 compute and fp32 index weights on both
@@ -353,3 +354,42 @@ def test_microbatch_pads_to_pow2_buckets(servers):
     tokens = [n for kind, n in seen if kind == "tokens"]
     assert tokens == [4, 8, 8]
     assert [n for kind, n in seen if kind == "search"][-2:] == [4, 3]
+
+
+def test_bulk_encodes_raw_text_in_bounded_batches(servers, monkeypatch):
+    """A bulk of 40 raw-text docs, more than the server's max_batch of 16:
+    the encoder's forwards never see more than 16 rows (40 docs run as 3
+    batches), and the rows stored are those of each doc encoded alone."""
+    state = servers["tstate"]
+    texts = servers["texts"][:40]
+    state.create_index("bounded", {"settings": {"index": {"l_max": 16, "engine": "sparse"}}})
+    index = state.indexes["bounded"]
+    forward, add, forwards, stored = state.model.bert.encode_hidden, index.add_topk, [], []
+
+    def counted(ids, mask, **kw):
+        forwards.append(ids.shape[0])
+        return forward(ids, mask, **kw)
+
+    def recorded(ids, toks, ws):
+        stored.append((ids, toks, ws))
+        return add(ids, toks, ws)
+
+    monkeypatch.setattr(state.model.bert, "encode_hidden", counted)
+    monkeypatch.setattr(index, "add_topk", recorded)
+    try:
+        out = state.bulk(_bulk_body([("bounded", f"b{i}", {"text": t})
+                                     for i, t in enumerate(texts)]))
+    finally:
+        monkeypatch.undo()
+        state.delete_index("bounded")
+    assert out["errors"] is False and len(out["items"]) == len(texts)
+    assert forwards == [8, 16, 16]
+    [(ids, toks, ws)] = stored
+    assert ids == [f"b{i}" for i in range(len(texts))]
+    enc = state.encoder
+    for r, t in enumerate(texts):
+        si, sw = enc.resolve_chunk_sparse(*enc.encode_chunk_sparse_async([t], l_max=16, rows=1))
+        np.testing.assert_allclose(ws[r], sw[0], rtol=0, atol=RTOL)
+        edge = sw[0, -1] + RTOL  # below this, ids may swap between near-ties
+        assert ({int(i) for i, w in zip(toks[r], ws[r]) if w > edge}
+                == {int(i) for i, w in zip(si[0], sw[0]) if w > edge}), r

@@ -143,20 +143,20 @@ def test_no_record_function_without_a_profiler(path, model, tmp_path, monkeypatc
     _run(path, fresh, tmp_path)
 
 
-def _sorted_batch_lengths(lengths, rows, width):
-    """The length each batch of a sorted chunk runs at: the chunk padded with
-    empty rows up to a power-of-two batch count, those rows first and then
-    the real ones by length; each batch the smallest multiple of 64 that
-    holds its longest row (at least 64), capped at `width`."""
-    nb = 1 << (-(-len(lengths) // rows) - 1).bit_length()  # batches, up to a power of 2
-    rowlens = [0] * (nb * rows - len(lengths)) + sorted(int(x) for x in lengths)
-    return [min(max(64, -(-max(rowlens[i:i + rows]) // 64) * 64), width)
-            for i in range(0, nb * rows, rows)]
+def _sorted_batches(lengths, rows, width):
+    """(rows, length) of each batch of a sorted chunk: its rows by length,
+    cut into ceil(n / rows) batches, all of `rows` rows but the first,
+    which holds what `rows` does not divide; each batch at the smallest
+    multiple of 64 that holds its longest row (at least 64), capped at
+    `width`."""
+    rowlens = sorted(int(x) for x in lengths)
+    parts = [rowlens[max(end - rows, 0):end] for end in range(len(rowlens), 0, -rows)][::-1]
+    return [(len(p), min(max(64, -(-max(p) // 64) * 64), width)) for p in parts]
 
 
 def test_encoder_counts_positions_and_tokens(model, tmp_path):
-    """The positions the encoder runs (batch-count padding included, each
-    batch of a length-sorted chunk at its own length) and the real tokens
+    """The positions the encoder runs (each batch of a length-sorted chunk
+    at its own length, the chunk's first batch short) and the real tokens
     among them, against the tokenizer's own bucketed output of each 32-doc
     chunk. The CPU resolves no chunk through an event."""
     corpus = _corpus(75, seed=5, lo=1, hi=200)
@@ -169,7 +169,7 @@ def test_encoder_counts_positions_and_tokens(model, tmp_path):
     for s in range(0, len(corpus), 8 * BATCH):
         texts = [t for _, t in corpus[s:s + 8 * BATCH]]
         mask = model.tokenizer.encode_bucketed(texts, 128, [64, 128])["attention_mask"]
-        positions += BATCH * sum(_sorted_batch_lengths(mask.sum(1), BATCH, mask.shape[1]))
+        positions += sum(r * L for r, L in _sorted_batches(mask.sum(1), BATCH, mask.shape[1]))
         tokens += int(mask.sum())
     assert (c["encoder.positions"], c["encoder.tokens"]) == (positions, tokens)
     assert tokens < positions
@@ -188,13 +188,12 @@ def test_encoder_counts_batches_by_length(model, tmp_path):
     for s in range(0, len(corpus), 8 * BATCH):
         texts = [t for _, t in corpus[s:s + 8 * BATCH]]
         mask = model.tokenizer.encode_bucketed(texts, 128, [64, 128])["attention_mask"]
-        for L in _sorted_batch_lengths(mask.sum(1), BATCH, mask.shape[1]):
+        for _, L in _sorted_batches(mask.sum(1), BATCH, mask.shape[1]):
             want[L] = want.get(L, 0) + 1
             below += L < mask.shape[1]
     assert got == want
     assert sum(got.values()) == sum(
-        1 << (-(-min(8 * BATCH, len(corpus) - s) // BATCH) - 1).bit_length()
-        for s in range(0, len(corpus), 8 * BATCH))
+        -(-min(8 * BATCH, len(corpus) - s) // BATCH) for s in range(0, len(corpus), 8 * BATCH))
     assert below > 0 and set(got) <= {64, 128}
 
 
@@ -202,7 +201,7 @@ def test_padding_share_reads_the_cells_corpora():
     """The benchmark's ingest cell cut to the CPU: padding_share.ingest over
     the warm-up and two calls equals the share from the cell's token counts
     (words + [CLS] + [SEP], one wordpiece a word), its chunks of 8 batches
-    padded to a power of two and sorted by length, and each batch at the
+    sorted by length, the first batch of each short, and each batch at the
     smallest multiple of 64 that holds its longest doc, within the smallest
     bucket holding the chunk's longest doc."""
     from lsr_bench import harness
@@ -229,8 +228,7 @@ def test_padding_share_reads_the_cells_corpora():
         for s in range(0, len(tok), ch):
             part = tok[s:s + ch]
             bucket = min(b for b in (64, 128, 256, 512, L) if b >= part.max())
-            positions += t["batch_size"] * sum(
-                _sorted_batch_lengths(part, t["batch_size"], bucket))
+            positions += sum(r * L for r, L in _sorted_batches(part, t["batch_size"], bucket))
             tokens += int(part.sum())
     assert got == pytest.approx(100.0 * (1.0 - tokens / positions), abs=0.01)
     assert 0 < got < 100
