@@ -55,7 +55,15 @@ Between the head kernels and the main path it runs ModernBERT-large (step
 cell's batch shapes against the plain version, and `eval/beir.py::ingest`
 of 16 of that cell's docs through `build_model`'s `modernbert-large`
 preset, with its launch and pair counters; `python3 chip_smoke.py
---modernbert-only` runs that step alone. The
+--modernbert-only` runs that step alone. Step 3c times BERT's attention
+through the same fused kernel at distil-ingest's batch shapes and the main
+path's mini shape against BERT's plain chain and SDPA, and ingests 300
+docs through the `distill` preset, every layer launching the kernel;
+`python3 chip_smoke.py --bert-attention-only` runs it alone. Every
+inference path of the main run (the eval, serving, the kd teachers, the
+eval ranks, the mesh eval) launches that kernel once a layer of each
+encoder forward and takes no plain chain; training takes the plain chain
+and launches none. The
 last lines of output are the `serve:`, `inverted eval:`, `distill:`,
 `distributed:`, `mesh:` and `mesh train:` lines, the `kernels` JSON line,
 the card's name and power limit, and `{"ok": true, "device": {...}}`.
@@ -763,9 +771,11 @@ class StepClock:
 
 
 def reset_counters():
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
     from opensearch_sparse_model_tuning_sample_torch.ops import maxpool as mp
 
     mp.reset_launch_counts()
+    tbert.reset_attention_counts()
 
 
 def read_counters():
@@ -773,6 +783,29 @@ def read_counters():
 
     c = mp.launch_counts()
     return c["kernels"], c["plains"]
+
+
+def read_attention():
+    """BERT's attention layer calls since reset_counters(): the fused
+    kernel's launches and the plain chains (models/bert.py)."""
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+
+    return tbert.attention_counts()
+
+
+def ckpt_layers(ckpt):
+    """The encoder layers of an exported checkpoint (its config.json)."""
+    with open(os.path.join(ckpt, "config.json")) as f:
+        cfg = json.load(f)
+    return cfg.get("num_hidden_layers", cfg.get("n_layers"))
+
+
+def check_attention(attn, layers, forwards, what):
+    """Inference on the card: every layer of each of `forwards` encoder
+    forwards (one maxpool_head launch each) launches the fused attention
+    kernel once, and none takes BERT's plain chain."""
+    want = {"attention_global_kernel": layers * forwards, "plain_chain": 0}
+    check(attn == want, f"{what}: BERT attention {attn}, {want} expected")
 
 
 class _IngestRate(logging.Handler):
@@ -897,12 +930,14 @@ def phase_train_path(dev):
             reset_counters()
             trainer = train_ir.main(path)
             out["train"] = read_counters()
+            out["train_attention"] = read_attention()
         out["train_s"] = time.time() - t0
 
         t0 = time.time()
         reset_counters()
         out["avg"] = evaluate_beir.main(path)
         out["eval"] = read_counters()
+        out["eval_attention"] = read_attention()
         out["eval_s"] = time.time() - t0
     finally:
         os.chdir(cwd)
@@ -916,6 +951,14 @@ def phase_train_path(dev):
         check(launches[k] == steps, f"{k} launched once per train step ({launches[k]})")
     for part in ("mine", "train", "eval"):
         check(not any(out[part][1].values()), f"no plain version ran in cli.{part}: {out[part][1]}")
+    # training (dropout, autograd) takes BERT's plain attention chain, the
+    # eval's ingest the fused kernel
+    layers = trainer.model.cfg.num_hidden_layers
+    attn = out["train_attention"]
+    check(attn["attention_global_kernel"] == 0 and attn["plain_chain"] >= layers * steps,
+          f"cli.train_ir: no attention kernel launch, the plain chain in every layer: {attn}")
+    check_attention(out["eval_attention"], layers, out["eval"][0]["maxpool_head"],
+                    "cli.evaluate_beir")
     hist = trainer.log_history
     for h in hist:
         check(all(np.isfinite(v) for v in h.values()), f"finite metrics at step {h['step']}")
@@ -1512,6 +1555,8 @@ def phase_serve(dev, ckpt, index_dir, texts, query_texts):
     rec = drive_server(base, texts, query_texts, q_tok, q_w, vocab)
     torch.cuda.synchronize()
     launches, plain = read_counters()
+    attention = read_attention()
+    check_attention(attention, ckpt_layers(ckpt), launches["maxpool_head"], "serving")
     drive_s = time.time() - t0 - build_s
     rec.update(q_tok=q_tok, q_w=q_w)
     n_text_bulks = len(rec["text_bulks"])
@@ -1523,7 +1568,7 @@ def phase_serve(dev, ckpt, index_dir, texts, query_texts):
     out = check_serving(dev, rec, dirs, ckpt)
     lat = np.array([x[3] for x in rec["burst"]]) * 1e3
     out.update(
-        launches=launches["maxpool_head"], text_bulks=n_text_bulks,
+        launches=launches["maxpool_head"], attention=attention, text_bulks=n_text_bulks,
         full_forward=rec["full_forward"], ingest_docs_per_s=n_text_bulks * BULK_DOCS / rec["ingest_s"],
         burst_requests=len(rec["burst"]), burst_qps=len(rec["burst"]) / rec["burst_s"],
         p50_ms=float(np.percentile(lat, 50)), p95_ms=float(np.percentile(lat, 95)),
@@ -1722,6 +1767,7 @@ def phase_kd_train(dev, path):
         reset_counters()
         trainer = train_ir.main(kd_path)
         counters = read_counters()
+        attention = read_attention()
     seconds = time.time() - t0
     steps = trainer.step
     check(steps == KD_STEPS, "the kd trainer took every step")
@@ -1729,6 +1775,13 @@ def phase_kd_train(dev, path):
           and all(t.bert.embeddings.word_embeddings.device.type == "cuda"
                   for t in trainer.teacher_ensemble.teachers), "two sparse teachers on the card")
     check_launches(counters, steps, {**TEACHER_KERNELS, **STUDENT_KERNELS}, "the kd run")
+    # the teachers (no_grad) take the fused attention kernel, the student
+    # (dropout, autograd) BERT's plain chain
+    t_layers = {t.bert.cfg.num_hidden_layers for t in trainer.teacher_ensemble.teachers}
+    check(len(t_layers) == 1 and attention["attention_global_kernel"]
+          == t_layers.pop() * counters[0]["maxpool_head"] and attention["plain_chain"] > 0,
+          f"the kd run: the teachers' attention through the kernel, the student's through "
+          f"the plain chain: {attention}")
     teacher_state_equals(trainer.teacher_ensemble, teachers)
     hist = trainer.log_history
     check([h["step"] for h in hist] == [1] + list(range(KD_LOG_STEPS, steps + 1, KD_LOG_STEPS)),
@@ -1761,7 +1814,8 @@ def phase_kd_train(dev, path):
     profile = profile_steps(trainer, np_batch, 1e3 * docs_per_step / docs_per_s)
     print(f"kd teacher scores alone (CUDA events at the host's pace): {teacher_host_ms:.3f} ms",
           flush=True)
-    out = {"steps": steps, "seconds": seconds, "launches": counters[0], "docs_per_s": docs_per_s,
+    out = {"steps": steps, "seconds": seconds, "launches": counters[0], "attention": attention,
+           "docs_per_s": docs_per_s,
            "log": hist, "grad_worst_rel_err": grad_worst, "scores": scores,
            "teacher_scores_host_ms": teacher_host_ms,
            "profile": profile, "teachers": teachers}
@@ -2265,6 +2319,7 @@ def phase_distributed(dev, path, n_docs, test_split):
         check(per_rank[r] <= k <= 1.1 * per_rank[r],
               f"11b rank {r}: the ingest kernel for each of its {per_rank[r]} batches ({k})")
         check(not any(counts[r]["plains"].values()), f"11b rank {r}: no plain version")
+        check_attention(counts[r]["attention"], ckpt_layers(ckpt), k, f"11b rank {r}")
     eval_dir = os.path.join(eval_out, "beir_eval")
     avg = json.load(open(os.path.join(eval_dir, "avg_res.json")))
     merged = SparseIndex.load(os.path.join(eval_dir, f"{name}.index"), device=dev)
@@ -2287,6 +2342,7 @@ def phase_distributed(dev, path, n_docs, test_split):
                    for k in metrics["one_process"])
     avg_d = max(abs(avg[k] - path["avg"][k]) for k in ("NDCG@10", "Recall@100"))
     out["11b"] = {"launches": [c["kernels"]["maxpool_head"] for c in counts],
+                  "attention": [c["attention"] for c in counts],
                   "flops_rel_diff": stat_rel, "d_length_rel_diff": d_rel,
                   "avg_res_max_diff": avg_d, "metrics_max_diff": metric_d,
                   "metrics": metrics["two_ranks"], "avg": avg}
@@ -2732,6 +2788,7 @@ def mesh_eval(dev, mesh, path, test_split):
         finally:
             beir.ingest = orig
         launches, plain = read_counters()
+        attention = read_attention()
         seconds = time.time() - t1
         index = captured["index"]
         check(index.mesh is mesh and index._stripes is not None and not index._shard_queries,
@@ -2740,6 +2797,8 @@ def mesh_eval(dev, mesh, path, test_split):
               f"12c {run}: {launches['maxpool_head']} maxpool_head launches for {n_batches} "
               "ingest batches")
         check(not any(plain.values()), f"12c {run}: no plain version ran: {plain}")
+        check_attention(attention, ckpt_layers(ckpt), launches["maxpool_head"],
+                        f"12c {run}")
         got = metrics(index)
         avg_d = {k: abs(avg[k] - path["avg"][k]) for k in path["avg"] if k != "qps"}
         met_d = max(abs(got[k] - want[k]) for k in want)
@@ -2748,7 +2807,8 @@ def mesh_eval(dev, mesh, path, test_split):
         check(met_d == 0, f"12c {run}: NDCG, MAP and Recall at {k_values} equal ({met_d:.3g})")
         if over["index_engine"] == "inverted":
             check(avg["certified_frac"] == 1.0, f"12c {run}: every query certified")
-        out[run] = {"launches": launches["maxpool_head"], "seconds": seconds,
+        out[run] = {"launches": launches["maxpool_head"], "attention": attention,
+                    "seconds": seconds,
                     "avg": avg, "metrics_max_diff": met_d, "engine": index._engine,
                     "postings_source": index.postings_source}
         print(f"12c evaluate_datasets over the mesh ({run}): {len(corpus)} docs, maxpool_head "
@@ -3278,6 +3338,113 @@ def phase_modernbert(dev):
     return res
 
 
+# (heads, L) of BERT's attention rows: distil-ingest's batches (50 rows of a
+# length-sorted chunk at 128 ... 512 by 64, DistilBERT's 12 heads of 64),
+# then the main path's mini model (4 heads of 64) at its eval's L = 64
+# bucket and the longest, 512
+BERT_ATTN_SHAPES = tuple((12, L) for L in range(128, 513, 64)) + ((4, 64), (4, 512))
+
+
+def bert_attention_rows(dev, B=50, hd=64):
+    """BERT's attention core at distil-ingest's batch shapes [50, L, 12, 64]
+    and the main path's [50, L, 4, 64]: q, k, v as the projections give
+    them (views of [B, L, H·hd]), live lengths drawn from (L - 64, L] as a
+    sorted chunk's batch holds them (one row full). The fused kernel
+    against BERT's plain chain on the live queries (each (query, head) row
+    within ATTN_ROW_TOL of its own scale, the mean within ATTN_MEAN_TOL),
+    then the kernel's time beside its bound (4·Σ n²·hd·H at 989 TFLOP/s
+    against q, k, v, o once in bf16 at 3.35 TB/s, whichever is longer: the
+    bytes at every L here, as the two cross near n = 590), the plain
+    chain's and one SDPA call's (the library's yardstick, which the port
+    never calls)."""
+    import torch.nn.functional as F
+
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+
+    rows = []
+    for H, L in BERT_ATTN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(L)
+        q, k, v = (torch.randn((B, L, H * hd), generator=g, device=dev).to(torch.bfloat16)
+                   .view(B, L, H, hd) for _ in range(3))
+        lens = np.random.default_rng(L).integers(max(L - 63, 1), L + 1, size=B)
+        lens[-1] = L
+        n = torch.as_tensor(lens, device=dev)
+        mask = (torch.arange(L, device=dev)[None, :] < n[:, None]).to(torch.int32)
+        got = at.attention(q, k, v, mask)
+        plain = tbert.attention_chain(q, k, v, mask)
+        live = mask.bool()
+        gg, pp = got.float()[live], plain.float()[live]
+        rel = (gg - pp).norm(dim=-1) / pp.norm(dim=-1)
+        worst, mean = float(rel.max()), float(rel.mean())
+        what = f"bert attention [{B}, {L}, {H}, {hd}]"
+        check(bool(torch.isfinite(got.float()).all()), f"{what}: finite")
+        check(worst <= ATTN_ROW_TOL and mean <= ATTN_MEAN_TOL,
+              f"{what}: against the plain chain, row gap worst {worst}, mean {mean}")
+        del gg, pp, plain
+        kernel_ms = cuda_ms(lambda: at.attention(q, k, v, mask), 20)
+        plain_ms = cuda_ms(lambda: tbert.attention_chain(q, k, v, mask), 5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        live4 = live[:, None, None, :]
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=live4), 20)
+        nf = n.double()
+        ops_s = 4 * nf * nf * H * hd / PEAK_BF16_FLOPS
+        bytes_s = 4 * nf * H * hd * 2 / PEAK_BYTES_PER_S
+        bound_s = float(torch.maximum(ops_s, bytes_s).sum())
+        rows.append({"shape": [B, L, H, hd], "live": [int(lens.min()), int(lens.max())],
+                     "row_gap_worst": worst, "row_gap_mean": mean, "kernel_ms": kernel_ms,
+                     "bound_ms": bound_s * 1e3, "share_of_bound": bound_s * 1e3 / kernel_ms,
+                     "bound_by": "bytes" if float(bytes_s.sum()) >= float(ops_s.sum())
+                     else "operations",
+                     "plain_chain_ms": plain_ms, "sdpa_ms": sdpa_ms})
+        print(f"bert attention: {json.dumps(rows[-1])}", flush=True)
+        del q, k, v, qt, kt, vt, got
+    return rows
+
+
+def phase_bert_attention(dev):
+    """BERT's attention on the card (step 3c): the rows above, then
+    `eval/beir.py::ingest` of 300 docs (lengths as distil-ingest draws them,
+    batch 50, max_length 512) through `build_model`'s `distill` preset. Every
+    batch launches the fused kernel once a layer and no layer takes the plain
+    chain: the kernel's share of BERT's attention calls is 1."""
+    from opensearch_sparse_model_tuning_sample_torch.eval.beir import ingest
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    t0 = time.time()
+    rows = bert_attention_rows(dev)
+    model = se.build_model(arch="distill", idf_path=os.path.join(HERE, "assets", "idf.npz"),
+                           seed=0, device=dev)
+    words = [w for w in model.tokenizer.vocab if w.isalpha() and w.isascii() and len(w) > 2]
+    rng = np.random.default_rng(21)
+    lens = np.clip(np.round(rng.lognormal(np.log(180), 0.6, 300)), 10, 700).astype(int)
+    corpus = [(f"d{i}", " ".join(rng.choice(words, int(n)))) for i, n in enumerate(lens)]
+    tracing.reset()
+    out = os.path.join(OUT, "bert_attention")
+    os.makedirs(out, exist_ok=True)
+    index = ingest(corpus, model, out, "distil", max_length=512, batch_size=50,
+                   index_cfg=IndexConfig(engine="sparse", l_max=256))
+    torch.cuda.synchronize()
+    c = tracing.counters()
+    batches = {int(k.rsplit(".", 1)[1]): v for k, v in c.items()
+               if k.startswith("encoder.batch_len.")}
+    layers = model.cfg.num_hidden_layers
+    launches = c.get("attn.launches.attention_global_kernel", 0)
+    plain = c.get("encoder.attn.plain_chain", 0)
+    share = launches / max(launches + plain, 1)
+    check(launches == layers * sum(batches.values()) and plain == 0 and share == 1.0,
+          f"bert ingest: {launches} kernel launches and {plain} plain chains for "
+          f"{sum(batches.values())} batches of {layers} layers")
+    check(index.n_docs == len(corpus), "bert ingest: every doc stored")
+    res = {"attention": rows, "batches": batches, "docs": len(corpus), "launches": launches,
+           "plain_chain": plain, "kernel_share": share, "seconds": time.time() - t0}
+    del model, index
+    torch.cuda.empty_cache()
+    return res
+
+
 def mesh_only(dev, card, mesh_corpus, t_start):
     """`python3 chip_smoke.py --mesh-only`: steps 12a, 12b and 13 alone
     (they need nothing of the main path but its kernels, which the trainer
@@ -3308,6 +3475,7 @@ def main():
         sys.exit(2)
     only_mesh = sys.argv[1:] == ["--mesh-only"]
     only_modernbert = sys.argv[1:] == ["--modernbert-only"]
+    only_bert_attention = sys.argv[1:] == ["--bert-attention-only"]
     sys.path.insert(0, HERE)
     from opensearch_sparse_model_tuning_sample_torch.cli.evaluate_beir import prepare_model_args
     from opensearch_sparse_model_tuning_sample_torch.core.config import parse_config
@@ -3327,9 +3495,12 @@ def main():
     ).stdout.strip().splitlines()
     card = cards[0]
     dev = resolve_device("cuda")
-    if only_modernbert:
+    if only_modernbert or only_bert_attention:
         print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-        print("modernbert: " + json.dumps(phase_modernbert(dev)), flush=True)
+        if only_modernbert:
+            print("modernbert: " + json.dumps(phase_modernbert(dev)), flush=True)
+        else:
+            print("bert attention: " + json.dumps(phase_bert_attention(dev)), flush=True)
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -3381,6 +3552,10 @@ def main():
     # 3b. ModernBERT-large: the fused attention of both kinds at the long-doc
     # cell's shapes against its plain version, then its ingest path
     print("modernbert: " + json.dumps(phase_modernbert(dev)), flush=True)
+    # 3c. BERT's attention through the same kernel at distil-ingest's shapes,
+    # then an ingest with its launch and plain-chain counters
+    bert_attn = phase_bert_attention(dev)
+    print("bert attention: " + json.dumps(bert_attn), flush=True)
     # the training forward's ablations at the train step's L = 64 bucket, the
     # longest, L = 512 (eight chunks a doc), and D = 768 (2-stage rings); its
     # main-path batch later
@@ -3569,6 +3744,40 @@ def main():
             "nnz": r["nnz"],
             "all_shapes": [t[name] for t in train_rows] + [r],
         })
+    # BERT's attention: the kernel's launches on every inference path of the
+    # main run (the eval's counted from 0 just before it), none in training;
+    # its times at the main path's eval shape from step 3c
+    main_attn = next(r for r in bert_attn["attention"] if r["shape"][2] == 4)
+    kernels.append({
+        "name": "attention_global_kernel", "route": "cuda",
+        "source": "opensearch_sparse_model_tuning_sample_torch/csrc/attention.cu",
+        "replaces": None,
+        "jax_counterpart": "XLA's fusion of the plain jnp attention of "
+                           "opensearch_sparse_model_tuning_sample_tpu/models/bert.py",
+        "launches": path["eval_attention"]["attention_global_kernel"],
+        "plain_chain": path["eval_attention"]["plain_chain"],
+        "train_launches": path["train_attention"]["attention_global_kernel"],
+        "train_plain_chain": path["train_attention"]["plain_chain"],
+        "serve_launches": serve_out["attention"]["attention_global_kernel"],
+        "kd_launches": {"kd_teachers": distill["kd"]["attention"]["attention_global_kernel"],
+                        "kd_student_plain_chain": distill["kd"]["attention"]["plain_chain"]},
+        "dist_launches": {f"eval_rank{r}": a["attention_global_kernel"]
+                          for r, a in enumerate(dist_out["11b"]["attention"])},
+        "mesh_launches": {run: mesh_out["12c"][run]["attention"]["attention_global_kernel"]
+                          for run in ("docs_scan", "docs_inverted")},
+        "ingest_kernel_share": bert_attn["kernel_share"],
+        "max_row_gap": max(r["row_gap_worst"] for r in bert_attn["attention"]),
+        "ms": main_attn["kernel_ms"],
+        "kernel_ms": main_attn["kernel_ms"],
+        "plain_ms": main_attn["plain_chain_ms"],
+        "bound_ms": main_attn["bound_ms"],
+        "bound_by": main_attn["bound_by"],
+        "library_ms": main_attn["sdpa_ms"],
+        "share_of_bound": main_attn["share_of_bound"],
+        "shape": main_attn["shape"],
+        "inputs": "the main path's eval shape, random q, k, v",
+        "all_shapes": bert_attn["attention"],
+    })
     print("train path: " + json.dumps({
         "steps": path["steps"], "train_docs_per_s": path["docs_per_s"],
         "full_step_grad_worst_rel_err": grad_worst, "profile": profile,

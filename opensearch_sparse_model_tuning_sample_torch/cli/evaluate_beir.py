@@ -35,6 +35,7 @@ from ..core.config import parse_config, snapshot_config
 from ..core.device import resolve_device
 from ..core.mesh import process_mesh
 from ..eval.beir import eval_suffix, evaluate_datasets, resolve_dataset
+from ..models import bert
 from ..models import sparse_encoder as se
 from ..ops import maxpool
 from ..utils.logging_utils import set_logging
@@ -91,7 +92,7 @@ def main(config_source=None):
     try:
         avg = _evaluate(model_args, data_args, training_args, device)
         logger.info("rank %d launch counts: %s", distributed.rank(),
-                    json.dumps(maxpool.launch_counts()))
+                    json.dumps({**maxpool.launch_counts(), "attention": bert.attention_counts()}))
         return avg
     finally:
         distributed.destroy()

@@ -12,6 +12,15 @@ so both packages compute the same function from the same weights:
     the compute dtype; the additive mask is finfo(float32).min, not -inf;
   * the MLM head's logits are fp32 with an fp32 bias.
 
+Attention takes one of two paths, by what each layer call needs. For
+inference on a card in bf16 (no dropout generator, no gradient through q,
+k or v, a head dim the kernel is built for) it is `ops/attention.py`'s
+fused kernel (`fused_attention`: one launch a layer up to 65 535 // H docs,
+more for a larger batch), which computes the same function in the same
+precision without forming the `[B, H, L, L]` logits. Everywhere else (the CPU,
+training with dropout or autograd, other dtypes or head dims) it is the
+plain chain, `attention_chain`, counted as `encoder.attn.plain_chain`.
+
 The vocab axis is padded up to `vocab_pad_multiple`; padded rows of the word
 embeddings are zero. `mlm_maxpool` is the sparse encoder's head: it calls the
 fused max-pool kernel (ops/maxpool.py), so the [B, L, V] logits never exist;
@@ -40,7 +49,17 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.attention import attention
 from ..ops.maxpool import maxpool_head, maxpool_head_train
+from ..utils import tracing
+
+# head dims the fused attention kernel is built for (csrc/attention.cu), and
+# the most (doc, head) pairs one launch covers (its grid's y dimension)
+_KERNEL_HEAD_DIMS = (16, 64)
+_KERNEL_MAX_BH = 65535
+# the counters of attention_counts(), by the names it gives them
+_ATTN_COUNTERS = {"attention_global_kernel": "attn.launches.attention_global_kernel",
+                  "plain_chain": "encoder.attn.plain_chain"}
 
 
 def round_up(x: int, m: int) -> int:
@@ -170,6 +189,65 @@ class Dense(nn.Module):
         return y + self.bias.to(cd)
 
 
+def attention_chain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    attention_mask: torch.Tensor, dropout_rate: float = 0.0,
+                    gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """BERT's plain attention core: q, k, v [B, L, H, hd] in the compute
+    dtype, `attention_mask` [B, L] (nonzero where attended) -> the context
+    [B, L, H, hd] in the compute dtype. fp32 logits from exact products of
+    the compute-dtype values, an additive fp32 mask (0 where attended,
+    finfo(float32).min where masked), fp32 softmax, probabilities cast to
+    the compute dtype (dropout on them with a generator) and multiplied by
+    v. Counts `encoder.attn.plain_chain` (a layer `remat` recomputes counts
+    again)."""
+    tracing.count(_ATTN_COUNTERS["plain_chain"])
+    cd, hd = q.dtype, q.shape[-1]
+    mask_bias = torch.where(
+        attention_mask[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min
+    ).to(torch.float32)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B, H, L, hd]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
+    probs = torch.softmax(logits + mask_bias, dim=-1).to(cd)
+    probs = _dropout(probs, dropout_rate, gen)
+    return torch.matmul(probs, v).transpose(1, 2)
+
+
+def _fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           gen: Optional[torch.Generator]) -> bool:
+    """Whether a layer's attention goes through the fused kernel: bf16 on a
+    card, a head dim it takes, no dropout generator, and no gradient through
+    q, k or v (the kernel has no backward)."""
+    return (q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] in _KERNEL_HEAD_DIMS
+            and gen is None and not any(t.requires_grad for t in (q, k, v)))
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    attention_mask: torch.Tensor) -> torch.Tensor:
+    """`ops/attention.py::attention` (global) over q, k, v [B, L, H, hd] and
+    the key mask [B, L], in launches of at most 65 535 // H docs (5 461 at
+    12 heads): one launch for any batch up to that, the docs of a larger
+    one split between launches and the contexts joined in order."""
+    B, H = q.shape[0], q.shape[2]
+    step = _KERNEL_MAX_BH // H
+    if B <= step:
+        return attention(q, k, v, attention_mask)
+    return torch.cat([attention(q[i:i + step], k[i:i + step], v[i:i + step],
+                                attention_mask[i:i + step]) for i in range(0, B, step)])
+
+
+def attention_counts() -> Dict[str, int]:
+    """This process's attention layer calls so far: the fused global
+    kernel's launches (BERT's and ModernBERT's) and BERT's plain chains
+    (`cli.evaluate_beir` logs them beside the head's launch counts)."""
+    c = tracing.counters()
+    return {k: c.get(name, 0) for k, name in _ATTN_COUNTERS.items()}
+
+
+def reset_attention_counts() -> None:
+    """Set attention_counts() back to 0."""
+    tracing.reset(_ATTN_COUNTERS.values())
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -178,22 +256,21 @@ class Attention(nn.Module):
         self.query, self.key, self.value, self.output = (Dense(d, d) for _ in range(4))
         self.layer_norm = LayerNorm(d, cfg.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, L, D] -> the layer's attention block, [B, L, D]: the fused
+        kernel for inference on a card (DistilBERT's and BERT's ingest, the
+        teachers, serving), the plain chain otherwise (`_fused`)."""
         cfg, cd = self.cfg, self.cfg.compute_dtype
         B, L, D = x.shape
         H, hd = cfg.num_attention_heads, cfg.head_dim
-
-        def heads(p: Dense) -> torch.Tensor:  # [B, H, L, hd]
-            return p(x, cd).view(B, L, H, hd).transpose(1, 2)
-
-        q, k, v = heads(self.query), heads(self.key), heads(self.value)
-        # fp32 logits from exact products of the compute-dtype values
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
-        probs = torch.softmax(logits + mask_bias, dim=-1).to(cd)
-        probs = _dropout(probs, cfg.attention_probs_dropout_prob, gen)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, D)
-        out = _dropout(self.output(ctx, cd), cfg.hidden_dropout_prob, gen)
+        # [B, L, H, hd] views of the projections: the kernel takes them as they are
+        q, k, v = (p(x, cd).view(B, L, H, hd) for p in (self.query, self.key, self.value))
+        if _fused(q, k, v, gen):
+            ctx = fused_attention(q, k, v, attention_mask)
+        else:
+            ctx = attention_chain(q, k, v, attention_mask, cfg.attention_probs_dropout_prob, gen)
+        out = _dropout(self.output(ctx.reshape(B, L, D), cd), cfg.hidden_dropout_prob, gen)
         return self.layer_norm(x + out)
 
 
@@ -218,10 +295,10 @@ class Layer(nn.Module):
         self.attention = Attention(cfg)
         self.ffn = FeedForward(cfg)
 
-    def forward(self, x: torch.Tensor, mask_bias: torch.Tensor,
+    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor,
                 dropout_key: Optional[Sequence[int]] = None, stream: int = 0) -> torch.Tensor:
         gen = None if dropout_key is None else dropout_generator(dropout_key, stream, x.device)
-        return self.ffn(self.attention(x, mask_bias, gen), gen)
+        return self.ffn(self.attention(x, attention_mask, gen), gen)
 
 
 class Embeddings(nn.Module):
@@ -282,18 +359,14 @@ class BertForMaskedLM(nn.Module):
         if dropout_key is not None:
             x = _dropout(x, cfg.hidden_dropout_prob,
                          dropout_generator(dropout_key, 0, x.device))
-        # additive attention bias: 0 where attended, large-negative where masked
-        mask_bias = torch.where(
-            attention_mask[:, None, None, :] > 0, 0.0, torch.finfo(torch.float32).min
-        ).to(torch.float32)
         for i, layer in enumerate(self.layers):
             if cfg.remat and torch.is_grad_enabled():
                 # the layer's dropout generator is made inside the recomputed
                 # function, so the replay draws the same masks
-                x = checkpoint(layer, x, mask_bias, dropout_key, i + 1,
+                x = checkpoint(layer, x, attention_mask, dropout_key, i + 1,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, mask_bias, dropout_key, i + 1)
+                x = layer(x, attention_mask, dropout_key, i + 1)
         return x
 
     def decoder_weight(self) -> torch.Tensor:

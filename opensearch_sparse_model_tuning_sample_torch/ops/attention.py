@@ -1,5 +1,8 @@
 """Fused multi-head attention of one encoder layer, global or windowed, with
-key padding from a mask: the attention core of `models/modernbert.py`.
+key padding from a mask: the attention core of `models/modernbert.py`, and
+of `models/bert.py` (BERT, RoBERTa, DistilBERT) for inference on a card
+(global only: ingest, the teachers, serving; training keeps BERT's plain
+chain, as the kernel has no backward and no dropout).
 
     ctx[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h] / sqrt(hd) + M[b, i, j]) v[b, j, h]
 

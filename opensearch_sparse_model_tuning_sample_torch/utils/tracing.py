@@ -18,7 +18,8 @@ launches, collective calls, postings builds, encoder positions and
 tokens, the ingest batches run at each length as `encoder.batch_len.<L>`,
 the ingest chunks resolved through their own event as
 `encoder.copy_out.async` and, of those, the ones still being copied when
-resolved as `encoder.copy_out.waited`);
+resolved as `encoder.copy_out.waited`, BERT's attention layer calls that
+took the plain chain and not the fused kernel as `encoder.attn.plain_chain`);
 `counters()` returns them all, `reset()` sets them back.
 """
 

@@ -129,3 +129,89 @@ def test_hf_import_names_missing_keys(tiny_model, tmp_path):
     cfg = thf.config_from_hf_json(os.path.join(ckpt, "config.json"))
     with pytest.raises(thf.UnsupportedArchitecture, match="layer.1.output.dense"):
         thf.params_from_state_dict(sd, cfg)
+
+
+def _bert_qkv(B, L, H, hd, dtype, seed):
+    """q, k, v [B, L, H, hd] as BERT's projections give them (views of one
+    [B, L, H·hd] product each) and a key mask of rows of other live
+    lengths: a full row, padded rows and an all-padding row."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, L, H * hd, generator=g).to(dtype).view(B, L, H, hd)
+               for _ in range(3))
+    lens = torch.tensor([L, L - 5, L // 2, 7, 1, 0][:B])
+    mask = (torch.arange(L)[None, :] < lens[:, None]).to(torch.int64)
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,H,L", [(64, 12, 80), (16, 2, 70)])
+def test_plain_chain_equals_the_fused_kernels_plain_version(dtype, hd, H, L):
+    """BERT's plain attention chain is the function the fused kernel
+    computes (`ops.attention.attention_reference`, its plain version), at
+    BERT's head dims, over rows of other live lengths with key padding
+    (an all-padding row too): in float32 to float32 rounding, in bf16
+    within one bf16 rounding of the context's scale."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+
+    q, k, v, mask = _bert_qkv(6, L, H, hd, dtype, seed=hd + L)
+    got = tbert.attention_chain(q, k, v, mask)
+    want = at.attention_reference(q, k, v, mask)
+    assert got.shape == want.shape == q.shape and got.dtype == want.dtype == dtype
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    else:
+        scale = want.abs().amax(dim=(-2, -1), keepdim=True)
+        assert bool(((got - want).abs() <= 2**-8 * scale).all()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("case", ["inference", "dropout", "autograd"])
+def test_bert_attention_takes_the_plain_chain_off_the_card(case):
+    """On the CPU, in training with dropout, and with autograd on, every
+    layer's attention takes the plain chain (`encoder.attn.plain_chain`
+    counts one a layer) and the fused kernel neither launches nor runs its
+    plain version: the kernel serves inference on a card only."""
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    cfg = tbert.config_from_preset("tiny", vocab_size=1000)
+    model = tbert.from_state_dict(cfg, tbert.init_state_dict(cfg, seed=0), torch.device("cpu"))
+    ids = torch.randint(5, 1000, (3, 24), generator=torch.Generator().manual_seed(1))
+    mask = (torch.arange(24)[None, :] < torch.tensor([24, 9, 2])[:, None]).long()
+    names = ["encoder.attn.plain_chain", "attn.launches.attention_global_kernel",
+             "attn.plain_calls.attention_reference", "encoder.attn.pairs.global"]
+    tracing.reset(names)
+    if case == "inference":
+        with torch.inference_mode():
+            h = model.encode_hidden(ids, mask)
+    elif case == "dropout":
+        with torch.no_grad():
+            h = model.encode_hidden(ids, mask, dropout_key=(0, 1))
+    else:
+        h = model.encode_hidden(ids, mask)
+        assert h.requires_grad
+    c = tracing.counters()
+    assert [c.get(n, 0) for n in names] == [cfg.num_hidden_layers, 0, 0, 0]
+
+
+def test_fused_attention_splits_a_batch_over_the_kernels_grid():
+    """`fused_attention` covers a batch of more (doc, head) pairs than one
+    launch of the kernel's grid takes (65 535) in launches of at most
+    65 535 // H docs, and joins their contexts in order: at 8 192 heads,
+    16 docs take launches of 7, 7 and 2, and equal one call over the whole
+    batch (on the CPU each launch is the plain version, counted once a
+    call), with the pair counter the same as one call's."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    q, k, v, mask = _bert_qkv(6, 4, 8192, 16, torch.float32, seed=3)
+    q, k, v = (torch.cat([t, t.flip(0), t[:4]]) for t in (q, k, v))  # 16 docs
+    mask = torch.cat([mask, mask.flip(0), mask[:4]])
+    names = ["attn.plain_calls.attention_reference", "encoder.attn.pairs.global"]
+    tracing.reset(names)
+    got = tbert.fused_attention(q, k, v, mask)
+    split = [tracing.counters().get(n, 0) for n in names]
+    tracing.reset(names)
+    want = at.attention_reference(q, k, v, mask)
+    assert split == [3, at.computed_pairs(16, 4, 0)]
+    assert got.shape == want.shape == q.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)

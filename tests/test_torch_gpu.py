@@ -1119,3 +1119,148 @@ def test_tiny_modernbert_on_the_card_matches_the_cpu(cuda):
             reps.append(tse.encode_doc(model, ids.to(dev), mask.to(dev)).cpu())
     scale = reps[1].abs().amax(1, keepdim=True)
     assert bool(((reps[0] - reps[1]).abs() <= 2e-2 * scale).all())
+
+
+# ---- BERT's attention through the fused kernel (models/bert.py) ----------
+
+_BERT_ATTN = ("attn.launches.attention_global_kernel", "encoder.attn.plain_chain")
+
+
+def _bert_attn_counts():
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    c = tracing.counters()
+    return [c.get(n, 0) for n in _BERT_ATTN]
+
+
+def _row_gaps(got, ref, live):
+    """Per live position, |got - ref| / |ref| over the hidden axis."""
+    g, r = got[live].float(), ref[live].float()
+    return (g - r).norm(dim=-1) / r.norm(dim=-1)
+
+
+@pytest.mark.parametrize("L", [128, 192, 320, 512])
+def test_distilbert_inference_on_the_card_takes_the_fused_kernel(cuda, L):
+    """A DistilBERT-width BertForMaskedLM on the card under inference_mode at
+    a sorted chunk's batch shape [50, L] (live lengths from L / 2 to L, one
+    row full) launches the fused kernel once a layer and takes no plain
+    chain; the same model with grad on (no dropout) takes the plain chain
+    in every layer and launches nothing. The pooled reps of the two agree
+    within the card's encoder tolerance (2e-2 of each row's largest, as the
+    teachers' and ModernBERT's card tests hold them), and the fused path
+    drops no precision: against the same weights computing in float32, its
+    hidden states are as close as the plain chain's, per live position
+    (the mean relative gap within 5 % of the plain chain's, the worst within
+    25 %). Two bf16 paths that round in other places each sit about 0.9 %
+    from float32 per position here, with single values up to 2 % of the
+    largest |h| apart, so no tighter bound on their difference is sound."""
+    import dataclasses
+
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+
+    cfg = tbert.config_from_preset("distill", model_type="distilbert", use_token_type=False,
+                                   type_vocab_size=1)
+    sd = tbert.init_state_dict(cfg, seed=21)
+    model = tbert.from_state_dict(cfg, sd, cuda)
+    fp32 = tbert.from_state_dict(dataclasses.replace(cfg, compute_dtype=torch.float32), sd, cuda)
+    g = torch.Generator().manual_seed(L)
+    ids = torch.randint(1000, cfg.vocab_size, (50, L), generator=g)
+    lens = torch.randint(L // 2, L + 1, (50,), generator=g)
+    lens[0] = L
+    mask = (torch.arange(L)[None, :] < lens[:, None]).long()
+    ids, mask = ids.to(cuda), mask.to(cuda)
+    live = mask.bool()
+    before = _bert_attn_counts()
+    with torch.inference_mode():
+        fused = model.encode_hidden(ids, mask)
+        fused_rep = model.mlm_maxpool(fused, mask)
+    torch.cuda.synchronize()
+    mid = _bert_attn_counts()
+    assert [a - b for a, b in zip(mid, before)] == [cfg.num_hidden_layers, 0]
+    plain = model.encode_hidden(ids, mask)
+    assert plain.requires_grad
+    assert [a - b for a, b in zip(_bert_attn_counts(), mid)] == [0, cfg.num_hidden_layers]
+    plain = plain.detach()
+    with torch.inference_mode():
+        plain_rep = model.mlm_maxpool(plain, mask)
+        exact = fp32.encode_hidden(ids, mask)
+    scale = plain_rep.abs().amax(1, keepdim=True)
+    assert bool(((fused_rep - plain_rep).abs() <= 2e-2 * scale).all())
+    f, p = _row_gaps(fused, exact, live), _row_gaps(plain, exact, live)
+    assert float(f.mean()) <= 1.05 * float(p.mean()), (float(f.mean()), float(p.mean()))
+    assert float(f.max()) <= 1.25 * float(p.max()), (float(f.max()), float(p.max()))
+
+
+def test_training_step_on_the_card_launches_no_attention_kernel(cuda, tmp_path):
+    """A train step of the tiny model on the card (dropout on, autograd)
+    takes BERT's plain chain in every layer of every encoder call and
+    launches no attention kernel: the kernel has no backward."""
+    from opensearch_sparse_model_tuning_sample_torch.core import config
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.train.trainer import Trainer
+
+    ma, da, ta = config.parse_config({
+        "arch": "tiny", "loss_types": ["infonce"], "use_in_batch_negatives": True,
+        "learning_rate": 1e-3, "max_steps": 1, "warmup_steps": 0, "save_strategy": "no",
+        "output_dir": str(tmp_path / "out"), "device": "cuda:0"})
+    rng = np.random.default_rng(0)
+    batch = {"q_input_ids": rng.integers(1000, 5000, (4, 8)),
+             "q_attention_mask": np.ones((4, 8), np.int64),
+             "d_input_ids": rng.integers(1000, 5000, (8, 16)),
+             "d_attention_mask": np.ones((8, 16), np.int64)}
+    model = tse.from_model_args(ma, seed=0, device=cuda)
+    trainer = Trainer(model, ma, da, ta)
+    before = _bert_attn_counts()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    launched, plain = (a - b for a, b in zip(_bert_attn_counts(), before))
+    layers = model.cfg.num_hidden_layers
+    assert launched == 0 and plain > 0 and plain % layers == 0, (launched, plain)
+
+
+def test_bert_attention_over_the_kernels_grid_splits_its_launches(cuda):
+    """A batch of more (doc, head) pairs than one launch of the kernel's
+    grid takes (65 535: 5 462 docs at 12 heads) still takes the fused
+    kernel, in launches of at most 65 535 // H docs: at [5 468, 32] two
+    launches a layer and no plain chain. At the attention core the joined
+    context equals BERT's plain chain on the live rows, the second launch's
+    docs too (each (query, head) row within 2^-6 of its own scale, the mean
+    within 2^-7, as the kernel's own test holds it). Through a
+    DistilBERT-width model under inference_mode, the first and the last 50
+    docs' pooled reps equal those docs encoded in a batch of their own (one
+    launch a layer) within 2e-2 of each row's largest."""
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    B, L, H = 5468, 32, 12
+    q, k, v, mask = _attn_inputs(B, L, H, 64, 65535, cuda)
+    tracing.reset(list(_BERT_ATTN))
+    got = tbert.fused_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert _bert_attn_counts() == [2, 0]
+    ref = tbert.attention_chain(q, k, v, mask)
+    live = mask.bool()
+    for docs in (slice(0, B), slice(65535 // H, B)):
+        g, r = got[docs].float()[live[docs]], ref[docs].float()[live[docs]]
+        rel = (g - r).norm(dim=-1) / r.norm(dim=-1)
+        assert float(rel.max()) <= 2 ** -6, float(rel.max())
+        assert float(rel.mean()) <= 2 ** -7, float(rel.mean())
+    del q, k, v, got, ref
+
+    cfg = tbert.config_from_preset("distill", model_type="distilbert", use_token_type=False,
+                                   type_vocab_size=1)
+    model = tbert.from_state_dict(cfg, tbert.init_state_dict(cfg, seed=21), cuda)
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(1000, cfg.vocab_size, (B, L), generator=g).to(cuda)
+    lens = torch.randint(L // 2, L + 1, (B,), generator=g)
+    mask = (torch.arange(L)[None, :] < lens[:, None]).long().to(cuda)
+    tracing.reset(list(_BERT_ATTN))
+    with torch.inference_mode():
+        reps = model.mlm_maxpool(model.encode_hidden(ids, mask), mask)
+        torch.cuda.synchronize()
+        assert _bert_attn_counts() == [2 * cfg.num_hidden_layers, 0]
+        for docs in (slice(0, 50), slice(B - 50, B)):
+            alone = model.mlm_maxpool(model.encode_hidden(ids[docs], mask[docs]), mask[docs])
+            scale = alone.abs().amax(1, keepdim=True)
+            assert bool(((reps[docs] - alone).abs() <= 2e-2 * scale).all())
+    assert _bert_attn_counts() == [4 * cfg.num_hidden_layers, 0]
