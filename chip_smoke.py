@@ -59,7 +59,13 @@ preset, with its launch and pair counters; `python3 chip_smoke.py
 through the same fused kernel at distil-ingest's batch shapes and the main
 path's mini shape against BERT's plain chain and SDPA, and ingests 300
 docs through the `distill` preset, every layer launching the kernel;
-`python3 chip_smoke.py --bert-attention-only` runs it alone. Every
+`python3 chip_smoke.py --bert-attention-only` runs it alone. Step 3d
+times Moonlight-16B-A3B's kernels at its cell's shapes (the grouped
+expert GEMMs, the combine, causal attention at q·k 192 and v 128, the
+head at D 2 048 and V 163 840), each against its bound, its plain version
+and a library call, and ingests 32 docs through `build_model`'s `moonlight-16b-a3b`
+preset with its launch counters; `python3 chip_smoke.py
+--moonlight-only` runs it alone. Every
 inference path of the main run (the eval, serving, the kd teachers, the
 eval ranks, the mesh eval) launches that kernel once a layer of each
 encoder forward and takes no plain chain; training takes the plain chain
@@ -3468,6 +3474,243 @@ def mesh_only(dev, card, mesh_corpus, t_start):
         "count": torch.cuda.device_count()}}))
 
 
+# the Moonlight cell's traffic: doc lengths in words, one wordpiece a word
+SCIFACT_ML = os.path.join(HERE, "lsr_bench", "traffic", "scifact-384x64.json")
+
+
+def moonlight_batch_lens(seed):
+    """One full batch of the Moonlight cell's docs: 64 lengths drawn as its
+    traffic gives them (lognormal words, min and max, [CLS] and [SEP], cut
+    at max_length), sorted; the batch's L is the smallest multiple of 64
+    holding the longest."""
+    with open(SCIFACT_ML) as f:
+        t = json.load(f)
+    dw, cap = t["doc_words"], int(t["max_length"])
+    rng = np.random.default_rng(seed)
+    words = np.clip(np.round(rng.lognormal(np.log(dw["median"]), dw["sigma"],
+                                           int(t["batch_size"]))), dw["min"], dw["max"])
+    lens = np.sort(np.minimum(words + 2, cap).astype(np.int64))
+    return int(-(-lens[-1] // 64) * 64), lens
+
+
+def _rel_rows(got, ref):
+    """Per row, the relative L2 gap of got to ref."""
+    g, r = got.float(), ref.float()
+    return (g - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-6)
+
+
+def moonlight_rows(dev):
+    """Moonlight's new kernels at the cell's shapes, each against its plain
+    version for its answer and its time, its bound and one library call:
+    the grouped expert GEMMs (gate-up with SiLU·mul, down) over one full
+    batch's rows as the router splits them, against the per-expert loop
+    and `torch._grouped_mm` (where this torch has it); the combine of those
+    rows into the fp32 stream, against the slot loop (within 1e-5 a row,
+    the same bits on a second launch) and `index_select` with a weighted
+    sum, bound by its bytes; the causal attention
+    at [64, L, 16, 192 | 128] against the plain path and SDPA with a
+    boolean mask; the head at [64, L, 2 048, 163 840] (the streamed w tile)
+    against the plain version on a slice of the vocab and cuBLAS's bf16
+    logits with a masked max."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+    from opensearch_sparse_model_tuning_sample_torch.ops import moe
+    from opensearch_sparse_model_tuning_sample_torch.ops.maxpool import (maxpool_head,
+                                                                          maxpool_head_reference)
+
+    L, lens = moonlight_batch_lens(22)
+    B, D, I, E, k, H, V = len(lens), 2048, 1408, 64, 6, 16, 163840
+    n = torch.as_tensor(lens, device=dev)
+    mask = (torch.arange(L, device=dev)[None, :] < n[:, None]).to(torch.int32)
+    T = int(n.sum())
+    g = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    # the experts: the rows of the batch's real tokens, routed by a random router
+    u = torch.randn((T, D), generator=g, device=dev)
+    chosen, w = moe.route(u, torch.randn((E, D), generator=g, device=dev) * 0.02,
+                          torch.randn(E, generator=g, device=dev) * 0.02, k, 2.446)
+    token, offsets, pos = moe.permute(chosen, E)
+    x = u.to(torch.bfloat16).index_select(0, token)
+    gate, up = ((torch.randn((E, I, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                for _ in range(2))
+    down = (torch.randn((E, D, I), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    R = x.shape[0]
+    h = moe.expert_gate_up(x, gate, up, offsets)
+    y = moe.expert_down(h, down, offsets)
+    torch.cuda.synchronize()
+    for name, got, plain, f, p, ops, nbytes in (
+            ("moe_gate_up", h, lambda: moe.expert_gate_up_reference(x, gate, up, offsets),
+             lambda: moe.expert_gate_up(x, gate, up, offsets), (x, gate, up), 2 * R * D * 2 * I,
+             E * 2 * I * D * 2 + R * (D + I) * 2),
+            ("moe_down", y, lambda: moe.expert_down_reference(h, down, offsets),
+             lambda: moe.expert_down(h, down, offsets), (h, down), 2 * R * I * D,
+             E * D * I * 2 + R * (I + D) * 2)):
+        ref = plain()
+        rel = _rel_rows(got, ref)
+        check(float(rel.max()) <= 2 ** -7, f"{name}: row gap {float(rel.max())}")
+        ms = cuda_ms(f, 5)
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        lib_ms = None
+        if hasattr(torch, "_grouped_mm"):
+            try:  # rows [R, K] against [E, K, N], groups ending at offs
+                a, wt = p[0], (torch.cat([p[1], p[2]], 1) if name == "moe_gate_up" else p[1])
+                wt = wt.transpose(1, 2)
+                ends = offsets[1:].contiguous()
+                lib_ms = cuda_ms(lambda: torch._grouped_mm(a, wt, offs=ends), 5)
+            except (RuntimeError, TypeError) as e:
+                lib_ms = f"torch._grouped_mm refused: {str(e).splitlines()[0][:120]}"
+        bound = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        rows.append({"kernel": name + "_kernel", "shape": [R, D, I, E], "ms": ms,
+                     "bound_ms": bound, "share_of_bound": bound / ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "row_gap_worst": float(rel.max())})
+        print(f"moonlight kernels: {json.dumps(rows[-1])}", flush=True)
+        del ref
+    # the combine: the down rows above back into a random fp32 stream of the
+    # batch's tokens, with a random shared-expert output
+    x0 = torch.randn((T, D), generator=g, device=dev)
+    shared = torch.randn((T, D), generator=g, device=dev).to(torch.bfloat16)
+    got = moe.combine(x0.clone(), y, shared, pos, w)
+    ref = moe.combine_reference(x0.clone(), y, shared, pos, w)
+    rel = _rel_rows(got, ref)
+    check(float(rel.max()) <= 1e-5, f"moe_combine: row gap {float(rel.max())}")
+    check(torch.equal(moe.combine(x0.clone(), y, shared, pos, w), got),
+          "moe_combine: the same bits on a second launch")
+    xs = x0.clone()
+    ms = cuda_ms(lambda: moe.combine(xs, y, shared, pos, w), 20)
+    plain_ms = cuda_ms(lambda: moe.combine_reference(xs, y, shared, pos, w), 5)
+    flat = pos.reshape(-1)
+
+    def library():  # gather the k rows, weight them, sum, add
+        rows_k = y.index_select(0, flat).view(T, k, D).float()
+        xs.add_((rows_k * w[:, :, None]).sum(1) + shared.float())
+
+    lib_ms = cuda_ms(library, 5)
+    nbytes = T * k * D * 2 + T * D * 2 + 2 * T * D * 4 + T * k * (8 + 4)
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    rows.append({"kernel": "moe_combine_kernel", "shape": [T, D, k], "ms": ms, "bound_ms": bound,
+                 "share_of_bound": bound / ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "row_gap_worst": float(rel.max())})
+    print(f"moonlight kernels: {json.dumps(rows[-1])}", flush=True)
+    del x0, xs, shared, got, ref
+    del u, x, gate, up, down, h, y
+    # causal attention at MLA's dims
+    q, kk = (torch.randn((B, L, H, 192), generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    v = torch.randn((B, L, H, 256), generator=g, device=dev).to(torch.bfloat16)[..., 128:]
+    got = at.attention(q, kk, v, mask, causal=True)
+    ref = at.attention_reference(q, kk, v, mask, causal=True)
+    live = mask.bool()
+    rel = _rel_rows(got[live], ref[live])
+    check(float(rel.max()) <= ATTN_ROW_TOL and float(rel.mean()) <= ATTN_MEAN_TOL,
+          f"causal attention: row gap worst {float(rel.max())}, mean {float(rel.mean())}")
+    ms = cuda_ms(lambda: at.attention(q, kk, v, mask, causal=True), 5)
+    plain_ms = cuda_ms(lambda: at.attention_reference(q, kk, v, mask, causal=True), 2)
+    allowed = live[:, None, None, :] & torch.ones((L, L), dtype=torch.bool, device=dev).tril()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+    try:
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=allowed), 5)
+    except RuntimeError as e:
+        lib_ms = f"SDPA refused: {str(e).splitlines()[0][:120]}"
+    nf = n.double()
+    bound = float(torch.maximum(nf * (nf + 1) / 2 * H * 2 * 320 / PEAK_BF16_FLOPS,
+                                nf * H * 640 * 2 / PEAK_BYTES_PER_S).sum()) * 1e3
+    rows.append({"kernel": "attention_causal_kernel", "shape": [B, L, H, 192, 128], "ms": ms,
+                 "bound_ms": bound, "share_of_bound": bound / ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "row_gap_worst": float(rel.max())})
+    print(f"moonlight kernels: {json.dumps(rows[-1])}", flush=True)
+    del q, kk, v, ref, allowed, qt, kt, vt
+    # the head at D 2 048 over the whole vocab: the plain version on a slice
+    hh = torch.randn((B, L, D), generator=g, device=dev).to(torch.bfloat16)
+    wl = (torch.randn((V, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    bias = torch.zeros(V, device=dev)
+    got = maxpool_head(hh, mask, wl, bias)
+    cols = torch.arange(0, V, 80, device=dev)
+    t0 = time.perf_counter()
+    ref = maxpool_head_reference(hh, mask, wl[cols].contiguous(), bias[cols].contiguous())
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 * V / len(cols)
+    err = (got[:, cols] - ref).abs()
+    check(bool((err <= 1e-3 * ref.abs().clamp_min(1.0)).all()), f"head D 2048: {float(err.max())}")
+    ms = cuda_ms(lambda: maxpool_head(hh, mask, wl, bias), 3)
+
+    def library():
+        m = mask.to(torch.bfloat16)[:, :, None]
+        for b0 in range(0, B, 8):
+            (torch.matmul(hh[b0:b0 + 8], wl.t()) * m[b0:b0 + 8]).amax(1)
+
+    lib_ms = cuda_ms(library, 2)
+    unmasked = int(n.sum())
+    bound = max(2 * unmasked * D * V / PEAK_BF16_FLOPS,
+                (V * D * 2 + B * L * D * 2 + B * V * 4) / PEAK_BYTES_PER_S) * 1e3
+    rows.append({"kernel": "maxpool_head_stream_kernel", "shape": [B, L, D, V], "ms": ms,
+                 "bound_ms": bound, "share_of_bound": bound / ms,
+                 "plain_ms_scaled_from_slice": plain_ms, "library_ms": lib_ms,
+                 "worst_gap": float(err.max())})
+    print(f"moonlight kernels: {json.dumps(rows[-1])}", flush=True)
+    del hh, wl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moonlight(dev):
+    """Moonlight-16B-A3B through the cell's path (step 3d): the kernel rows
+    above, then `build_model`'s `moonlight-16b-a3b` preset on the card (32
+    GB, drawn a tensor at a time) and `eval/beir.py::ingest` of 32 of the
+    cell's docs (batch 16, max_length 512). Every batch launches the causal
+    attention kernel once a layer, the two grouped GEMMs and the combine
+    once an expert layer and the head kernel once; no plain version runs;
+    the rows counter adds k rows a position; every stored row is finite and
+    holds terms."""
+    from opensearch_sparse_model_tuning_sample_torch.eval.beir import ingest
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    t0 = time.time()
+    rows = moonlight_rows(dev)
+    model = se.build_model(arch="moonlight-16b-a3b", seed=0, device=dev)
+    cfg = model.cfg
+    held = torch.cuda.memory_allocated(dev)
+    words = [w for w in model.tokenizer.vocab if w.isalpha() and w.isascii() and len(w) > 2]
+    rng = np.random.default_rng(23)
+    lens = np.concatenate([moonlight_batch_lens(24)[1][:16], moonlight_batch_lens(25)[1][:16]]) - 2
+    corpus = [(f"d{i}", " ".join(rng.choice(words, int(x)))) for i, x in enumerate(lens)]
+    tracing.reset()
+    out = os.path.join(OUT, "moonlight")
+    os.makedirs(out, exist_ok=True)
+    t1 = time.time()
+    index = ingest(corpus, model, out, "moonlight", max_length=512, batch_size=16,
+                   index_cfg=IndexConfig(engine="sparse", l_max=256))
+    torch.cuda.synchronize()
+    ingest_s = time.time() - t1
+    c = tracing.counters()
+    nb = sum(v for k, v in c.items() if k.startswith("encoder.batch_len."))
+    moe_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    want = {"attn.launches.attention_causal_kernel": cfg.num_hidden_layers * nb,
+            "moe.launches.moe_gate_up_kernel": moe_layers * nb,
+            "moe.launches.moe_down_kernel": moe_layers * nb,
+            "moe.launches.moe_combine_kernel": moe_layers * nb,
+            "head.launches.maxpool_head": nb,
+            "encoder.moe.rows": moe_layers * cfg.num_experts_per_tok * c.get("encoder.positions")}
+    for key, val in want.items():
+        check(c.get(key) == val, f"moonlight ingest: {key} {c.get(key)}, {val} expected")
+    plains = {key: val for key, val in c.items() if ".plain_calls." in key and val}
+    check(not plains, f"moonlight ingest: no plain version ({plains})")
+    w, _ = index._stored_rows()
+    w = w[:index.n_docs].float()
+    check(index.n_docs == len(corpus) and bool(torch.isfinite(w).all())
+          and bool(((w > 0).sum(1) > 0).all()), "moonlight ingest: every row finite, with terms")
+    res = {"kernels": rows, "held_bytes": held, "batches": nb, "docs": len(corpus),
+           "ingest_s": ingest_s, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "counters": {key: c.get(key) for key in want}, "seconds": time.time() - t0}
+    del model, index
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3476,6 +3719,7 @@ def main():
     only_mesh = sys.argv[1:] == ["--mesh-only"]
     only_modernbert = sys.argv[1:] == ["--modernbert-only"]
     only_bert_attention = sys.argv[1:] == ["--bert-attention-only"]
+    only_moonlight = sys.argv[1:] == ["--moonlight-only"]
     sys.path.insert(0, HERE)
     from opensearch_sparse_model_tuning_sample_torch.cli.evaluate_beir import prepare_model_args
     from opensearch_sparse_model_tuning_sample_torch.core.config import parse_config
@@ -3495,10 +3739,12 @@ def main():
     ).stdout.strip().splitlines()
     card = cards[0]
     dev = resolve_device("cuda")
-    if only_modernbert or only_bert_attention:
+    if only_modernbert or only_bert_attention or only_moonlight:
         print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
         if only_modernbert:
             print("modernbert: " + json.dumps(phase_modernbert(dev)), flush=True)
+        elif only_moonlight:
+            print("moonlight: " + json.dumps(phase_moonlight(dev)), flush=True)
         else:
             print("bert attention: " + json.dumps(phase_bert_attention(dev)), flush=True)
         print(card)
@@ -3556,6 +3802,9 @@ def main():
     # then an ingest with its launch and plain-chain counters
     bert_attn = phase_bert_attention(dev)
     print("bert attention: " + json.dumps(bert_attn), flush=True)
+    # 3d. Moonlight-16B-A3B: its expert GEMMs, causal attention and the head
+    # at D 2 048 at the cell's shapes, then its ingest path
+    print("moonlight: " + json.dumps(phase_moonlight(dev)), flush=True)
     # the training forward's ablations at the train step's L = 64 bucket, the
     # longest, L = 512 (eight chunks a doc), and D = 768 (2-stage rings); its
     # main-path batch later

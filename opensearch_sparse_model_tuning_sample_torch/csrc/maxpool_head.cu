@@ -86,6 +86,14 @@ constexpr int kThreads = kConsumerWGs * 128 + kConsumerWGs * 32;  // + a produce
 constexpr int kMaxStages = 8;
 constexpr int kMaxSmem = 232448;              // dynamic shared memory a block may use
 constexpr int kIngestMaxMT = 4;               // the ingest kernel's tile: at most 256 rows
+constexpr int kStreamMT = 2;                  // the streamed kernel's tile: 128 rows
+
+// the bytes of one ring stage: an h box, and in the streamed kernel the
+// w tile's box of the same K columns beside it
+template <int MT, bool kStream>
+__host__ __device__ constexpr uint32_t stage_bytes() {
+  return kBoxBytes + (kStream ? 64 * MT * kBoxK * 2 : 0);
+}
 
 struct Plan {
   int mt;       // m64 tiles per warpgroup (TV = 64 * mt); 0 if D does not fit
@@ -108,6 +116,20 @@ Plan make_plan(int D, int max_mt = 4) {
     p.smem = fixed + p.stages * per_stage;
     return p;
   }
+  return p;
+}
+
+// Past the widest resident tile (D above about 1 536) the w tile streams
+// through the rings beside h: each stage holds an h box and the [TV, 64]
+// box of w for the same K columns, so shared memory no longer bounds D.
+Plan make_stream_plan(int D) {
+  Plan p{kStreamMT, (D + kBoxK - 1) / kBoxK, 0, 0};
+  const size_t per_stage =
+      (size_t)kConsumerWGs * (stage_bytes<kStreamMT, true>() + 16);  // boxes + full/empty
+  const size_t fixed = 1024 /* alignment slack */ + 16 /* turn barriers */;
+  const size_t stages = ((size_t)kMaxSmem - fixed) / per_stage;
+  p.stages = stages < (size_t)kMaxStages ? (int)stages : kMaxStages;
+  p.smem = fixed + p.stages * per_stage;
   return p;
 }
 
@@ -224,7 +246,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
 
 struct Smem {
   uint32_t w;      // w tile: kblocks boxes of [TV rows, 64 K], swizzled
-  uint32_t ring;   // ring p, stage s at ring + (p * stages + s) * kBoxBytes
+  uint32_t ring;   // ring p, stage s at ring + (p * stages + s) * stage_bytes
   uint32_t w_bar;  // kblocks barriers
   uint32_t full;   // 2 * stages barriers
   uint32_t empty;  // 2 * stages barriers
@@ -232,12 +254,14 @@ struct Smem {
 };
 
 // One producer warp: the h boxes of every live chunk of docs p, p + 2, ...
-// into ring p.
+// into ring p (kStream: each beside its box of the block's w tile).
+template <int MT = 1, bool kStream = false>
 __device__ __forceinline__ void produce(int p, const Smem& sm, int stages, int kblocks,
                                         const CUtensorMap* hmap, const int32_t* __restrict__ mask,
-                                        int B, int L) {
+                                        int B, int L, const CUtensorMap* wmap = nullptr) {
+  constexpr uint32_t kStage = stage_bytes<MT, kStream>();
   const int lane = threadIdx.x & 31;
-  const uint32_t ring = sm.ring + p * stages * kBoxBytes;
+  const uint32_t ring = sm.ring + p * stages * kStage;
   const uint32_t full = sm.full + p * stages * 8, empty = sm.empty + p * stages * 8;
   int s = 0, ph = 0;
   for (int b = p; b < B; b += kConsumerWGs) {
@@ -249,15 +273,18 @@ __device__ __forceinline__ void produce(int p, const Smem& sm, int stages, int k
       if (lane == 0)
         for (int kb = 0; kb < kblocks; ++kb) {
           mbar_wait(empty + s * 8, ph ^ 1);
-          mbar_expect_tx(full + s * 8, kBoxBytes);
-          tma_load_3d(ring + s * kBoxBytes, hmap, kb * kBoxK, l0, b, full + s * 8);
+          mbar_expect_tx(full + s * 8, kStage);
+          tma_load_3d(ring + s * kStage, hmap, kb * kBoxK, l0, b, full + s * 8);
+          if (kStream)
+            tma_load_2d(ring + s * kStage + kBoxBytes, wmap, kb * kBoxK, blockIdx.x * 64 * MT,
+                        full + s * 8);
           if (++s == stages) { s = 0; ph ^= 1; }
         }
       __syncwarp();
     }
   }
   // no copy into this block's shared memory may outlive the block
-  if (p == 0 && lane == 0)
+  if (!kStream && p == 0 && lane == 0)
     for (int kb = 0; kb < kblocks; ++kb) mbar_wait(sm.w_bar + kb * 8, 0);
 }
 
@@ -265,22 +292,24 @@ __device__ __forceinline__ void produce(int p, const Smem& sm, int stages, int k
 // against the chunk's 64 positions, over every K box of the consumer's
 // ring, each box handed back to the producer as soon as its products are
 // done (wait_group 1 while the next box's run). `issued()` runs once the
-// last box's products are issued; returns with all of them done.
-template <int MT, class Issued>
+// last box's products are issued; returns with all of them done. kStream:
+// the w box is the stage's, beside the h box.
+template <int MT, bool kStream = false, class Issued>
 __device__ __forceinline__ void chunk_products(float (&acc)[MT][32], const Smem& sm, uint32_t ring,
                                                uint32_t full, uint32_t empty, int stages,
                                                int kblocks, int& s, int& ph, Issued issued) {
   constexpr uint32_t kTileBytes = 64 * MT * kBoxK * 2;  // one K box of the w tile
+  constexpr uint32_t kStage = stage_bytes<MT, kStream>();
   const int lane = threadIdx.x & 31;
   int prev = 0;
   for (int kb = 0; kb < kblocks; ++kb) {
-    mbar_wait(sm.w_bar + kb * 8, 0);
+    if (!kStream) mbar_wait(sm.w_bar + kb * 8, 0);
     mbar_wait(full + s * 8, ph);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) fence_acc(acc[mt]);
     wgmma_fence();
-    const uint32_t a_box = sm.w + kb * kTileBytes;
-    const uint32_t b_box = ring + s * kBoxBytes;
+    const uint32_t b_box = ring + s * kStage;
+    const uint32_t a_box = kStream ? b_box + kBoxBytes : sm.w + kb * kTileBytes;
 #pragma unroll
     for (int kk = 0; kk < kBoxK / 16; ++kk) {
       const uint64_t bd = smem_desc(b_box + kk * 32);
@@ -308,7 +337,7 @@ __device__ __forceinline__ void chunk_products(float (&acc)[MT][32], const Smem&
 
 // One consumer warpgroup of the ingest kernel: docs wg, wg + 2, ... against
 // all TV rows.
-template <int MT>
+template <int MT, bool kStream = false>
 __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
                         const int32_t* __restrict__ mask, const float* __restrict__ bias,
                         float* __restrict__ out, int B, int L, int V) {
@@ -326,7 +355,7 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
       bias_r[mt][hh] = v < V ? bias[v] : 0.f;
     }
 
-  const uint32_t ring = sm.ring + wg * stages * kBoxBytes;
+  const uint32_t ring = sm.ring + wg * stages * stage_bytes<MT, kStream>();
   const uint32_t full = sm.full + wg * stages * 8, empty = sm.empty + wg * stages * 8;
   int s = 0, ph = 0;
   float acc[MT][32];
@@ -353,7 +382,7 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
           for (int hh = 0; hh < 2; ++hh) run[mt][hh] = fmaxf(run[mt][hh], 0.f);
         continue;
       }
-      chunk_products<MT>(acc, sm, ring, full, empty, stages, kblocks, s, ph, [] {});
+      chunk_products<MT, kStream>(acc, sm, ring, full, empty, stages, kblocks, s, ph, [] {});
 
       // accumulator register 4j + 2hh + e: vocab row warp*16 + g + 8hh of
       // each m64 tile, position l0 + 8j + 2t + e
@@ -388,16 +417,18 @@ __device__ void consume(int wg, const Smem& sm, int stages, int kblocks,
   }
 }
 
-// Shared memory carve-up and the block's w tile, loaded once by thread 0.
-template <int MT>
+// Shared memory carve-up and the block's w tile, loaded once by thread 0
+// (kStream: no resident tile; its boxes come through the rings).
+template <int MT, bool kStream = false>
 __device__ __forceinline__ Smem block_setup(unsigned char* smem_raw, const CUtensorMap* wmap,
                                             int kblocks, int stages) {
   constexpr int TV = 64 * MT;
   const uint32_t raw = smem_u32(smem_raw);
   Smem sm;
   sm.w = (raw + 1023) & ~1023u;  // the 128-byte swizzle repeats every 1024 bytes
+  if (kStream) kblocks = 0;       // no w tile and no w barriers
   sm.ring = sm.w + kblocks * TV * kBoxK * 2;
-  sm.w_bar = sm.ring + kConsumerWGs * stages * kBoxBytes;
+  sm.w_bar = sm.ring + kConsumerWGs * stages * stage_bytes<MT, kStream>();
   sm.full = sm.w_bar + kblocks * 8;
   sm.empty = sm.full + kConsumerWGs * stages * 8;
   sm.turn = sm.empty + kConsumerWGs * stages * 8;
@@ -418,6 +449,23 @@ __device__ __forceinline__ Smem block_setup(unsigned char* smem_raw, const CUten
   }
   __syncthreads();
   return sm;
+}
+
+// The ingest kernel past the widest resident tile (D 2 048: Moonlight's
+// head at V 163 840): the same block, the w tile streamed beside h.
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+maxpool_head_stream_kernel(const __grid_constant__ CUtensorMap hmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           const int32_t* __restrict__ mask, const float* __restrict__ bias,
+                           float* __restrict__ out, int B, int L, int V, int kblocks, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = block_setup<MT, true>(smem_raw, &wmap, kblocks, stages);
+  const int warp = threadIdx.x >> 5;
+  if (warp >= kConsumerWGs * 4)
+    produce<MT, true>(warp - kConsumerWGs * 4, sm, stages, kblocks, &hmap, mask, B, L, &wmap);
+  else
+    consume<MT, true>(warp >> 2, sm, stages, kblocks, mask, bias, out, B, L, V);
 }
 
 template <int MT>
@@ -700,7 +748,7 @@ bool encode(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MT, bool kArgmax>
+template <int MT, bool kArgmax, bool kStream = false>
 int launch(const CUtensorMap& hmap, const CUtensorMap& wmap, const void* mask, const void* bias,
            void* out, void* idx, int B, int L, int V, const Plan& plan, cudaStream_t stream) {
   constexpr int TV = 64 * MT;
@@ -709,7 +757,13 @@ int launch(const CUtensorMap& hmap, const CUtensorMap& wmap, const void* mask, c
   const float* bi = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
   cudaError_t err;
-  if constexpr (kArgmax) {
+  if constexpr (kStream) {
+    err = cudaFuncSetAttribute(maxpool_head_stream_kernel<MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+    if (err != cudaSuccess) return (int)err;
+    maxpool_head_stream_kernel<MT><<<grid, kThreads, plan.smem, stream>>>(
+        hmap, wmap, m, bi, o, B, L, V, plan.kblocks, plan.stages);
+  } else if constexpr (kArgmax) {
     err = cudaFuncSetAttribute(maxpool_head_argmax_kernel<MT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
     if (err != cudaSuccess) return (int)err;
@@ -732,7 +786,10 @@ int dispatch(const void* h, const void* mask, const void* w, const void* bias, v
   // TMA reads from 16-byte aligned addresses with 16-byte aligned row strides
   if (reinterpret_cast<uintptr_t>(h) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return (int)cudaErrorMisalignedAddress;
-  const Plan plan = make_plan(D, kArgmax ? 4 : kIngestMaxMT);
+  Plan plan = make_plan(D, kArgmax ? 4 : kIngestMaxMT);
+  // the ingest path streams its w tile where no resident one fits
+  const bool stream_w = !plan.mt && !kArgmax;
+  if (stream_w) plan = make_stream_plan(D);
   if (!plan.mt) return (int)cudaErrorInvalidValue;
 
   CUtensorMap hmap, wmap;
@@ -747,6 +804,9 @@ int dispatch(const void* h, const void* mask, const void* w, const void* bias, v
     return (int)cudaErrorInvalidValue;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (!kArgmax)
+    if (stream_w)
+      return launch<kStreamMT, false, true>(hmap, wmap, mask, bias, out, idx, B, L, V, plan, s);
   switch (plan.mt) {
     case 4: return launch<4, kArgmax>(hmap, wmap, mask, bias, out, idx, B, L, V, plan, s);
     case 2: return launch<2, kArgmax>(hmap, wmap, mask, bias, out, idx, B, L, V, plan, s);
@@ -765,6 +825,11 @@ int maxpool_head_max_dim() {
   while (make_plan(D + 8).mt) D += 8;
   return D;
 }
+
+// Largest hidden width the ingest kernel takes: past maxpool_head_max_dim()
+// it streams its w tile (maxpool_head_stream_kernel), whose shared memory
+// does not grow with D.
+int maxpool_head_ingest_max_dim() { return 16384; }
 
 int maxpool_head_bf16(const void* h, const void* mask, const void* w, const void* bias,
                       void* out, int B, int L, int D, int V, void* stream) {

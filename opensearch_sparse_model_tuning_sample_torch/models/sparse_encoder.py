@@ -40,7 +40,7 @@ from ..ops.activations import (
 )
 from ..utils import tracing
 from . import bert as bert_mod
-from . import modernbert
+from . import modernbert, moonlight
 from .bert import BertConfig, BertForMaskedLM
 from .tokenizer import load_idf_weights, load_tokenizer
 
@@ -50,12 +50,12 @@ logger = logging.getLogger(__name__)
 class SparseEncoderModel(nn.Module):
     """Masked-LM module + IDF vector + tokenizer (reference SparseModel).
     The module (`bert`) is a `BertForMaskedLM` of the BERT family or a
-    `ModernBertForMaskedLM`: both give `encode_hidden`, `mlm_maxpool` and
-    `decoder_weight`."""
+    `ModernBertForMaskedLM` or a `MoonlightForCausalLM`: each gives
+    `encode_hidden`, `mlm_maxpool` and `decoder_weight`."""
 
     def __init__(
         self,
-        cfg: BertConfig,  # or modernbert.ModernBertConfig
+        cfg: BertConfig,  # or modernbert.ModernBertConfig, moonlight.MoonlightConfig
         bert: BertForMaskedLM,
         idf_vector: torch.Tensor,  # [vocab_size] fp32
         tokenizer,
@@ -433,7 +433,7 @@ def build_model(
     use_l0: bool = False,
     inf_free: bool = True,
     seed: int = 0,
-    param_dtype=torch.float32,
+    param_dtype=None,
     compute_dtype=torch.bfloat16,
     device: DeviceLike = None,
     remat: bool = False,
@@ -441,9 +441,14 @@ def build_model(
     """Factory mirroring reference `get_model` (utils.py:50-68). Weights come
     from a local HF-layout checkpoint dir, else a seeded random init of an
     `arch` preset ("mini" by default; "modernbert-large" and
-    "modernbert-tiny" are ModernBERT, with their own vocab, the BERT presets
-    take the tokenizer's). Runs on the CUDA card unless `device="cpu"`;
-    raises without a card."""
+    "modernbert-tiny" are ModernBERT, "moonlight-16b-a3b" and
+    "moonlight-tiny" Moonlight, each with its own vocab, the BERT presets
+    take the tokenizer's). `param_dtype` is the parameters' dtype, float32
+    when None; a Moonlight preset holds its matrices in the compute dtype
+    and its norm scales and router in float32, draws its weights on the
+    device one tensor at a time, and raises for a `param_dtype` other than
+    None or the compute dtype. Runs on the CUDA card unless `device="cpu"`; raises without a
+    card."""
     from . import hf_import
 
     dev = resolve_device(device)
@@ -451,22 +456,29 @@ def build_model(
                                preprocess_func=preprocess_func)
     tokenizer.try_attach_native()  # C++ fast path for bulk ingest/search
 
+    arch = arch or "mini"
     if model_name_or_path and os.path.isdir(model_name_or_path):
         cfg, sd, loaded_idf = hf_import.load_checkpoint(
-            model_name_or_path, param_dtype=param_dtype, compute_dtype=compute_dtype
+            model_name_or_path, param_dtype=resolve_dtype(param_dtype),
+            compute_dtype=compute_dtype
         )
+    elif arch in moonlight.PRESETS:
+        if param_dtype is not None and resolve_dtype(param_dtype) != compute_dtype:
+            raise ValueError(f"{arch} holds its matrices in the compute dtype {compute_dtype} "
+                             f"(its norm scales and router in float32); param_dtype "
+                             f"{param_dtype} does not apply")
+        cfg = moonlight.config_from_preset(arch, compute_dtype=compute_dtype)
+        sd, loaded_idf = moonlight.init_state_dict(cfg, seed, dev), None
     else:
-        arch = arch or "mini"
         if arch in modernbert.PRESETS:
-            cfg = modernbert.config_from_preset(arch, param_dtype=param_dtype,
+            cfg = modernbert.config_from_preset(arch, param_dtype=resolve_dtype(param_dtype),
                                                 compute_dtype=compute_dtype)
         else:
             cfg = bert_mod.config_from_preset(
                 arch, vocab_size=tokenizer.vocab_size,
-                param_dtype=param_dtype, compute_dtype=compute_dtype,
+                param_dtype=resolve_dtype(param_dtype), compute_dtype=compute_dtype,
             )
-        sd = backbone_module(cfg).init_state_dict(cfg, seed)
-        loaded_idf = None
+        sd, loaded_idf = backbone_module(cfg).init_state_dict(cfg, seed), None
     # a training knob, not a checkpoint property: loaded checkpoints take it too
     # (a ModernBERT backbone does not train)
     if isinstance(cfg, BertConfig) and cfg.remat != remat:
@@ -501,8 +513,11 @@ def build_model(
 
 
 def backbone_module(cfg):
-    """The module (`models/bert.py` or `models/modernbert.py`) that builds
-    and initialises the backbone of `cfg`."""
+    """The module (`models/bert.py`, `models/modernbert.py` or
+    `models/moonlight.py`) that builds and initialises the backbone of
+    `cfg`."""
+    if isinstance(cfg, moonlight.MoonlightConfig):
+        return moonlight
     return modernbert if isinstance(cfg, modernbert.ModernBertConfig) else bert_mod
 
 

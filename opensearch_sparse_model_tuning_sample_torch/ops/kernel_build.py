@@ -26,6 +26,7 @@ SOURCES = {
     "maxpool_head": _PKG / "csrc" / "maxpool_head.cu",
     "maxpool_head_bwd": _PKG / "csrc" / "maxpool_head_bwd.cu",
     "attention": _PKG / "csrc" / "attention.cu",
+    "moe": _PKG / "csrc" / "moe.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

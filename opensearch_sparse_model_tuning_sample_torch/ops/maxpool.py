@@ -6,6 +6,11 @@
 (`csrc/maxpool_head.cu`: wgmma fed by TMA, a resident vocab tile, h streamed
 through mbarrier rings) on a CUDA tensor, and takes the plain PyTorch
 version `maxpool_head_reference` only for a tensor that lies on the CPU.
+Past the widest resident tile (D above `maxpool_head_max_dim()`, about
+1 536: Moonlight's D 2 048 at V 163 840) the ingest kernel streams its w
+tile through the rings beside h (`maxpool_head_stream_kernel`, 128 vocab
+rows a block), up to `maxpool_head_ingest_max_dim()`; the training
+kernels keep the resident tile and raise above it.
 It replaces the TPU kernel `opensearch_sparse_model_tuning_sample_tpu/ops/
 pallas_maxpool.py::maxpool_head` (`pallas_call` at line 99) with the
 production head's semantics (`models/bert.py::mlm_maxpool` there): any
@@ -255,6 +260,8 @@ def _lib():
         lib.maxpool_head_argmax_bf16.restype = i
         lib.maxpool_head_max_dim.argtypes = []
         lib.maxpool_head_max_dim.restype = i
+        lib.maxpool_head_ingest_max_dim.argtypes = []
+        lib.maxpool_head_ingest_max_dim.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -301,7 +308,7 @@ def maxpool_head(
     if _device(h) == "cpu":
         return maxpool_head_reference(h, mask, w, bias)
     lib = _lib()
-    check_kernel_args(h, mask, w, bias, lib.maxpool_head_max_dim())
+    check_kernel_args(h, mask, w, bias, lib.maxpool_head_ingest_max_dim())
     B, L, D = h.shape
     V = w.shape[0]
     out = torch.empty((B, V), dtype=torch.float32, device=h.device)

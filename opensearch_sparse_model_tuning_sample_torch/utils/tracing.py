@@ -19,8 +19,19 @@ tokens, the ingest batches run at each length as `encoder.batch_len.<L>`,
 the ingest chunks resolved through their own event as
 `encoder.copy_out.async` and, of those, the ones still being copied when
 resolved as `encoder.copy_out.waited`, BERT's attention layer calls that
-took the plain chain and not the fused kernel as `encoder.attn.plain_chain`);
+took the plain chain and not the fused kernel as `encoder.attn.plain_chain`,
+the query-key pairs each attention kind's launches compute as
+`encoder.attn.pairs.global`, `.local` and `.causal`, an expert layer's
+token-expert rows as `encoder.moe.rows`, counted on the host from the
+shapes, and each kernel's launches as `<family>.launches.<kernel>`:
+`head.`, `attn.` (`attention_causal_kernel` among them) and `moe.`
+(`moe_gate_up_kernel`, `moe_down_kernel`, `moe_combine_kernel`));
 `counters()` returns them all, `reset()` sets them back.
+
+The expert layer's spans (`ops/moe.py`) are `encoder.moe.route` (router,
+top-k, weights), `encoder.moe.permute` (the sort, the gather of the rows,
+the combine) and `encoder.moe.experts` (the grouped GEMMs); Moonlight's
+attention core runs in `encoder.attn.causal`.
 """
 
 from __future__ import annotations

@@ -140,10 +140,17 @@ def test_maxpool_kernel_rejects_what_it_cannot_take(cuda):
     buf = torch.empty(h.numel() + 1, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         maxpool_head(buf[1:].view(h.shape), mask, w, bias)
-    too_wide = _lib().maxpool_head_max_dim() + 8
+    # past the widest resident vocab tile the ingest kernel streams its w
+    # tile, up to its own limit; the training forward keeps the resident one
+    too_wide = _lib().maxpool_head_ingest_max_dim() + 8
     h, mask, w, bias = _inputs(2, 8, too_wide, 64, seed=0, device=cuda)
     with pytest.raises(ValueError):
         maxpool_head(h, mask, w, bias)
+    past_resident = _lib().maxpool_head_max_dim() + 8
+    h, mask, w, bias = _inputs(2, 70, past_resident, 300, seed=0, device=cuda)
+    with pytest.raises(ValueError):
+        mp.maxpool_head_argmax(h, mask, w, bias)
+    _check(h, mask, w, bias)
 
 
 # ---- the training kernels: argmax forward, bwd_w, bwd_h -------------------
@@ -1264,3 +1271,190 @@ def test_bert_attention_over_the_kernels_grid_splits_its_launches(cuda):
             scale = alone.abs().amax(1, keepdim=True)
             assert bool(((reps[docs] - alone).abs() <= 2e-2 * scale).all())
     assert _bert_attn_counts() == [4 * cfg.num_hidden_layers, 0]
+
+
+# --------------------------------------------------------------------------
+# Moonlight (models/moonlight.py): the grouped expert GEMMs, routing without
+# a host sync, causal attention at MLA's dims, the head at D 2 048
+
+
+def _moe_inputs(R, D, I, E, seed, device, empty=(5, 17, 63)):
+    """Rows sorted by expert with uneven groups: expert 0 takes a tenth of
+    the rows, the experts in `empty` none, the rest share what is left;
+    N(0, 1) rows and N(0, 0.02) weights, bf16."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    weights = torch.rand(E, generator=g) + 0.2
+    weights[list(empty)] = 0.0
+    weights[0] = weights.sum() / 9
+    counts = torch.floor(weights / weights.sum() * R).long()
+    counts[1] += R - int(counts.sum())
+    offsets = torch.zeros(E + 1, dtype=torch.int32)
+    offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    x = torch.randn((R, D), generator=g).to(device, torch.bfloat16)
+    gate, up = ((torch.randn((E, I, D), generator=g) * 0.02).to(device, torch.bfloat16)
+                for _ in range(2))
+    down = (torch.randn((E, D, I), generator=g) * 0.02).to(device, torch.bfloat16)
+    return x, gate, up, down, offsets.to(device)
+
+
+@pytest.mark.parametrize("R,D,I,E", [(24576, 2048, 1408, 64), (301, 64, 32, 8)],
+                         ids=["moonlight", "tiny"])
+def test_grouped_expert_gemms_match_a_per_expert_loop(cuda, R, D, I, E):
+    """The gate-up (SiLU·mul fused) and down kernels against the plain
+    per-expert loop (the same bf16 operands, exact products summed in fp32),
+    with empty experts and ragged groups: each row within 2^-7 of its own
+    norm (the kernels sum in another order and round once to bf16), one
+    launch each."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import moe
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    x, gate, up, down, offsets = _moe_inputs(R, D, I, E, R + D, cuda,
+                                             empty=(5, 17, 63) if E == 64 else (3,))
+    names = ["moe.launches.moe_gate_up_kernel", "moe.launches.moe_down_kernel"]
+    tracing.reset(names)
+    h = moe.expert_gate_up(x, gate, up, offsets)
+    y = moe.expert_down(h, down, offsets)
+    torch.cuda.synchronize()
+    assert [tracing.counters()[n] for n in names] == [1, 1]
+    h_ref = moe.expert_gate_up_reference(x, gate, up, offsets)
+    y_ref = moe.expert_down_reference(h, down, offsets)
+    for got, ref in ((h, h_ref), (y, y_ref)):
+        rel = (got.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-6)
+        assert float(rel.max()) <= 2 ** -7, float(rel.max())
+
+
+@pytest.mark.parametrize("T,D,E,k", [(13824, 2048, 64, 6), (301, 64, 8, 2)],
+                         ids=["moonlight", "tiny"])
+def test_combine_matches_the_slot_loop(cuda, T, D, E, k):
+    """The combine kernel against the plain slot loop on the same inputs:
+    rows from a router over random scores (some experts empty), each
+    token's k rows weighted in slot order and the shared output added into
+    an fp32 stream, each row within 1e-5 of its own norm; the same bits on
+    a second launch; one launch."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import moe
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    g = torch.Generator(device="cpu").manual_seed(T + D)
+    bias = torch.zeros(E)
+    bias[: E // 8] = -10.0  # these experts take no row
+    chosen, w = moe.route(torch.randn((T, D), generator=g).to(cuda),
+                          (torch.randn((E, D), generator=g) * 0.02).to(cuda), bias.to(cuda), k,
+                          2.446)
+    _, _, pos = moe.permute(chosen, E)
+    y = torch.randn((T * k, D), generator=g).to(cuda, torch.bfloat16)
+    shared = torch.randn((T, D), generator=g).to(cuda, torch.bfloat16)
+    x = torch.randn((T, D), generator=g).to(cuda)
+    tracing.reset(["moe.launches.moe_combine_kernel"])
+    got = moe.combine(x.clone(), y, shared, pos, w)
+    again = moe.combine(x.clone(), y, shared, pos, w)
+    torch.cuda.synchronize()
+    assert tracing.counters()["moe.launches.moe_combine_kernel"] == 2
+    ref = moe.combine_reference(x.clone(), y, shared, pos, w)
+    rel = (got - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-6)
+    assert float(rel.max()) <= 1e-5, float(rel.max())
+    assert torch.equal(got, again)
+
+
+def test_routing_and_experts_make_no_host_sync(cuda):
+    """A whole Moonlight forward at test widths (router, top-k, the sort and
+    offsets, the grouped GEMMs, the combine, causal attention, the head)
+    runs under the sync debug mode's "error": nothing in a layer waits for
+    the card. The combine is the same bit for bit on a second run."""
+    from opensearch_sparse_model_tuning_sample_torch.models import moonlight
+
+    cfg = moonlight.config_from_preset("moonlight-tiny")
+    model = moonlight.from_state_dict(cfg, moonlight.init_state_dict(cfg, 4, cuda), cuda)
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(5, 512, (6, 128), generator=g).to(cuda)
+    mask = (torch.arange(128)[None, :] < torch.tensor([128, 100, 64, 33, 7, 1])[:, None]).int()
+    mask = mask.to(cuda)
+    with torch.no_grad():
+        first = model.mlm_maxpool(model.encode_hidden(ids, mask), mask)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            second = model.mlm_maxpool(model.encode_hidden(ids, mask), mask)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("B,L,hqk,hv", [(64, 512, 192, 128), (5, 1000, 192, 128),
+                                        (7, 130, 32, 16)], ids=["cell", "odd1000", "tiny"])
+def test_causal_attention_matches_the_plain_masked_path(cuda, B, L, hqk, hv):
+    """The causal kernel at MLA's dims (q·k 192, v 128) against the plain
+    version on the live query rows, each (query, head) row held to its own
+    scale as in the global and windowed kinds (worst within 2^-6, mean
+    within 2^-7); it counts `computed_pairs` (the key tiles up to each
+    query tile's diagonal, under 0.6 of L² at L 512)."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    H = 16 if hqk == 192 else 4
+    g = torch.Generator(device="cpu").manual_seed(B + L)
+    q, k = (torch.randn((B, L, H, hqk), generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    kv = torch.randn((B, L, H, hqk + hv), generator=g).to(cuda, torch.bfloat16)
+    v = kv[..., hqk:]  # a strided view, as the model's
+    lens = torch.randint(1, L + 1, (B,), generator=g)
+    lens[0] = L
+    mask = (torch.arange(L)[None, :] < lens[:, None]).to(torch.int32).to(cuda)
+    names = ["encoder.attn.pairs.causal", "attn.launches.attention_causal_kernel"]
+    tracing.reset(names)
+    got = at.attention(q, k, v, mask, causal=True)
+    torch.cuda.synchronize()
+    c = tracing.counters()
+    assert c[names[0]] == at.computed_pairs(B, L, 0, causal=True) and c[names[1]] == 1
+    assert at.computed_pairs(1, 512, 0, causal=True) < 0.6 * 512 * 512
+    ref = at.attention_reference(q, k, v, mask, causal=True)
+    live = mask.bool()
+    gl, rl = got.float()[live], ref.float()[live]
+    rel = (gl - rl).norm(dim=-1) / rl.norm(dim=-1)
+    assert bool(torch.isfinite(got.float()).all())
+    assert float(rel.max()) <= 2 ** -6, float(rel.max())
+    assert float(rel.mean()) <= 2 ** -7, float(rel.mean())
+
+
+def test_head_kernel_at_moonlight_width_matches_plain(cuda):
+    """The ingest head at [64, 512, 2 048, 163 840] (past the widest
+    resident tile: the streamed w tile), lengths of the cell's law, against
+    the plain version on 2 048 of the vocab's columns spread over every
+    tile's position and the last tile; the same bound as `_check`."""
+    rng = np.random.default_rng(7)
+    lens = np.clip(rng.lognormal(np.log(178), 0.6, 64), 20, 512).astype(int)
+    mask = (np.arange(512)[None, :] < lens[:, None]).astype(np.int32)
+    h, mask, w, bias = _inputs(64, 512, 2048, 163840, 11, cuda, mask=mask)
+    before = _launches(maxpool_head)
+    got = maxpool_head(h, mask, w, bias)
+    torch.cuda.synchronize()
+    assert _launches(maxpool_head) == before + 1
+    cols = torch.cat([torch.arange(0, 163840, 97), torch.arange(163840 - 128, 163840)])
+    cols = cols.unique()[:2048].to(cuda)
+    ref = maxpool_head_reference(h, mask, w[cols].contiguous(), bias[cols].contiguous())
+    err = (got[:, cols] - ref).abs()
+    assert bool((err <= 1e-3 * ref.abs().clamp_min(1.0)).all()), float(err.max())
+
+
+def test_tiny_moonlight_on_the_card_matches_the_cpu(cuda):
+    """encode_doc of Moonlight at test widths (a dense layer, expert layers
+    of 8 experts, 2 a token, causal MLA at q·k 32, v 16) on the card (the
+    attention, expert and head kernels) against the CPU (their plain
+    versions), bf16 compute on both: the reps within 2e-2 of each row's
+    largest (bf16 products summed in another order). The weights are drawn
+    once on the CPU (a card's generator draws other values for a seed)."""
+    from opensearch_sparse_model_tuning_sample_torch.models import moonlight
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.models.tokenizer import load_tokenizer
+
+    cfg = moonlight.config_from_preset("moonlight-tiny")
+    sd = moonlight.init_state_dict(cfg, 3)
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(5, 512, (4, 200), generator=g)
+    mask = (torch.arange(200)[None, :] < torch.tensor([200, 150, 64, 7])[:, None]).int()
+    reps = []
+    for dev in (cuda, torch.device("cpu")):
+        model = tse.SparseEncoderModel(cfg, moonlight.from_state_dict(cfg, sd, dev),
+                                       torch.ones(cfg.vocab_size), load_tokenizer(None))
+        with torch.no_grad():
+            reps.append(tse.encode_doc(model, ids.to(dev), mask.to(dev)).cpu())
+    scale = reps[1].abs().amax(1, keepdim=True)
+    assert bool(((reps[0] - reps[1]).abs() <= 2e-2 * scale).all())
