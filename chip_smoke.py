@@ -57,8 +57,11 @@ of 16 of that cell's docs through `build_model`'s `modernbert-large`
 preset, with its launch and pair counters; `python3 chip_smoke.py
 --modernbert-only` runs that step alone. Step 3c times BERT's attention
 through the same fused kernel at distil-ingest's batch shapes and the main
-path's mini shape against BERT's plain chain and SDPA, and ingests 300
-docs through the `distill` preset, every layer launching the kernel;
+path's mini shape against BERT's plain chain and SDPA, and ingests 333
+docs through the `distill` preset, every layer launching the kernel, the
+full batches replaying the encoder stack's CUDA graphs (bit-equal to the
+eager stack, timed against it on the host and on the card at each
+length);
 `python3 chip_smoke.py --bert-attention-only` runs it alone. Step 3d
 times Moonlight-16B-A3B's kernels at its cell's shapes (the grouped
 expert GEMMs, the combine, causal attention at q·k 192 and v 128, the
@@ -97,6 +100,7 @@ import urllib.error
 import urllib.request
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -3408,12 +3412,89 @@ def bert_attention_rows(dev, B=50, hd=64):
     return rows
 
 
+# the names under which the profiler records the host's launches onto the
+# card (kernels, graphs, copies, fills), CUDA runtime and driver API alike
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_launches(fn):
+    """(fn's result, the launch calls the profiler records while fn runs and
+    the card finishes it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.name in LAUNCH_CALLS for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CPU)
+
+
+def host_ms(fn, iters=5):
+    """Mean host time of fn() over `iters` calls queued from an idle card:
+    the Python and the launches, which a card that runs each call for
+    longer than the host queues it never makes wait."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e3
+
+
+def bert_graph_rows(dev, model, B=50):
+    """BERT's encoder stack captured as a CUDA graph (`GraphRunner`) against
+    the eager stack at distil-ingest's full batches [50, L], L 128-512 by 64
+    (DistilBERT's widths, live lengths in (L - 64, L]): the hidden states
+    equal bit for bit, then each one's host time a forward (`host_ms`), its
+    device time (CUDA events, `cuda_ms` over 3 forwards: more eager ones
+    than that fill the launch queue behind the sleep, and the host then
+    paces the card) and the launch calls the profiler records for one
+    forward."""
+    bert = model.bert
+    rows = []
+    for L in range(128, 513, 64):
+        g = torch.Generator().manual_seed(L)
+        ids = torch.randint(1000, 30522, (B, L), generator=g).to(dev)
+        lens = torch.randint(L - 63, L + 1, (B,), generator=g)
+        lens[0] = L
+        mask = (torch.arange(L)[None, :] < lens[:, None]).to(torch.int32).to(dev)
+        with torch.inference_mode():
+            def eager():
+                return bert.encode_hidden(ids, mask)
+
+            def graph():
+                return bert.graph_runner(bert, ids, mask)
+
+            want = eager()
+            got = graph().clone()
+            check(torch.equal(got, want), f"bert graph [{B}, {L}]: hidden states equal the "
+                  f"eager stack's bit for bit (worst {float((got - want).abs().max())})")
+            row = {"shape": [B, L], "eager_host_ms": host_ms(eager),
+                   "graph_host_ms": host_ms(graph), "eager_device_ms": cuda_ms(eager, 3),
+                   "graph_device_ms": cuda_ms(graph, 3),
+                   "eager_launches": host_launches(eager)[1],
+                   "graph_launches": host_launches(graph)[1]}
+        print(f"bert graph: {json.dumps(row)}", flush=True)
+        rows.append(row)
+        del ids, mask, want, got
+    return rows
+
+
 def phase_bert_attention(dev):
     """BERT's attention on the card (step 3c): the rows above, then
-    `eval/beir.py::ingest` of 300 docs (lengths as distil-ingest draws them,
-    batch 50, max_length 512) through `build_model`'s `distill` preset. Every
-    batch launches the fused kernel once a layer and no layer takes the plain
-    chain: the kernel's share of BERT's attention calls is 1."""
+    `eval/beir.py::ingest` of 333 docs (lengths as distil-ingest draws them,
+    batch 50, max_length 512: one chunk, its first batch of 33 docs short)
+    through `build_model`'s `distill` preset. Every batch launches the fused
+    kernel once a layer and no layer takes the plain chain: the kernel's
+    share of BERT's attention calls is 1. The six full batches replay the
+    encoder stack's CUDA graphs and the short one runs it eagerly (the
+    graphs' share of the batches, replays / (replays + eager), is 6/7),
+    and the counts read as the eager stack's. Then the graphs against the
+    eager stack at each full batch's shape (`bert_graph_rows`), and the same
+    ingest again with every batch eager, for the launch calls of each."""
     from opensearch_sparse_model_tuning_sample_torch.eval.beir import ingest
     from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig
     from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
@@ -3425,13 +3506,17 @@ def phase_bert_attention(dev):
                            seed=0, device=dev)
     words = [w for w in model.tokenizer.vocab if w.isalpha() and w.isascii() and len(w) > 2]
     rng = np.random.default_rng(21)
-    lens = np.clip(np.round(rng.lognormal(np.log(180), 0.6, 300)), 10, 700).astype(int)
+    lens = np.clip(np.round(rng.lognormal(np.log(180), 0.6, 333)), 10, 700).astype(int)
     corpus = [(f"d{i}", " ".join(rng.choice(words, int(n)))) for i, n in enumerate(lens)]
     tracing.reset()
     out = os.path.join(OUT, "bert_attention")
     os.makedirs(out, exist_ok=True)
-    index = ingest(corpus, model, out, "distil", max_length=512, batch_size=50,
-                   index_cfg=IndexConfig(engine="sparse", l_max=256))
+
+    def run(name):
+        return ingest(corpus, model, out, name, max_length=512, batch_size=50,
+                      index_cfg=IndexConfig(engine="sparse", l_max=256))
+
+    index = run("distil")
     torch.cuda.synchronize()
     c = tracing.counters()
     batches = {int(k.rsplit(".", 1)[1]): v for k, v in c.items()
@@ -3440,13 +3525,29 @@ def phase_bert_attention(dev):
     launches = c.get("attn.launches.attention_global_kernel", 0)
     plain = c.get("encoder.attn.plain_chain", 0)
     share = launches / max(launches + plain, 1)
-    check(launches == layers * sum(batches.values()) and plain == 0 and share == 1.0,
+    check(launches == layers * sum(batches.values()) and plain == 0 and share == 1.0
+          and c.get("head.launches.maxpool_head") == sum(batches.values()),
           f"bert ingest: {launches} kernel launches and {plain} plain chains for "
           f"{sum(batches.values())} batches of {layers} layers")
     check(index.n_docs == len(corpus), "bert ingest: every doc stored")
+    graph = {k.rsplit(".", 1)[1]: c.get(k, 0) for k in
+             ("encoder.graph.captures", "encoder.graph.replays", "encoder.graph.eager")}
+    graph["share"] = graph["replays"] / max(graph["replays"] + graph["eager"], 1)
+    check(graph["replays"] == 6 and graph["eager"] == 1
+          and 1 <= graph["captures"] <= len(batches),
+          f"bert ingest: the six full batches replay graphs, the short one is eager ({graph})")
+    stored = index._stored_rows()[0][:index.n_docs].float()
+    graph_rows = bert_graph_rows(dev, model)
+    _, graph["launch_calls"] = host_launches(lambda: run("distil_graph"))
+    with mock.patch.object(se, "takes_graph", lambda device, batch_rows, rows: False):
+        eager_index, graph["eager_launch_calls"] = host_launches(lambda: run("distil_eager"))
+    check(torch.equal(eager_index._stored_rows()[0][:index.n_docs].float(), stored),
+          "bert ingest: the rows stored with every batch eager equal the graphs' bit for bit")
+    print(f"bert ingest graphs: {json.dumps(graph)}", flush=True)
     res = {"attention": rows, "batches": batches, "docs": len(corpus), "launches": launches,
-           "plain_chain": plain, "kernel_share": share, "seconds": time.time() - t0}
-    del model, index
+           "plain_chain": plain, "kernel_share": share, "graph": graph,
+           "graph_rows": graph_rows, "seconds": time.time() - t0}
+    del model, index, eager_index
     torch.cuda.empty_cache()
     return res
 

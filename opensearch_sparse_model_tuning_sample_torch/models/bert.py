@@ -26,6 +26,14 @@ embeddings are zero. `mlm_maxpool` is the sparse encoder's head: it calls the
 fused max-pool kernel (ops/maxpool.py), so the [B, L, V] logits never exist;
 with grad on it goes through the kernel's autograd Function.
 
+Ingest on a card replays the inference encoder stack (embeddings and every
+layer, the fused attention inside them) as a CUDA graph: `GraphRunner`
+captures one graph per input shape and `graph_maxpool` replays it, then runs
+the head eagerly on its output. A replay launches the kernels the eager
+stack launches, at the same shapes, so its hidden states are the eager
+stack's bit for bit; it costs the host one launch where the eager stack
+costs about 40 a layer.
+
 Training: dropout (embeddings, attention probabilities, attention and FFN
 outputs, as the JAX package places it) is on when `encode_hidden` gets a
 `dropout_key`. Each layer draws its masks from its own `torch.Generator`,
@@ -40,8 +48,9 @@ DistilBERT (no token types).
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -324,6 +333,101 @@ class MLMHead(nn.Module):
         )
 
 
+class _Captured(NamedTuple):
+    """One captured input shape: the graph, its static inputs and output,
+    and the counts its capture raised."""
+
+    graph: "torch.cuda.CUDAGraph"
+    ids: torch.Tensor
+    mask: torch.Tensor
+    hidden: torch.Tensor
+    counts: Dict[str, int]
+
+
+class GraphRunner:
+    """A `BertForMaskedLM`'s inference encoder stack (`encode_hidden` with no
+    dropout and no autograd) as one CUDA graph per input shape.
+
+    The first call at a shape copies the inputs into the shape's static
+    buffers, runs one eager forward on the runner's own stream (so cuBLAS's
+    workspace and the kernels' libraries exist before the capture), and
+    captures the next. The graphs share one memory pool, as they replay one
+    at a time on one stream. A call copies the batch's ids and mask into the
+    shape's buffers and replays its graph on the current stream: two copies
+    and one launch. The graph reads the weights where they are, so an
+    in-place update (a trainer's step) is seen by the next replay; weights
+    replaced by other tensors (`module.to`, a new Parameter) drop every
+    graph, as the runner keys its graphs on the parameters' storage.
+
+    The counts that the captured Python raises (the attention kernel's
+    launches and pairs) are kept with the graph and added again at each
+    replay, so the counters read as they do eagerly; the warm-up forward's
+    are dropped. The spans inside the stack (`encoder.attn.global`) do not
+    open on a replay. Counters `encoder.graph.captures`,
+    `encoder.graph.replays`. The hidden states returned are a static output
+    of the pool: they hold until the runner's next replay, which is why
+    `BertForMaskedLM.graph_maxpool` runs the head on them under `lock`."""
+
+    def __init__(self):
+        self.graphs: Dict[Tuple, _Captured] = {}
+        self.lock = threading.Lock()
+        # each parameter's (module's dict, name), and the storage and dtype
+        # the graphs were captured over
+        self._slots = self._weights = None
+        self._stream = self._pool = None
+
+    def __deepcopy__(self, memo):
+        # a copy of the module (a mesh's replica) captures graphs of its own
+        return GraphRunner()
+
+    def _capture(self, model: "BertForMaskedLM", input_ids: torch.Tensor,
+                 attention_mask: torch.Tensor) -> _Captured:
+        dev = input_ids.device
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        ids, mask = input_ids.clone(), attention_mask.clone()
+        graph, s = torch.cuda.CUDAGraph(), self._stream
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            with tracing.recording():  # the warm-up is no forward of the caller's
+                model.encode_hidden(ids, mask)
+            with tracing.recording() as counts:
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    hidden = model.encode_hidden(ids, mask)
+                finally:
+                    graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(s)
+        tracing.count("encoder.graph.captures")
+        return _Captured(graph, ids, mask, hidden, counts)
+
+    @torch.inference_mode()
+    def __call__(self, model: "BertForMaskedLM", input_ids: torch.Tensor,
+                 attention_mask: torch.Tensor) -> torch.Tensor:
+        """`model.encode_hidden(input_ids, attention_mask)` [B, L, D] (CUDA
+        tensors), replayed from the graph of their shape."""
+        if self._slots is None:
+            self._slots = [(m._parameters, n) for m in model.modules()
+                           for n, p in m._parameters.items() if p is not None]
+        weights = [(d[n].data_ptr(), d[n].dtype) for d, n in self._slots]
+        if weights != self._weights:
+            # the pool goes with the last graph that used it: new graphs, new pool
+            self.graphs.clear()
+            self._weights, self._pool = weights, None
+        key = (tuple(input_ids.shape), input_ids.dtype, attention_mask.dtype)
+        cap = self.graphs.get(key)
+        if cap is None:
+            cap = self.graphs[key] = self._capture(model, input_ids, attention_mask)
+        cap.ids.copy_(input_ids)
+        cap.mask.copy_(attention_mask)
+        cap.graph.replay()
+        tracing.add(cap.counts)
+        tracing.count("encoder.graph.replays")
+        return cap.hidden
+
+
 class BertForMaskedLM(nn.Module):
     def __init__(self, cfg: BertConfig, tied: bool = True):
         super().__init__()
@@ -331,6 +435,7 @@ class BertForMaskedLM(nn.Module):
         self.embeddings = Embeddings(cfg)
         self.layers = nn.ModuleList(Layer(cfg) for _ in range(cfg.num_hidden_layers))
         self.mlm_head = MLMHead(cfg, tied)
+        self.graph_runner = GraphRunner()
 
     def encode_hidden(
         self,
@@ -406,6 +511,16 @@ class BertForMaskedLM(nn.Module):
         if torch.is_grad_enabled() and any(t.requires_grad for t in args):
             return maxpool_head_train(*args)
         return maxpool_head(*args)
+
+    @torch.inference_mode()
+    def graph_maxpool(self, input_ids: torch.Tensor,
+                      attention_mask: torch.Tensor) -> torch.Tensor:
+        """`mlm_maxpool(encode_hidden(ids, mask), mask)` for inference on a
+        card: the encoder stack replayed from the graph of the batch's shape
+        (`GraphRunner`), the head run eagerly on its output."""
+        with self.graph_runner.lock:
+            hidden = self.graph_runner(self, input_ids, attention_mask)
+            return self.mlm_maxpool(hidden, attention_mask)
 
 
 def init_state_dict(cfg: BertConfig, seed: int = 0) -> Dict[str, torch.Tensor]:

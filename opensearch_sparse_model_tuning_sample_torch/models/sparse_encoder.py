@@ -14,10 +14,12 @@ The port of the JAX package's `models/sparse_encoder.py` (reference
     `encoder.copy_out` (`utils/tracing.py`), and it counts the positions
     the encoder runs (`encoder.positions`, each row padded to its batch's
     length), the real tokens among them (`encoder.tokens`), the batches
-    it runs at each length L (`encoder.batch_len.<L>`) and the ingest
+    it runs at each length L (`encoder.batch_len.<L>`), the ingest
     chunks resolved through their own event on a CUDA device
     (`encoder.copy_out.async`, of which `encoder.copy_out.waited` found
-    the chunk's copy still running).
+    the chunk's copy still running) and the ingest batches that ran the
+    encoder stack eagerly and not from its CUDA graph
+    (`encoder.graph.eager`, beside the runner's `encoder.graph.replays`).
 """
 
 from __future__ import annotations
@@ -107,7 +109,12 @@ def encode_doc(model: SparseEncoderModel, input_ids: torch.Tensor,
     Training mode is a `dropout_key` (dropout on, its generators seeded from
     the key) with grad enabled."""
     hidden = model.bert.encode_hidden(input_ids, attention_mask, dropout_key=dropout_key)
-    pooled = model.bert.mlm_maxpool(hidden, attention_mask)
+    return _doc_rep(model, model.bert.mlm_maxpool(hidden, attention_mask))
+
+
+def _doc_rep(model: SparseEncoderModel, pooled: torch.Tensor) -> torch.Tensor:
+    """The doc rep [B, vocab_size] of the head's pooled logits [B,
+    padded_V]."""
     rep = pooled_activation(pooled, use_l0=model.use_l0, prune_ratio=model.prune_ratio)
     return rep[:, : model.cfg.vocab_size]
 
@@ -154,6 +161,16 @@ def _batch_lengths(lengths: np.ndarray, rows: int, width: int) -> np.ndarray:
     longest = np.maximum.reduceat(lengths, _batch_bounds(len(lengths), rows)[0])
     steps = np.maximum(-(-longest // _BATCH_LEN_STEP), 1)
     return np.minimum(steps * _BATCH_LEN_STEP, width)
+
+
+def takes_graph(device: torch.device, batch_rows: int, rows: int) -> bool:
+    """Whether an ingest batch of `batch_rows` replays the backbone's CUDA
+    graph of its encoder stack, where the backbone has one
+    (`BertForMaskedLM.graph_maxpool`): on a CUDA device, a full batch of the
+    chunk's `rows`. The packer runs each full batch at `rows` x a multiple
+    of 64 up to max_length, so a few shapes serve every chunk; the chunk's
+    short first batch, and every batch off a card, runs eagerly."""
+    return device.type == "cuda" and batch_rows == rows
 
 
 def _topk_rows(rep: torch.Tensor, k: int):
@@ -339,11 +356,14 @@ class BatchEncoder:
         """The ingest path: a chunk of texts through the packer, encoded as
         a loop over its length-sorted batches of `rows`, each at its own
         length: the smallest multiple of 64 that holds its longest doc,
-        capped at the chunk's bucket. Each forward is followed by the count
-        of its full rep (the top-k below is an index storage decision and
-        must not change the FLOPS/d_length statistic) and its top-`l_max`.
-        Returns (ChunkHandle, n_valid): the rows in the sorted order and the
-        row of each text; resolve with `resolve_chunk_sparse`.
+        capped at the chunk's bucket. A full batch replays the backbone's
+        CUDA graph of its encoder stack where `takes_graph` says so, the
+        others run it eagerly (`encoder.graph.eager`); the head runs eagerly
+        on both. Each forward is followed by the count of its full rep (the
+        top-k below is an index storage decision and must not change the
+        FLOPS/d_length statistic) and its top-`l_max`. Returns (ChunkHandle,
+        n_valid): the rows in the sorted order and the row of each text;
+        resolve with `resolve_chunk_sparse`.
 
         On a CUDA device nothing here waits for the stream: the chunk's rows
         are queued for a copy into page-locked host buffers (idx_host,
@@ -354,9 +374,14 @@ class BatchEncoder:
         k = min(l_max, self.model.vocab_size)
         idxs, valss = [], []
         count = torch.zeros(self.model.vocab_size, dtype=torch.int32, device=self.device)
+        graphed = getattr(self.model.bert, "graph_maxpool", None)
         for ids, mask in batches:
             with tracing.span("encoder.forward"):
-                rep = encode_doc(self.model, ids, mask)
+                if graphed is not None and takes_graph(self.device, ids.shape[0], rows):
+                    rep = _doc_rep(self.model, graphed(ids, mask))
+                else:
+                    tracing.count("encoder.graph.eager")
+                    rep = encode_doc(self.model, ids, mask)
             with tracing.span("encoder.topk"):
                 count += activation_count(rep)
                 idx, vals = _topk_rows(rep, k)

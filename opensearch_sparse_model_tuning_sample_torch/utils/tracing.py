@@ -25,8 +25,14 @@ the query-key pairs each attention kind's launches compute as
 token-expert rows as `encoder.moe.rows`, counted on the host from the
 shapes, and each kernel's launches as `<family>.launches.<kernel>`:
 `head.`, `attn.` (`attention_causal_kernel` among them) and `moe.`
-(`moe_gate_up_kernel`, `moe_down_kernel`, `moe_combine_kernel`));
-`counters()` returns them all, `reset()` sets them back.
+(`moe_gate_up_kernel`, `moe_down_kernel`, `moe_combine_kernel`)), and
+BERT's CUDA graphs of its encoder stack (`models/bert.py::GraphRunner`) as
+`encoder.graph.captures` and `encoder.graph.replays`, with the ingest
+batches that ran the stack eagerly as `encoder.graph.eager`;
+`counters()` returns them all, `reset()` sets them back. Inside
+`recording()` the counts a thread raises go to a dict of its own and not to
+the registry: a CUDA graph's capture keeps them, and `add` adds them again
+at each replay.
 
 The expert layer's spans (`ops/moe.py`) are `encoder.moe.route` (router,
 top-k, weights), `encoder.moe.permute` (the sort, the gather of the rows,
@@ -75,12 +81,37 @@ _counts: Dict[str, int] = {}
 # autograd runs the backward on one thread per device, and the head's
 # backward kernels count their launches there
 _lock = threading.Lock()
+# the dict of the innermost `recording()` on each thread
+_local = threading.local()
 
 
 def count(name: str, n: int = 1) -> None:
     """Add n to the counter `name` (created at 0)."""
+    kept = getattr(_local, "kept", None)
+    if kept is not None:
+        kept[name] = kept.get(name, 0) + n
+        return
     with _lock:
         _counts[name] = _counts.get(name, 0) + n
+
+
+def add(counts: Dict[str, int]) -> None:
+    """Add each of `counts` to its counter."""
+    with _lock:
+        for name, n in counts.items():
+            _counts[name] = _counts.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Within, the counts this thread raises go to the dict yielded, and
+    not to the registry."""
+    outer = getattr(_local, "kept", None)
+    _local.kept = kept = {}
+    try:
+        yield kept
+    finally:
+        _local.kept = outer
 
 
 def counters() -> Dict[str, int]:

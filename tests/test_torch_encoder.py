@@ -217,3 +217,48 @@ def test_get_batch_encoder_reuses_and_resets(models, texts):
     b = tse.get_batch_encoder(tm, max_length=64)
     assert b is a and b.count_tensor.sum() == 0
     assert tse.get_batch_encoder(tm, max_length=64, scope="other") is not a
+
+
+@pytest.mark.parametrize("device,batch_rows,rows,takes", [
+    ("cuda", 50, 50, True), ("cuda:1", 8, 8, True), ("cuda", 33, 50, False),
+    ("cuda", 1, 50, False), ("cpu", 50, 50, False), ("cpu", 7, 10, False)])
+def test_takes_graph_is_a_rule_of_device_and_rows(device, batch_rows, rows, takes):
+    """An ingest batch replays the encoder's CUDA graph exactly when it is a
+    full batch of the chunk's rows on a CUDA device."""
+    assert tse.takes_graph(torch.device(device), batch_rows, rows) is takes
+
+
+@pytest.mark.parametrize("n,rows", [(21, 4), (16, 8)], ids=["short_first", "all_full"])
+def test_chunk_path_on_the_cpu_captures_nothing(models, texts, n, rows):
+    """On the CPU every batch of the ingest loop runs the encoder stack
+    eagerly (`encoder.graph.eager` counts each), nothing is captured or
+    replayed, and the rows are the eager forward's top-k of each batch."""
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    _, tm = models
+    docs = _chunk_docs(texts, n, 3, 150, seed=n)
+    enc = tse.BatchEncoder(tm, max_length=128)
+    names = ["encoder.graph.captures", "encoder.graph.replays", "encoder.graph.eager"]
+    tracing.reset(names)
+    handle, nv = enc.encode_chunk_sparse_async(docs, l_max=16, rows=rows)
+    ci, cw = enc.resolve_chunk_sparse(handle, nv)
+    c = tracing.counters()
+    assert [c.get(k, 0) for k in names] == [0, 0, -(-n // rows)]
+    assert tm.bert.graph_runner.graphs == {}
+    batches, pos, _ = enc._pack(docs, rows, runs_encoder=False)
+    with torch.inference_mode():
+        idx, vals = zip(*(tse._topk_rows(tse.encode_doc(tm, ids, mask), 16)
+                          for ids, mask in batches))
+    np.testing.assert_array_equal(ci, torch.cat(idx).numpy()[pos])
+    np.testing.assert_array_equal(cw, torch.cat(vals).numpy()[pos])
+
+
+def test_a_copied_backbone_gets_a_graph_runner_of_its_own(models):
+    """A deep copy of the module (a mesh's replica) starts with an empty
+    graph runner of its own, never its source's graphs."""
+    import copy
+
+    _, tm = models
+    twin = copy.deepcopy(tm.bert)
+    assert twin.graph_runner is not tm.bert.graph_runner
+    assert twin.graph_runner.graphs == {} and twin.graph_runner._weights is None

@@ -1458,3 +1458,262 @@ def test_tiny_moonlight_on_the_card_matches_the_cpu(cuda):
             reps.append(tse.encode_doc(model, ids.to(dev), mask.to(dev)).cpu())
     scale = reps[1].abs().amax(1, keepdim=True)
     assert bool(((reps[0] - reps[1]).abs() <= 2e-2 * scale).all())
+
+
+# ---- BERT's encoder stack replayed as CUDA graphs (models/bert.py) --------
+
+_GRAPH = ("encoder.graph.captures", "encoder.graph.replays", "encoder.graph.eager")
+_DISTIL = {}
+
+
+def _distil_bert(cuda):
+    """A DistilBERT-width BertForMaskedLM on the card (random weights), made
+    once for the tests below, and its config."""
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+
+    if "model" not in _DISTIL:
+        cfg = tbert.config_from_preset("distill", model_type="distilbert", use_token_type=False,
+                                       type_vocab_size=1)
+        _DISTIL["model"] = tbert.from_state_dict(cfg, tbert.init_state_dict(cfg, seed=24), cuda)
+    return _DISTIL["model"]
+
+
+def _full_batch(L, cuda, seed=None, B=50):
+    """ids [B, L] and an int32 mask of a sorted chunk's full batch at L: live
+    lengths in (L - 64, L], one row full."""
+    g = torch.Generator().manual_seed(L if seed is None else seed)
+    ids = torch.randint(1000, 30522, (B, L), generator=g)
+    lens = torch.randint(max(L - 63, 1), L + 1, (B,), generator=g)
+    lens[0] = L
+    mask = (torch.arange(L)[None, :] < lens[:, None]).to(torch.int32)
+    return ids.to(cuda), mask.to(cuda)
+
+
+def _graph_counts():
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    c = tracing.counters()
+    return {n: c.get(n, 0) for n in _GRAPH}
+
+
+@pytest.mark.parametrize("L", list(range(64, 513, 64)))
+def test_graph_runner_equals_the_eager_stack_bit_for_bit(cuda, L):
+    """At DistilBERT's widths and a sorted chunk's full batch [50, L], the
+    runner's hidden states (a capture, then replays of other batches of the
+    shape) equal the eager stack's bit for bit, and `graph_maxpool` equals
+    the eager head over the eager stack."""
+    model = _distil_bert(cuda)
+    for seed in (L, L + 1, L + 2):
+        ids, mask = _full_batch(L, cuda, seed)
+        with torch.inference_mode():
+            eager = model.encode_hidden(ids, mask)
+            got = model.graph_runner(model, ids, mask).clone()
+            assert torch.equal(got, eager)
+            assert torch.equal(model.graph_maxpool(ids, mask), model.mlm_maxpool(eager, mask))
+    assert (tuple(ids.shape), ids.dtype, mask.dtype) in model.graph_runner.graphs
+
+
+def test_graph_replays_count_as_eager_forwards(cuda):
+    """n replays raise the counters n eager forwards raise (the attention
+    kernel's launches and pairs, no plain chain); the capture's own warm-up
+    counts nothing; captures and replays are counted."""
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    model = _distil_bert(cuda)
+    names = ("attn.launches.attention_global_kernel", "encoder.attn.pairs.global",
+             "encoder.attn.plain_chain")
+    ids, mask = _full_batch(320, cuda, seed=5, B=37)
+    n = 4
+    tracing.reset(names + _GRAPH)
+    with torch.inference_mode():
+        for _ in range(n):
+            model.encode_hidden(ids, mask)
+    eager = {k: tracing.counters().get(k, 0) for k in names}
+    assert eager[names[0]] == n * model.cfg.num_hidden_layers and eager[names[2]] == 0
+    tracing.reset(names + _GRAPH)
+    for _ in range(n):
+        model.graph_maxpool(ids, mask)
+    torch.cuda.synchronize()
+    assert {k: tracing.counters().get(k, 0) for k in names} == eager
+    assert _graph_counts() == {"encoder.graph.captures": 1, "encoder.graph.replays": n,
+                               "encoder.graph.eager": 0}
+
+
+def test_graph_replay_sees_a_weight_changed_in_place(cuda):
+    """A weight changed in place after the capture (as a trainer's step
+    changes it) is read by the next replay: the replay equals the eager
+    stack over the changed weights, and nothing is captured again."""
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    cfg = tbert.config_from_preset("mini")
+    model = tbert.from_state_dict(cfg, tbert.init_state_dict(cfg, seed=2), cuda)
+    ids, mask = _full_batch(128, cuda, seed=3, B=10)
+    with torch.inference_mode():
+        before = model.graph_runner(model, ids, mask).clone()
+        tracing.reset(_GRAPH)
+        with torch.no_grad():
+            model.layers[1].ffn.intermediate.weight.mul_(1.5)
+            model.embeddings.position_embeddings.add_(0.01)
+        got = model.graph_runner(model, ids, mask).clone()
+        eager = model.encode_hidden(ids, mask)
+    assert torch.equal(got, eager) and not torch.equal(got, before)
+    assert _graph_counts()["encoder.graph.captures"] == 0
+
+
+@pytest.mark.parametrize("how", ["parameter", "data", "to"])
+def test_replaced_parameters_never_replay_stale_pointers(cuda, how):
+    """Weights replaced by other tensors after a capture (a new Parameter
+    in a module, a tensor swapped in as `.data`, `module.to` of another
+    dtype) drop the graphs: the next call captures again and
+    equals the eager stack over the new weights."""
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    cfg = tbert.config_from_preset("mini")
+    model = tbert.from_state_dict(cfg, tbert.init_state_dict(cfg, seed=4), cuda)
+    ids, mask = _full_batch(192, cuda, seed=6, B=10)
+    dense = model.layers[0].attention.output
+    with torch.inference_mode():
+        model.graph_runner(model, ids, mask)
+    with torch.no_grad():
+        if how == "parameter":
+            dense.weight = torch.nn.Parameter(dense.weight.detach() * 2)
+        elif how == "data":
+            dense.weight.data = dense.weight.detach() * 2
+        else:
+            model.to(torch.float64)
+            dense.weight.mul_(2)
+    tracing.reset(_GRAPH)
+    with torch.inference_mode():
+        got = model.graph_runner(model, ids, mask).clone()
+        eager = model.encode_hidden(ids, mask)
+    assert torch.equal(got, eager)
+    assert _graph_counts()["encoder.graph.captures"] == 1
+    assert len(model.graph_runner.graphs) == 1
+
+
+def test_short_first_batch_runs_eagerly(cuda):
+    """A chunk of 57 docs in batches of 10 on the card: the short first batch
+    (7 rows) runs the stack eagerly, the five full ones replay graphs."""
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    model = tse.build_model(arch="mini", idf_path="assets/idf.npz", seed=0, device=cuda)
+    enc = tse.BatchEncoder(model, max_length=512)
+    chunk = _mixed_chunks(31, sizes=(57,))[0]
+    tracing.reset(_GRAPH)
+    enc.resolve_chunk_sparse(*enc.encode_chunk_sparse_async(chunk, l_max=64, rows=10))
+    c = _graph_counts()
+    assert c["encoder.graph.eager"] == 1 and c["encoder.graph.replays"] == 5, c
+    assert 1 <= c["encoder.graph.captures"] <= 5
+
+
+def test_pipelined_chunks_through_graphs_equal_the_eager_path(cuda, monkeypatch):
+    """Chunks queued in ingest's order (each resolved after the next is
+    queued), their full batches replaying graphs, give the rows and the
+    count the eager path gives, bit for bit."""
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    model = tse.build_model(arch="mini", idf_path="assets/idf.npz", seed=0, device=cuda)
+    chunks = _mixed_chunks(37)
+
+    def run():
+        enc = tse.BatchEncoder(model, max_length=512)
+        rows, prev = [], None
+        for c in chunks:
+            handle = enc.encode_chunk_sparse_async(c, l_max=64, rows=10)
+            if prev is not None:
+                rows.append(enc.resolve_chunk_sparse(*prev))
+            prev = handle
+        rows.append(enc.resolve_chunk_sparse(*prev))
+        return rows, enc.count_tensor
+
+    tracing.reset(_GRAPH)
+    graphed, graphed_count = run()
+    assert _graph_counts()["encoder.graph.replays"] == sum(len(c) // 10 for c in chunks)
+    monkeypatch.setattr(tse, "takes_graph", lambda device, batch_rows, rows: False)
+    eager, eager_count = run()
+    for (gi, gw), (ei, ew) in zip(graphed, eager):
+        np.testing.assert_array_equal(gi, ei)
+        np.testing.assert_array_equal(gw, ew)
+    np.testing.assert_array_equal(graphed_count, eager_count)
+
+
+@pytest.mark.parametrize("arch", ["modernbert-tiny", "moonlight-tiny"])
+def test_other_backbones_capture_nothing(cuda, arch, tmp_path):
+    """ModernBERT and Moonlight have no graph runner: their ingest batches
+    all run eagerly on the card and nothing is captured."""
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    words = "alpha beta gamma delta epsilon zeta eta theta iota kappa lambda mu".split()
+    (tmp_path / "vocab.txt").write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                                                  + words) + "\n")
+    model = tse.build_model(arch=arch, tokenizer_name=str(tmp_path), seed=3, device=cuda)
+    rng = np.random.default_rng(3)
+    docs = [" ".join(rng.choice(words, int(n))) for n in rng.integers(3, 150, size=24)]
+    enc = tse.BatchEncoder(model, max_length=256)
+    tracing.reset(_GRAPH)
+    enc.resolve_chunk_sparse(*enc.encode_chunk_sparse_async(docs, l_max=16, rows=8))
+    assert _graph_counts() == {"encoder.graph.captures": 0, "encoder.graph.replays": 0,
+                               "encoder.graph.eager": 3}
+
+
+def test_graph_kernels_show_in_a_profile(cuda):
+    """A capture made while a profiler records, and its replays, leave the
+    stack's kernels (the fused attention among them) in the profile's
+    device events."""
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+
+    cfg = tbert.config_from_preset("mini")
+    model = tbert.from_state_dict(cfg, tbert.init_state_dict(cfg, seed=8), cuda)
+    ids, mask = _full_batch(256, cuda, seed=9, B=10)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            model.graph_maxpool(ids, mask)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    launched = sum("attention_global_kernel" in n for n in names)
+    # the replays' 3 x 4 layers (the warm-up's 4 and the capture's none besides)
+    assert launched >= 3 * cfg.num_hidden_layers, launched
+
+
+def test_graph_maxpool_from_threads_equals_eager(cuda):
+    """Twelve threads (more than the host's cores) replay one shape's graph
+    at once, each with its own batch, the interpreter switching threads
+    every microsecond: each call's pooled rep equals the eager stack and
+    head over its own batch, so no thread's static inputs or outputs are
+    overwritten by another's before its head has read them."""
+    import sys
+    import threading
+
+    from opensearch_sparse_model_tuning_sample_torch.models import bert as tbert
+
+    cfg = tbert.config_from_preset("mini")
+    model = tbert.from_state_dict(cfg, tbert.init_state_dict(cfg, seed=12), cuda)
+    batches = [_full_batch(192, cuda, seed=100 + t, B=10) for t in range(12)]
+    with torch.inference_mode():
+        want = [model.mlm_maxpool(model.encode_hidden(i, m), m) for i, m in batches]
+    got = [[] for _ in batches]
+
+    def work(t):
+        for _ in range(5):
+            got[t].append(model.graph_maxpool(*batches[t]))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,)) for t in range(len(batches))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    for t, reps in enumerate(got):
+        assert len(reps) == 5 and all(torch.equal(r, want[t]) for r in reps), t

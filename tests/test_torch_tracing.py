@@ -440,3 +440,26 @@ def test_modernbert_attention_spans_and_pair_counters(tmp_path):
     for kind, window in (("global", 0), ("local", cfg.local_attention // 2)):
         want = sum(n * layers[kind] * _kernel_pairs(BATCH, L, window) for L, n in batches.items())
         assert c["encoder.attn.pairs." + kind] == want
+
+
+def test_recorded_counts_stay_out_of_the_registry():
+    """Inside `recording()` a thread's counts go to its own dict (nested
+    recordings each to their own), another thread's to the registry; `add`
+    adds a recorded dict back, as a CUDA graph's replay does."""
+    import threading
+
+    tracing.reset(["t.a", "t.b"])
+    with tracing.recording() as outer:
+        tracing.count("t.a", 2)
+        with tracing.recording() as inner:
+            tracing.count("t.b")
+        worker = threading.Thread(target=tracing.count, args=("t.b", 5))
+        worker.start()
+        worker.join()
+        tracing.count("t.a")
+    assert outer == {"t.a": 3} and inner == {"t.b": 1}
+    assert tracing.counters().get("t.a", 0) == 0 and tracing.counters()["t.b"] == 5
+    tracing.add(outer)
+    tracing.add(outer)
+    assert tracing.counters()["t.a"] == 6
+    tracing.reset(["t.a", "t.b"])
