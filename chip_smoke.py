@@ -68,7 +68,12 @@ expert GEMMs, the combine, causal attention at q·k 192 and v 128, the
 head at D 2 048 and V 163 840), each against its bound, its plain version
 and a library call, and ingests 32 docs through `build_model`'s `moonlight-16b-a3b`
 preset with its launch counters; `python3 chip_smoke.py
---moonlight-only` runs it alone. Every
+--moonlight-only` runs it alone. Step 3e does the same for
+Kimi-Linear-48B-A3B (KDA's chunked kernels at 32 heads of 128 over up to
+32 768 positions, the held-expert share of the grouped GEMMs, causal MLA at
+32 heads and 32k positions, the head at D 2 304) and ingests 4 docs of its
+cell's lengths through `kimi-linear-48b-a3b-ep2`; `python3 chip_smoke.py
+--kimi-linear-only` runs it alone. Every
 inference path of the main run (the eval, serving, the kd teachers, the
 eval ranks, the mesh eval) launches that kernel once a layer of each
 encoder forward and takes no plain chain; training takes the plain chain
@@ -88,6 +93,7 @@ import atexit
 import ctypes
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -3630,17 +3636,19 @@ def moonlight_rows(dev):
     chosen, w = moe.route(u, torch.randn((E, D), generator=g, device=dev) * 0.02,
                           torch.randn(E, generator=g, device=dev) * 0.02, k, 2.446)
     token, offsets, pos = moe.permute(chosen, E)
-    x = u.to(torch.bfloat16).index_select(0, token)
+    ub = u.to(torch.bfloat16)
+    x = ub.index_select(0, token)  # the rows gathered: the plain version's and the library's
     gate, up = ((torch.randn((E, I, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
                 for _ in range(2))
     down = (torch.randn((E, D, I), generator=g, device=dev) * 0.02).to(torch.bfloat16)
     R = x.shape[0]
-    h = moe.expert_gate_up(x, gate, up, offsets)
+    h = moe.expert_gate_up(ub, token, gate, up, offsets)
     y = moe.expert_down(h, down, offsets)
     torch.cuda.synchronize()
     for name, got, plain, f, p, ops, nbytes in (
             ("moe_gate_up", h, lambda: moe.expert_gate_up_reference(x, gate, up, offsets),
-             lambda: moe.expert_gate_up(x, gate, up, offsets), (x, gate, up), 2 * R * D * 2 * I,
+             lambda: moe.expert_gate_up(ub, token, gate, up, offsets), (x, gate, up),
+             2 * R * D * 2 * I,
              E * 2 * I * D * 2 + R * (D + I) * 2),
             ("moe_down", y, lambda: moe.expert_down_reference(h, down, offsets),
              lambda: moe.expert_down(h, down, offsets), (h, down), 2 * R * I * D,
@@ -3695,7 +3703,7 @@ def moonlight_rows(dev):
                  "row_gap_worst": float(rel.max())})
     print(f"moonlight kernels: {json.dumps(rows[-1])}", flush=True)
     del x0, xs, shared, got, ref
-    del u, x, gate, up, down, h, y
+    del u, ub, x, gate, up, down, h, y
     # causal attention at MLA's dims
     q, kk = (torch.randn((B, L, H, 192), generator=g, device=dev).to(torch.bfloat16)
              for _ in range(2))
@@ -3812,6 +3820,259 @@ def phase_moonlight(dev):
     return res
 
 
+# the Kimi Linear cell's traffic: doc lengths in words, one wordpiece a word
+LONGDOC_KL = os.path.join(HERE, "lsr_bench", "traffic", "longdoc-12k-32k.json")
+
+
+def kimi_linear_rows(dev):
+    """Kimi Linear's kernels at its cell's shapes, each against its bound
+    and its plain version: KDA's two kernels at 32 heads of dk = dv = 128
+    over [1, L] for L 64, 4 096 and 32 768 and over the cell's largest batch
+    [2, 30 912] (the bound `attn_linear_bound_s` counts: n·H·6·dk·dv
+    operations against q, k, v, the decay's and the gate's pre-activations
+    and o in bf16, β in fp32); the mixer's three elementwise kernels (the
+    short conv with SiLU, with and without the L2 norm, the decay gate, the
+    gated norm) over the largest batch [2, 30 912, 32 x 128], against their
+    plain torch versions and their bytes; causal MLA at [1, 32 768, 32, 192
+    | 128] and the head at [2, 30 912, 2 304, 163 840], each held to its
+    plain version on sampled query rows or vocab columns; the held-expert
+    GEMMs (128 of 256 experts, 8 a token) over the largest batch's rows."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+    from opensearch_sparse_model_tuning_sample_torch.ops import kda as kda_op
+    from opensearch_sparse_model_tuning_sample_torch.ops import moe
+    from opensearch_sparse_model_tuning_sample_torch.ops.maxpool import (maxpool_head,
+                                                                          maxpool_head_reference)
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    H, d, rows = 32, 128, []
+    for B, L, n in ((1, 64, [64]), (1, 4096, [4096]), (1, 32768, [32768]),
+                    (2, 30912, [30853, 20928])):
+        q, k = (torch.nn.functional.normalize(torch.randn((B, L, H, d), generator=g, device=dev),
+                                              dim=-1).to(torch.bfloat16) for _ in range(2))
+        v = torch.randn((B, L, H, d), generator=g, device=dev).to(torch.bfloat16)
+        decay = -4.0 * torch.nn.functional.softplus(
+            torch.randn((B, L, H, d), generator=g, device=dev) - 3.0)
+        beta = torch.sigmoid(torch.randn((B, L, H), generator=g, device=dev))
+        got = kda_op.kda(q, k, v, decay, beta, d ** -0.5)
+        t0 = time.perf_counter()
+        ref = kda_op.kda_chunked_reference(q, k, v, decay, beta, d ** -0.5)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (got - ref).abs() / ref.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+        check(float(err.max()) <= 1 / 32 and float(err.mean()) <= 1 / 512,
+              f"kda [{B}, {L}]: worst {float(err.max())}, mean {float(err.mean())}")
+        ms = cuda_ms(lambda: kda_op.kda(q, k, v, decay, beta, d ** -0.5), 3)
+        nt = float(sum(n))
+        bound = max(nt * H * 6 * d * d / PEAK_BF16_FLOPS,
+                    nt * H * (2 * 6 * d + 4) / PEAK_BYTES_PER_S) * 1e3
+        rows.append({"kernel": "kda_intra_kernel+kda_state_kernel", "shape": [B, L, H, d, d],
+                     "ms": ms, "bound_ms": bound, "share_of_bound": bound / ms,
+                     "plain_ms": plain_ms, "gap_worst": float(err.max()),
+                     "gap_mean": float(err.mean())})
+        print(f"kimi linear kernels: {json.dumps(rows[-1])}", flush=True)
+        del q, k, v, decay, beta, got, ref, err
+    torch.cuda.empty_cache()
+    rows += kda_elementwise_rows(dev, g)
+    # the held experts over the largest batch's real tokens
+    T, D, I, E, held, kk = 30853 + 20928, 2304, 1024, 256, 128, 8
+    u = torch.randn((T, D), generator=g, device=dev)
+    chosen, w = moe.route(u, torch.randn((E, D), generator=g, device=dev) * 0.02,
+                          torch.randn(E, generator=g, device=dev) * 0.02, kk, 2.446)
+    u = u.to(torch.bfloat16)
+    gate, up = ((torch.randn((held, I, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+                for _ in range(2))
+    down = (torch.randn((held, D, I), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    token, offsets, pos = moe.permute(chosen, held, 0)
+    R = int(offsets[-1])
+    h = moe.expert_gate_up(u, token, gate, up, offsets)
+    y = moe.expert_down(h, down, offsets)
+    torch.cuda.synchronize()
+    hr = moe.expert_gate_up_reference(u.index_select(0, token[:R]), gate, up, offsets)
+    yr = moe.expert_down_reference(h[:R], down, offsets)
+    for name, got, ref, f, ops, nbytes in (
+            ("moe_gate_up", h[:R], hr,
+             lambda: moe.expert_gate_up(u, token, gate, up, offsets), 2 * R * D * 2 * I,
+             held * 2 * I * D * 2 + R * (D + I) * 2),
+            ("moe_down", y[:R], yr, lambda: moe.expert_down(h, down, offsets), 2 * R * I * D,
+             held * D * I * 2 + R * (I + D) * 2)):
+        rel = _rel_rows(got, ref)
+        check(float(rel.max()) <= 2 ** -7, f"{name} (held share): row gap {float(rel.max())}")
+        ms = cuda_ms(f, 5)
+        bound = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        rows.append({"kernel": name + "_kernel", "shape": [T * kk, R, D, I, held], "ms": ms,
+                     "bound_ms": bound, "share_of_bound": bound / ms,
+                     "row_gap_worst": float(rel.max())})
+        print(f"kimi linear kernels: {json.dumps(rows[-1])}", flush=True)
+    del u, gate, up, down, h, y, hr, yr
+    torch.cuda.empty_cache()
+    # causal MLA at 32 heads over one 32k doc
+    L = 32768
+    q, k = (torch.randn((1, L, H, 192), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((1, L, H, 128), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.ones((1, L), dtype=torch.int32, device=dev)
+    got = at.attention(q, k, v, mask, causal=True)
+    # the plain path's softmax on the query rows of four spread tiles, 8
+    # heads at a time (the whole [L, L] would not fit)
+    qrows = torch.cat([torch.arange(s, s + 64) for s in (0, 8192, 20480, L - 64)]).to(dev)
+    qh, kh, vh = (t[0].transpose(0, 1).float() for t in (q, k, v))
+    allowed = torch.arange(L, device=dev)[None, :] <= qrows[:, None]
+    worst = 0.0
+    for h0 in range(0, H, 8):
+        logits = qh[h0:h0 + 8, qrows] @ kh[h0:h0 + 8].transpose(-1, -2) / 192 ** 0.5
+        p = torch.softmax(logits.masked_fill(~allowed, float("-inf")), -1)
+        ref = (p.to(torch.bfloat16).float() @ vh[h0:h0 + 8]).transpose(0, 1)
+        worst = max(worst, float(_rel_rows(got[0, qrows, h0:h0 + 8], ref).max()))
+    check(worst <= ATTN_ROW_TOL, f"causal attention at 32 heads, 32k: row gap {worst}")
+    del qh, kh, vh, logits, p, ref, got
+    ms = cuda_ms(lambda: at.attention(q, k, v, mask, causal=True), 3)
+    bound = max(L * (L + 1) / 2 * H * 2 * 320 / PEAK_BF16_FLOPS,
+                L * H * 640 * 2 / PEAK_BYTES_PER_S) * 1e3
+    rows.append({"kernel": "attention_causal_kernel", "shape": [1, L, H, 192, 128], "ms": ms,
+                 "bound_ms": bound, "share_of_bound": bound / ms, "row_gap_worst": worst,
+                 "rows_checked": int(qrows.numel()) * H})
+    print(f"kimi linear kernels: {json.dumps(rows[-1])}", flush=True)
+    del q, k, v
+    # the head at D 2 304 over the largest batch
+    B, L, V = 2, 30912, 163840
+    n = torch.tensor([30853, 20928], device=dev)
+    mask = (torch.arange(L, device=dev)[None, :] < n[:, None]).to(torch.int32)
+    hh = torch.randn((B, L, D), generator=g, device=dev).to(torch.bfloat16)
+    wl = (torch.randn((V, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    bias = torch.zeros(V, device=dev)
+    got = maxpool_head(hh, mask, wl, bias)
+    cols = torch.cat([torch.arange(0, V, 163), torch.arange(V - 64, V)]).unique()[:1024].to(dev)
+    ref = maxpool_head_reference(hh, mask, wl[cols].contiguous(), bias[cols].contiguous())
+    err = (got[:, cols] - ref).abs()
+    check(bool((err <= 1e-3 * ref.abs().clamp_min(1.0)).all()), f"head D 2304: {float(err.max())}")
+    ms = cuda_ms(lambda: maxpool_head(hh, mask, wl, bias), 3)
+    bound = max(2 * int(n.sum()) * D * V / PEAK_BF16_FLOPS,
+                (V * D * 2 + B * L * D * 2 + B * V * 4) / PEAK_BYTES_PER_S) * 1e3
+    rows.append({"kernel": "maxpool_head_stream_kernel", "shape": [B, L, D, V], "ms": ms,
+                 "bound_ms": bound, "share_of_bound": bound / ms, "worst_gap": float(err.max()),
+                 "cols_checked": int(cols.numel())})
+    print(f"kimi linear kernels: {json.dumps(rows[-1])}", flush=True)
+    del hh, wl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def kda_elementwise_rows(dev, g):
+    """KDA's three elementwise kernels over the cell's largest batch [2, 30
+    912] at 32 heads of 128, on inputs of the model's scales (projections
+    of a unit-RMS stream by N(0, 0.02) weights, its A_log, dt_bias and conv
+    ranges): `conv_silu` with and without the L2 norm (q and k; v), `decay`
+    and `gated_norm`, each against its plain torch version on the same
+    inputs (each (position, head) row within 2^-7 of its largest value where
+    both round to bf16, 1e-4 where both stay in fp32) and its bytes read and
+    written once at 3.35 TB/s."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import kda as kda_op
+
+    B, L, H, d, K = 2, 30912, 32, 128, 4
+    C, n, rows = H * d, B * L * H * d, []
+    x = torch.randn((B, L, C), generator=g, device=dev).to(torch.bfloat16)
+    wc = torch.rand((C, K), generator=g, device=dev) - 0.5
+    f = torch.randn((B, L, C), generator=g, device=dev) * 0.2
+    a_log = torch.log(1.0 + 15.0 * torch.rand(H, generator=g, device=dev))
+    dt = torch.exp(math.log(1e-3) + torch.rand(C, generator=g, device=dev) * math.log(100.0))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    o = torch.randn((B, L, H, d), generator=g, device=dev)
+    gate = torch.randn((B, L, C), generator=g, device=dev) * 0.2
+    wn = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+    for name, f_kernel, f_plain, tol, nbytes in (
+            ("kda_conv_kernel (norm)", lambda: kda_op.conv_silu(x, wc, d, True),
+             lambda: kda_op.conv_silu_reference(x, wc, d, True), 2 ** -7, n * (2 + 2)),
+            ("kda_conv_kernel", lambda: kda_op.conv_silu(x, wc, d, False),
+             lambda: kda_op.conv_silu_reference(x, wc, d, False), 2 ** -7, n * (2 + 2)),
+            ("kda_gate_kernel", lambda: kda_op.decay(f, a_log, dt_bias, d),
+             lambda: kda_op.decay_reference(f, a_log, dt_bias, d), 1e-4, n * (4 + 4)),
+            ("kda_gated_norm_kernel",
+             lambda: kda_op.gated_norm(o, wn, gate, 1e-5, torch.bfloat16),
+             lambda: kda_op.gated_norm_reference(o, wn, gate, 1e-5, torch.bfloat16), 2 ** -7,
+             n * (4 + 4 + 2))):
+        got, ref = f_kernel().float(), f_plain().float()
+        err = (got - ref).abs() / ref.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+        check(bool(torch.isfinite(got).all()) and float(err.max()) <= tol,
+              f"{name}: row gap {float(err.max())} (limit {tol})")
+        del got, ref
+        ms = cuda_ms(f_kernel, 5)
+        plain_ms = cuda_ms(f_plain, 3)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        rows.append({"kernel": name, "shape": [B, L, H, d], "ms": ms, "bound_ms": bound,
+                     "share_of_bound": bound / ms, "plain_ms": plain_ms,
+                     "gap_worst": float(err.max())})
+        print(f"kimi linear kernels: {json.dumps(rows[-1])}", flush=True)
+        del err
+    del x, wc, f, o, gate
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kimi_linear(dev):
+    """Kimi-Linear-48B-A3B through the cell's path (step 3e): the kernel rows
+    above, then `build_model`'s `kimi-linear-48b-a3b-ep2` preset on the card
+    (51 GB, 128 of 256 experts a layer, drawn a tensor at a time) and
+    `eval/beir.py::ingest` of 4 docs at the cell's lengths (batch 2,
+    max_length 32 768). Every batch launches the KDA kernels once a KDA
+    layer (the conv kernel three times), the causal kernel once an MLA
+    layer, the gate-up, down and combine kernels once an expert layer and the head once; no plain version runs;
+    `encoder.attn.tokens.linear` adds the positions of every KDA layer;
+    every stored row is finite and holds terms."""
+    from opensearch_sparse_model_tuning_sample_torch.eval.beir import ingest
+    from opensearch_sparse_model_tuning_sample_torch.index.engine import IndexConfig
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as se
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    t0 = time.time()
+    rows = kimi_linear_rows(dev)
+    tracing.reset()
+    model = se.build_model(arch="kimi-linear-48b-a3b-ep2", seed=0, device=dev)
+    cfg = model.cfg
+    held = torch.cuda.memory_allocated(dev)
+    words = [w for w in model.tokenizer.vocab if w.isalpha() and w.isascii() and len(w) > 2]
+    rng = np.random.default_rng(26)
+    lens = [4895, 13504, 20926, 30851]
+    corpus = [(f"d{i}", " ".join(rng.choice(words, int(x)))) for i, x in enumerate(lens)]
+    out = os.path.join(OUT, "kimi_linear")
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.time()
+    index = ingest(corpus, model, out, "kimi_linear", max_length=32768, batch_size=2,
+                   index_cfg=IndexConfig(engine="sparse", l_max=256))
+    torch.cuda.synchronize()
+    ingest_s = time.time() - t1
+    c = tracing.counters()
+    nb = sum(v for key, v in c.items() if key.startswith("encoder.batch_len."))
+    n_kda = sum(cfg.is_kda(i) for i in range(cfg.num_hidden_layers))
+    moe_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    want = {"kda.launches.kda_intra_kernel": n_kda * nb,
+            "kda.launches.kda_state_kernel": n_kda * nb,
+            "kda.launches.kda_conv_kernel": 3 * n_kda * nb,
+            "kda.launches.kda_gate_kernel": n_kda * nb,
+            "kda.launches.kda_gated_norm_kernel": n_kda * nb,
+            "attn.launches.attention_causal_kernel": (cfg.num_hidden_layers - n_kda) * nb,
+            "moe.launches.moe_gate_up_kernel": moe_layers * nb,
+            "moe.launches.moe_down_kernel": moe_layers * nb,
+            "moe.launches.moe_combine_kernel": moe_layers * nb,
+            "head.launches.maxpool_head": nb,
+            "encoder.attn.tokens.linear": n_kda * c.get("encoder.positions", -1),
+            "encoder.moe.experts_held": 128}
+    for key, val in want.items():
+        check(c.get(key) == val, f"kimi linear ingest: {key} {c.get(key)}, {val} expected")
+    plains = {key: val for key, val in c.items() if ".plain_calls." in key and val}
+    check(not plains, f"kimi linear ingest: no plain version ({plains})")
+    w, _ = index._stored_rows()
+    w = w[:index.n_docs].float()
+    check(index.n_docs == len(corpus) and bool(torch.isfinite(w).all())
+          and bool(((w > 0).sum(1) > 0).all()), "kimi linear ingest: every row finite, with terms")
+    res = {"kernels": rows, "held_bytes": held, "batches": nb, "docs": len(corpus),
+           "ingest_s": ingest_s, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "counters": {key: c.get(key) for key in want}, "seconds": time.time() - t0}
+    del model, index
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3821,6 +4082,7 @@ def main():
     only_modernbert = sys.argv[1:] == ["--modernbert-only"]
     only_bert_attention = sys.argv[1:] == ["--bert-attention-only"]
     only_moonlight = sys.argv[1:] == ["--moonlight-only"]
+    only_kimi_linear = sys.argv[1:] == ["--kimi-linear-only"]
     sys.path.insert(0, HERE)
     from opensearch_sparse_model_tuning_sample_torch.cli.evaluate_beir import prepare_model_args
     from opensearch_sparse_model_tuning_sample_torch.core.config import parse_config
@@ -3840,12 +4102,14 @@ def main():
     ).stdout.strip().splitlines()
     card = cards[0]
     dev = resolve_device("cuda")
-    if only_modernbert or only_bert_attention or only_moonlight:
+    if only_modernbert or only_bert_attention or only_moonlight or only_kimi_linear:
         print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
         if only_modernbert:
             print("modernbert: " + json.dumps(phase_modernbert(dev)), flush=True)
         elif only_moonlight:
             print("moonlight: " + json.dumps(phase_moonlight(dev)), flush=True)
+        elif only_kimi_linear:
+            print("kimi linear: " + json.dumps(phase_kimi_linear(dev)), flush=True)
         else:
             print("bert attention: " + json.dumps(phase_bert_attention(dev)), flush=True)
         print(card)
@@ -3906,6 +4170,9 @@ def main():
     # 3d. Moonlight-16B-A3B: its expert GEMMs, causal attention and the head
     # at D 2 048 at the cell's shapes, then its ingest path
     print("moonlight: " + json.dumps(phase_moonlight(dev)), flush=True)
+    # 3e. Kimi-Linear-48B-A3B: KDA's kernels, the held-expert share, causal MLA
+    # at 32k and the head at D 2 304 at the cell's shapes, then its ingest path
+    print("kimi linear: " + json.dumps(phase_kimi_linear(dev)), flush=True)
     # the training forward's ablations at the train step's L = 64 bucket, the
     # longest, L = 512 (eight chunks a doc), and D = 768 (2-stage rings); its
     # main-path batch later

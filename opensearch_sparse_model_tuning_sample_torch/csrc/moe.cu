@@ -1,13 +1,17 @@
 // Grouped expert GEMMs and the combine of a DeepSeekMoE layer, for Hopper
-// (sm_90a): Moonlight's routed experts (`ops/moe.py`, `models/moonlight.py`).
+// (sm_90a): the routed experts of `ops/moe.py` (`models/moonlight.py`,
+// `models/kimi_linear.py`).
 //
-//   gate-up:  h[r, :] = silu(x[r] . gate[e]^T) * (x[r] . up[e]^T)     [R, I]
+//   gate-up:  h[r, :] = silu(u[token[r]] . gate[e]^T) * (u[token[r]] . up[e]^T)  [R, I]
 //   down:     y[r, :] = h[r] . down[e]^T                                [R, D]
 //   combine:  x[t, :] += sum_s w[t, s] * y[pos[t, s], :] + shared[t, :]  (fp32)
 //
 // for every row r of expert e's group, offsets[e] <= r < offsets[e + 1]:
-// the token-expert rows sorted by expert, the offsets on the card. x, gate,
-// up, down, h, y and shared are bf16; products accumulate in fp32; SiLU·mul
+// the token-expert rows sorted by expert, the offsets on the card, and the
+// gate-up reading each row's token from u in place (no gathered copy).
+// Rows past offsets[E] (experts a card does not hold) are neither read nor
+// written, and the combine skips their slots (pos -1). u, gate, up, down,
+// h, y and shared are bf16; products accumulate in fp32; SiLU·mul
 // runs in fp32 on the accumulators and is rounded to bf16 once. The combine
 // adds each token's k rows in slot order, then the shared expert, into the
 // fp32 residual stream: no atomics, so the result is the same bit for bit on
@@ -55,12 +59,13 @@ constexpr int LDS = BK + 8;  // a shared row, padded (values)
 constexpr int SMEM = STAGES * (BM + BN) * LDS * 2;
 
 struct Args {
-  const __nv_bfloat16* x;   // [R, K]
+  const __nv_bfloat16* x;   // [R, K]; gate-up: the tokens [T, K], row r at token[r]
   const __nv_bfloat16* w0;  // [E, N, K]: gate, or down
   const __nv_bfloat16* w1;  // [E, N, K]: up (gate-up only)
   const int* offsets;       // [E + 1]
   __nv_bfloat16* out;       // [R, N]
   int R, K, N, E;
+  const long long* token;   // [R] (gate-up only)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -131,7 +136,8 @@ __device__ __forceinline__ bool find_tile(const Args& a, int& e_out, int& r0, in
 }
 
 // GATE_UP: 64 gate rows and the same 64 up rows a block, SiLU·mul epilogue;
-// else 128 weight rows (output columns) a block.
+// row r of the group reads x[token[r]] (the tokens in place). Else 128
+// weight rows (output columns) a block, row r reading x[r].
 template <bool GATE_UP>
 __device__ __forceinline__ void grouped_gemm(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -156,8 +162,8 @@ __device__ __forceinline__ void grouped_gemm(const Args& a) {
       const bool kok = k0 + col < a.K;
       const int row = r0 + r;
       const bool ok = kok && row < r1;
-      cp_async16(sA + (st * BM + r) * LDS + col, a.x + (ok ? (long long)row * a.K + k0 + col : 0),
-                 ok);
+      const long long src = GATE_UP ? (ok ? a.token[row] : 0) : row;
+      cp_async16(sA + (st * BM + r) * LDS + col, a.x + (ok ? src * a.K + k0 + col : 0), ok);
       int wr;
       const __nv_bfloat16* W;
       if (GATE_UP) {
@@ -267,8 +273,10 @@ __global__ void __launch_bounds__(256) moe_combine_kernel(float* __restrict__ x,
   for (int c = threadIdx.x * 8; c < D; c += blockDim.x * 8) {
     float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int s = 0; s < k; ++s) {
+      const long long r = pos[t * k + s];
+      if (r < 0) continue;  // an expert this card does not hold
       const float ws = w[t * k + s];
-      const uint4 v = *reinterpret_cast<const uint4*>(y + pos[t * k + s] * D + c);
+      const uint4 v = *reinterpret_cast<const uint4*>(y + r * D + c);
       const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -293,7 +301,8 @@ __global__ void __launch_bounds__(256) moe_combine_kernel(float* __restrict__ x,
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 int launch_gemm(bool gate_up, const Args& a, cudaStream_t s) {
-  if (a.R < 0 || a.K <= 0 || a.N <= 0 || a.E <= 0 || a.K % 8 || a.N % 2)
+  if (a.R < 0 || a.K <= 0 || a.N <= 0 || a.E <= 0 || a.K % 8 || a.N % 2 ||
+      (gate_up && a.token == nullptr))
     return (int)cudaErrorInvalidValue;
   if (!aligned16(a.x) || !aligned16(a.w0) || (gate_up && !aligned16(a.w1)) || !aligned16(a.out))
     return (int)cudaErrorMisalignedAddress;
@@ -313,13 +322,15 @@ int launch_gemm(bool gate_up, const Args& a, cudaStream_t s) {
 
 extern "C" {
 
-// x [R, D], gate and up [E, I, D], offsets [E + 1] int32 (on the card,
-// offsets[E] == R), h [R, I]; D a multiple of 8.
-int moe_gate_up_bf16(const void* x, const void* gate, const void* up, const void* offsets,
-                     void* h, int R, int D, int I, int E, void* stream) {
+// x [T, D] the tokens, token [R] int64 the token of each row sorted by
+// expert, gate and up [E, I, D], offsets [E + 1] int32 (on the card;
+// offsets[E] <= R), h [R, I]: only the rows of the E groups (up to
+// offsets[E]) are read and written; D a multiple of 8.
+int moe_gate_up_bf16(const void* x, const void* token, const void* gate, const void* up,
+                     const void* offsets, void* h, int R, int D, int I, int E, void* stream) {
   const Args a{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(gate),
                static_cast<const __nv_bfloat16*>(up), static_cast<const int*>(offsets),
-               static_cast<__nv_bfloat16*>(h), R, D, I, E};
+               static_cast<__nv_bfloat16*>(h), R, D, I, E, static_cast<const long long*>(token)};
   return launch_gemm(true, a, static_cast<cudaStream_t>(stream));
 }
 
@@ -328,12 +339,13 @@ int moe_down_bf16(const void* h, const void* down, const void* offsets, void* y,
                   int D, int E, void* stream) {
   const Args a{static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(down),
                nullptr, static_cast<const int*>(offsets), static_cast<__nv_bfloat16*>(y), R, I, D,
-               E};
+               E, nullptr};
   return launch_gemm(false, a, static_cast<cudaStream_t>(stream));
 }
 
 // x [T, D] fp32 (added to in place), y [R, D] bf16, shared [T, D] bf16,
-// pos [T, k] int64 (rows of y), w [T, k] fp32; D a multiple of 8.
+// pos [T, k] int64 (rows of y; -1 for an expert not held, left out), w
+// [T, k] fp32; D a multiple of 8.
 int moe_combine(void* x, const void* y, const void* shared, const void* pos, const void* w,
                 int T, int D, int k, void* stream) {
   if (T < 0 || D <= 0 || D % 8 || k <= 0) return (int)cudaErrorInvalidValue;

@@ -154,6 +154,32 @@ class Attn(nn.Module):
         self.o_proj = _matrix(D, H * cfg.v_head_dim)
 
 
+def mla(cfg, at: Attn, a: torch.Tensor, mask: torch.Tensor,
+        rope: Optional[tuple]) -> torch.Tensor:
+    """MLA with no q compression, then W_o, for a [B, L, D] (the normed
+    input, compute dtype) -> [B, L, D] in the compute dtype. `rope` (cos,
+    sin) rotates q_rope and the shared k_r; None leaves them as they are
+    (Kimi Linear's `mla_use_nope`)."""
+    B, L, _ = a.shape
+    cd = a.dtype
+    H, nope, rd = cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = torch.matmul(a, at.q_proj.t()).view(B, L, H, nope + rd)
+    ckv = torch.matmul(a, at.kv_a_proj_with_mqa.t())
+    c, k_r = ckv.split([cfg.kv_lora_rank, rd], dim=-1)
+    kv = torch.matmul(rms_norm(c, at.kv_a_layernorm, cfg.rms_norm_eps).to(cd),
+                      at.kv_b_proj.t()).view(B, L, H, nope + cfg.v_head_dim)
+    if rope is None:
+        k_r = k_r.view(B, L, 1, rd).expand(B, L, H, rd)
+    else:
+        cos, sin = rope
+        q_r = apply_rope(q[..., nope:], cos, sin)
+        k_r = apply_rope(k_r.view(B, L, 1, rd), cos, sin).expand(B, L, H, rd)
+        q = torch.cat([q[..., :nope], q_r], dim=-1)
+    k = torch.cat([kv[..., :nope], k_r], dim=-1)
+    ctx = attention(q, k, kv[..., nope:], mask, causal=True)
+    return torch.matmul(ctx.reshape(B, L, H * cfg.v_head_dim), at.o_proj.t())
+
+
 class SwiGLU(nn.Module):
     def __init__(self, D: int, width: int):
         super().__init__()
@@ -222,22 +248,8 @@ class Layer(nn.Module):
     def attend(self, x: torch.Tensor, mask: torch.Tensor, rope: tuple) -> torch.Tensor:
         """The attention block's output for x [B, L, D] fp32, in the compute
         dtype: MLA, then W_o."""
-        cfg, cd, at = self.cfg, self.cfg.compute_dtype, self.self_attn
-        B, L, _ = x.shape
-        H, nope, rd = cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-        a = rms_norm(x, self.input_layernorm, cfg.rms_norm_eps).to(cd)
-        q = torch.matmul(a, at.q_proj.t()).view(B, L, H, nope + rd)
-        ckv = torch.matmul(a, at.kv_a_proj_with_mqa.t())
-        c, k_r = ckv.split([cfg.kv_lora_rank, rd], dim=-1)
-        kv = torch.matmul(rms_norm(c, at.kv_a_layernorm, cfg.rms_norm_eps).to(cd),
-                          at.kv_b_proj.t()).view(B, L, H, nope + cfg.v_head_dim)
-        cos, sin = rope
-        q_r = apply_rope(q[..., nope:], cos, sin)
-        k_r = apply_rope(k_r.view(B, L, 1, rd), cos, sin).expand(B, L, H, rd)
-        q = torch.cat([q[..., :nope], q_r], dim=-1)
-        k = torch.cat([kv[..., :nope], k_r], dim=-1)
-        ctx = attention(q, k, kv[..., nope:], mask, causal=True)
-        return torch.matmul(ctx.reshape(B, L, H * cfg.v_head_dim), at.o_proj.t())
+        a = rms_norm(x, self.input_layernorm, self.cfg.rms_norm_eps).to(self.cfg.compute_dtype)
+        return mla(self.cfg, self.self_attn, a, mask, rope)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, rope: tuple) -> torch.Tensor:
         """x [B, L, D] fp32 (the residual stream) -> the same."""

@@ -42,7 +42,7 @@ from ..ops.activations import (
 )
 from ..utils import tracing
 from . import bert as bert_mod
-from . import modernbert, moonlight
+from . import kimi_linear, modernbert, moonlight
 from .bert import BertConfig, BertForMaskedLM
 from .tokenizer import load_idf_weights, load_tokenizer
 
@@ -52,7 +52,8 @@ logger = logging.getLogger(__name__)
 class SparseEncoderModel(nn.Module):
     """Masked-LM module + IDF vector + tokenizer (reference SparseModel).
     The module (`bert`) is a `BertForMaskedLM` of the BERT family or a
-    `ModernBertForMaskedLM` or a `MoonlightForCausalLM`: each gives
+    `ModernBertForMaskedLM`, a `MoonlightForCausalLM` or a
+    `KimiLinearForCausalLM`: each gives
     `encode_hidden`, `mlm_maxpool` and `decoder_weight`."""
 
     def __init__(
@@ -467,9 +468,11 @@ def build_model(
     from a local HF-layout checkpoint dir, else a seeded random init of an
     `arch` preset ("mini" by default; "modernbert-large" and
     "modernbert-tiny" are ModernBERT, "moonlight-16b-a3b" and
-    "moonlight-tiny" Moonlight, each with its own vocab, the BERT presets
+    "moonlight-tiny" Moonlight, "kimi-linear-48b-a3b-ep2" and
+    "kimi-linear-tiny" Kimi Linear, each with its own vocab, the BERT presets
     take the tokenizer's). `param_dtype` is the parameters' dtype, float32
-    when None; a Moonlight preset holds its matrices in the compute dtype
+    when None; a Moonlight or Kimi Linear preset holds its matrices in the
+    compute dtype
     and its norm scales and router in float32, draws its weights on the
     device one tensor at a time, and raises for a `param_dtype` other than
     None or the compute dtype. Runs on the CUDA card unless `device="cpu"`; raises without a
@@ -487,13 +490,14 @@ def build_model(
             model_name_or_path, param_dtype=resolve_dtype(param_dtype),
             compute_dtype=compute_dtype
         )
-    elif arch in moonlight.PRESETS:
+    elif arch in moonlight.PRESETS or arch in kimi_linear.PRESETS:
         if param_dtype is not None and resolve_dtype(param_dtype) != compute_dtype:
             raise ValueError(f"{arch} holds its matrices in the compute dtype {compute_dtype} "
                              f"(its norm scales and router in float32); param_dtype "
                              f"{param_dtype} does not apply")
-        cfg = moonlight.config_from_preset(arch, compute_dtype=compute_dtype)
-        sd, loaded_idf = moonlight.init_state_dict(cfg, seed, dev), None
+        family = moonlight if arch in moonlight.PRESETS else kimi_linear
+        cfg = family.config_from_preset(arch, compute_dtype=compute_dtype)
+        sd, loaded_idf = family.init_state_dict(cfg, seed, dev), None
     else:
         if arch in modernbert.PRESETS:
             cfg = modernbert.config_from_preset(arch, param_dtype=resolve_dtype(param_dtype),
@@ -538,11 +542,13 @@ def build_model(
 
 
 def backbone_module(cfg):
-    """The module (`models/bert.py`, `models/modernbert.py` or
-    `models/moonlight.py`) that builds and initialises the backbone of
-    `cfg`."""
+    """The module (`models/bert.py`, `models/modernbert.py`,
+    `models/moonlight.py` or `models/kimi_linear.py`) that builds and
+    initialises the backbone of `cfg`."""
     if isinstance(cfg, moonlight.MoonlightConfig):
         return moonlight
+    if isinstance(cfg, kimi_linear.KimiLinearConfig):
+        return kimi_linear
     return modernbert if isinstance(cfg, modernbert.ModernBertConfig) else bert_mod
 
 

@@ -27,6 +27,7 @@ SOURCES = {
     "maxpool_head_bwd": _PKG / "csrc" / "maxpool_head_bwd.cu",
     "attention": _PKG / "csrc" / "attention.cu",
     "moe": _PKG / "csrc" / "moe.cu",
+    "kda": _PKG / "csrc" / "kda.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

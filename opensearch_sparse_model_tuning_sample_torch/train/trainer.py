@@ -62,6 +62,7 @@ from ..core import distributed
 from ..core.mesh import Mesh, process_mesh, shard_batch, split_rows
 from ..models import hf_import, sparse_encoder as se
 from ..models.modernbert import ModernBertConfig
+from ..models.kimi_linear import KimiLinearConfig
 from ..models.moonlight import MoonlightConfig
 from ..ops import flops as flops_ops
 from ..ops.losses import LossSpec, build_loss_specs
@@ -206,6 +207,10 @@ class Trainer:
         if isinstance(model.cfg, MoonlightConfig):
             raise NotImplementedError(
                 "training a Moonlight backbone is not supported: the port runs it for "
+                "encoding (ingest, evaluation, serving) only")
+        if isinstance(model.cfg, KimiLinearConfig):
+            raise NotImplementedError(
+                "training a Kimi Linear backbone is not supported: the port runs it for "
                 "encoding (ingest, evaluation, serving) only")
         self.model = model
         self.teacher_ensemble = teacher_ensemble

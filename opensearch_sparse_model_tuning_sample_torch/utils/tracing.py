@@ -21,11 +21,17 @@ the ingest chunks resolved through their own event as
 resolved as `encoder.copy_out.waited`, BERT's attention layer calls that
 took the plain chain and not the fused kernel as `encoder.attn.plain_chain`,
 the query-key pairs each attention kind's launches compute as
-`encoder.attn.pairs.global`, `.local` and `.causal`, an expert layer's
-token-expert rows as `encoder.moe.rows`, counted on the host from the
-shapes, and each kernel's launches as `<family>.launches.<kernel>`:
-`head.`, `attn.` (`attention_causal_kernel` among them) and `moe.`
-(`moe_gate_up_kernel`, `moe_down_kernel`, `moe_combine_kernel`)), and
+`encoder.attn.pairs.global`, `.local` and `.causal`, the positions that
+Kimi Linear's KDA mixers run (padding included, summed over its layers) as
+`encoder.attn.tokens.linear`, an expert layer's token-expert rows as
+`encoder.moe.rows`, counted on the host from the shapes, the experts each
+expert layer holds as `encoder.moe.experts_held` (added once when a model
+that holds a share is built), and each kernel's launches as
+`<family>.launches.<kernel>`: `head.`, `attn.` (`attention_causal_kernel`
+among them), `moe.` (`moe_gate_up_kernel`, `moe_down_kernel`,
+`moe_combine_kernel`) and `kda.` (`kda_intra_kernel`, `kda_state_kernel`,
+`kda_conv_kernel`, `kda_gate_kernel`, `kda_gated_norm_kernel`), with their plain versions' calls as
+`<family>.plain_calls.<plain>`), and
 BERT's CUDA graphs of its encoder stack (`models/bert.py::GraphRunner`) as
 `encoder.graph.captures` and `encoder.graph.replays`, with the ingest
 batches that ran the stack eagerly as `encoder.graph.eager`;
@@ -37,7 +43,9 @@ at each replay.
 The expert layer's spans (`ops/moe.py`) are `encoder.moe.route` (router,
 top-k, weights), `encoder.moe.permute` (the sort, the gather of the rows,
 the combine) and `encoder.moe.experts` (the grouped GEMMs); Moonlight's
-attention core runs in `encoder.attn.causal`.
+and Kimi Linear's MLA cores run in `encoder.attn.causal`, and each of Kimi
+Linear's KDA mixers (from the projections' outputs to the gated norm's
+output before W_o) in `encoder.attn.linear`.
 """
 
 from __future__ import annotations

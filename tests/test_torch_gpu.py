@@ -1300,9 +1300,10 @@ def _moe_inputs(R, D, I, E, seed, device, empty=(5, 17, 63)):
 @pytest.mark.parametrize("R,D,I,E", [(24576, 2048, 1408, 64), (301, 64, 32, 8)],
                          ids=["moonlight", "tiny"])
 def test_grouped_expert_gemms_match_a_per_expert_loop(cuda, R, D, I, E):
-    """The gate-up (SiLU·mul fused) and down kernels against the plain
-    per-expert loop (the same bf16 operands, exact products summed in fp32),
-    with empty experts and ragged groups: each row within 2^-7 of its own
+    """The gate-up (SiLU·mul fused, each row's token read in place through a
+    shuffled token index) and down kernels against the plain per-expert loop
+    (the same bf16 operands, exact products summed in fp32), with empty
+    experts and ragged groups: each row within 2^-7 of its own
     norm (the kernels sum in another order and round once to bf16), one
     launch each."""
     from opensearch_sparse_model_tuning_sample_torch.ops import moe
@@ -1312,11 +1313,12 @@ def test_grouped_expert_gemms_match_a_per_expert_loop(cuda, R, D, I, E):
                                              empty=(5, 17, 63) if E == 64 else (3,))
     names = ["moe.launches.moe_gate_up_kernel", "moe.launches.moe_down_kernel"]
     tracing.reset(names)
-    h = moe.expert_gate_up(x, gate, up, offsets)
+    token = torch.randperm(R, generator=torch.Generator().manual_seed(R)).to(cuda)
+    h = moe.expert_gate_up(x, token, gate, up, offsets)
     y = moe.expert_down(h, down, offsets)
     torch.cuda.synchronize()
     assert [tracing.counters()[n] for n in names] == [1, 1]
-    h_ref = moe.expert_gate_up_reference(x, gate, up, offsets)
+    h_ref = moe.expert_gate_up_reference(x.index_select(0, token), gate, up, offsets)
     y_ref = moe.expert_down_reference(h, down, offsets)
     for got, ref in ((h, h_ref), (y, y_ref)):
         rel = (got.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-6)
@@ -1717,3 +1719,206 @@ def test_graph_maxpool_from_threads_equals_eager(cuda):
     torch.cuda.synchronize()
     for t, reps in enumerate(got):
         assert len(reps) == 5 and all(torch.equal(r, want[t]) for r in reps), t
+
+
+# --------------------------------------------------------------------------
+# Kimi Linear (models/kimi_linear.py): KDA's chunked kernels, the held-expert
+# share of the grouped GEMMs, causal MLA at 32 heads and 32k positions, the
+# head at D 2 304
+
+
+def _kda_inputs(B, L, H, d, seed, device, A=4.0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn((B, L, H, d), generator=g), dim=-1)
+    k = torch.nn.functional.normalize(torch.randn((B, L, H, d), generator=g), dim=-1)
+    v = torch.randn((B, L, H, d), generator=g)
+    decay = -A * torch.nn.functional.softplus(torch.randn((B, L, H, d), generator=g) - 3.0)
+    beta = torch.sigmoid(torch.randn((B, L, H), generator=g))
+    return (q.to(device, torch.bfloat16), k.to(device, torch.bfloat16),
+            v.to(device, torch.bfloat16), decay.to(device), beta.to(device))
+
+
+@pytest.mark.parametrize("B,L,H,d,A", [(2, 64, 32, 128, 4.0), (1, 4096, 32, 128, 4.0),
+                                       (1, 32768, 32, 128, 4.0), (2, 333, 32, 128, 16.0),
+                                       (3, 150, 2, 16, 4.0)],
+                         ids=["L64", "L4096", "L32768", "odd_strong", "tiny"])
+def test_kda_kernels_match_the_plain_chunked_path(cuda, B, L, H, d, A):
+    """KDA's two kernels at the published widths (32 heads, dk = dv = 128)
+    against the plain chunked path on the same bf16 inputs in fp32: each
+    (position, head) row's gap within 1/32 of the row's largest value and
+    the mean within 1/512 (the kernels round the chunk's operands and the
+    state to bf16 for their products); one launch of each; finite."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import kda as kda_op
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    q, k, v, decay, beta = _kda_inputs(B, L, H, d, L + H, cuda, A)
+    names = ["kda.launches.kda_intra_kernel", "kda.launches.kda_state_kernel"]
+    tracing.reset(names)
+    got = kda_op.kda(q, k, v, decay, beta, d ** -0.5)
+    torch.cuda.synchronize()
+    assert [tracing.counters()[n] for n in names] == [1, 1]
+    ref = kda_op.kda_chunked_reference(q, k, v, decay, beta, d ** -0.5)
+    err = (got - ref).abs() / ref.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    assert bool(torch.isfinite(got).all())
+    assert float(err.max()) <= 1 / 32, float(err.max())
+    assert float(err.mean()) <= 1 / 512, float(err.mean())
+
+
+@pytest.mark.parametrize("which", ["conv_norm", "conv", "decay", "gated_norm"])
+def test_kda_elementwise_kernels_match_plain_at_published_widths(cuda, which):
+    """KDA's elementwise kernels at 32 heads of 128 over [2, 4 096] (the
+    short conv with SiLU, with the L2 norm for q and k and without for v;
+    the decay gate; the gated norm) against their plain torch versions on
+    inputs of the model's scales: each (position, head) row within 2^-7 of
+    its largest value where both round to bf16, 1e-4 where both stay in
+    fp32; one launch."""
+    import math
+
+    from opensearch_sparse_model_tuning_sample_torch.ops import kda as kda_op
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    B, L, H, d, K = 2, 4096, 32, 128, 4
+    C = H * d
+    g = torch.Generator(device="cpu").manual_seed(41)
+    if which.startswith("conv"):
+        x = torch.randn((B, L, C), generator=g).to(cuda, torch.bfloat16)
+        w = (torch.rand((C, K), generator=g) - 0.5).to(cuda)
+        norm = which == "conv_norm"
+        args, kernel, plain, name, tol = ((x, w, d, norm), kda_op.conv_silu,
+                                          kda_op.conv_silu_reference, "kda_conv_kernel", 2 ** -7)
+    elif which == "decay":
+        f = (torch.randn((B, L, C), generator=g) * 0.2).to(cuda)
+        a_log = torch.log(1.0 + 15.0 * torch.rand(H, generator=g)).to(cuda)
+        dt = torch.exp(math.log(1e-3) + torch.rand(C, generator=g) * math.log(100.0))
+        args, kernel, plain, name, tol = ((f, a_log, (dt + torch.log(-torch.expm1(-dt))).to(cuda),
+                                           d), kda_op.decay, kda_op.decay_reference,
+                                          "kda_gate_kernel", 1e-4)
+    else:
+        o = torch.randn((B, L, H, d), generator=g).to(cuda)
+        gate = (torch.randn((B, L, C), generator=g) * 0.2).to(cuda)
+        w = (1.0 + 0.1 * torch.randn(d, generator=g)).to(cuda)
+        args, kernel, plain, name, tol = ((o, w, gate, 1e-5, torch.bfloat16), kda_op.gated_norm,
+                                          kda_op.gated_norm_reference, "kda_gated_norm_kernel",
+                                          2 ** -7)
+    tracing.reset(["kda.launches." + name])
+    got = kernel(*args).float()
+    torch.cuda.synchronize()
+    assert tracing.counters()["kda.launches." + name] == 1
+    ref = plain(*args).float()
+    assert got.shape == ref.shape == (B, L, H, d)
+    err = (got - ref).abs() / ref.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    assert bool(torch.isfinite(got).all())
+    assert float(err.max()) <= tol, float(err.max())
+
+
+def test_held_expert_share_matches_the_plain_layer(cuda):
+    """Kimi Linear's expert layer at its widths (D 2 304, I 1 024), 128 of 256
+    experts held, 8 a token: the gate-up kernel, the down kernel and the
+    combine (rows of absent experts never computed, left out) against the
+    per-expert loop over the held rows and the slot loop, within 2^-7 of
+    each row's norm; the launches; the held rows counted on the card."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import moe
+    from opensearch_sparse_model_tuning_sample_torch.utils import tracing
+
+    T, D, I, E, held, k = 3000, 2304, 1024, 256, 128, 8
+    g = torch.Generator(device="cpu").manual_seed(9)
+    u = torch.randn((T, D), generator=g).to(cuda, torch.bfloat16)
+    chosen = torch.stack([torch.randperm(E, generator=g)[:k] for _ in range(T)]).to(cuda)
+    w = torch.rand((T, k), generator=g).to(cuda)
+    gate, up = ((torch.randn((held, I, D), generator=g) * 0.02).to(cuda, torch.bfloat16)
+                for _ in range(2))
+    down = (torch.randn((held, D, I), generator=g) * 0.02).to(cuda, torch.bfloat16)
+    shared = torch.randn((T, D), generator=g).to(cuda, torch.bfloat16)
+    x = torch.randn((T, D), generator=g).to(cuda)
+    names = ["moe.launches.moe_gate_up_kernel", "moe.launches.moe_down_kernel",
+             "moe.launches.moe_combine_kernel"]
+    tracing.reset(names)
+    got = moe.experts(u, x.clone(), chosen, w, gate, up, down, shared, 0)
+    torch.cuda.synchronize()
+    assert [tracing.counters().get(n, 0) for n in names] == [1, 1, 1]
+    token, offsets, pos = moe.permute(chosen, held, 0)
+    assert int(offsets[-1]) == int((chosen < held).sum())
+    h = moe.expert_gate_up_reference(u.index_select(0, token), gate, up, offsets)
+    y = moe.expert_down_reference(h, down, offsets)
+    ref = moe.combine_reference(x.clone(), y, shared, pos, w)
+    rel = (got - ref).norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-6)
+    assert float(rel.max()) <= 2 ** -7, float(rel.max())
+
+
+def test_causal_attention_at_32_heads_and_32k_positions(cuda):
+    """The causal kernel at Kimi Linear's MLA (32 heads, q·k 192, v 128) over
+    one doc of 32 768 positions, against the plain path on the query rows of
+    four spread tiles, held as in the other causal test."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
+
+    B, L, H = 1, 32768, 32
+    g = torch.Generator(device="cpu").manual_seed(31)
+    q, k = (torch.randn((B, L, H, 192), generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    v = torch.randn((B, L, H, 128), generator=g).to(cuda, torch.bfloat16)
+    mask = torch.ones((B, L), dtype=torch.int32, device=cuda)
+    mask[:, L - 100:] = 0
+    got = at.attention(q, k, v, mask, causal=True)
+    torch.cuda.synchronize()
+    rows = torch.cat([torch.arange(s, s + 64) for s in (0, 8192, 20480, L - 164)]).to(cuda)
+    qh, kh, vh = (t[0].transpose(0, 1).float() for t in (q, k, v))
+    pos = torch.arange(L, device=cuda)
+    for h in range(0, H, 8):
+        logits = qh[h:h + 8, rows] @ kh[h:h + 8].transpose(-1, -2) / 192 ** 0.5
+        ok = (pos[None, :] <= rows[:, None]) & mask[0].bool()[None, :]
+        p = torch.softmax(logits.masked_fill(~ok, float("-inf")), -1)
+        ref = (p.to(torch.bfloat16).float() @ vh[h:h + 8]).transpose(0, 1)
+        gl = got[0, rows, h:h + 8].float()
+        rel = (gl - ref).norm(dim=-1) / ref.norm(dim=-1)
+        assert float(rel.max()) <= 2 ** -6, float(rel.max())
+
+
+def test_head_kernel_at_kimi_linear_width_matches_plain(cuda):
+    """The ingest head at [2, 30 912, 2 304, 163 840] (the cell's largest
+    batch: docs of 30 853 and 20 928 tokens; the streamed w tile) against
+    the plain version on 1 024 of the vocab's columns."""
+    lens = np.array([30853, 20928])
+    L = 30912
+    mask = (np.arange(L)[None, :] < lens[:, None]).astype(np.int32)
+    h, mask, w, bias = _inputs(2, L, 2304, 163840, 12, cuda, mask=mask)
+    got = maxpool_head(h, mask, w, bias)
+    torch.cuda.synchronize()
+    cols = torch.cat([torch.arange(0, 163840, 163), torch.arange(163840 - 64, 163840)])
+    cols = cols.unique()[:1024].to(cuda)
+    ref = maxpool_head_reference(h, mask, w[cols].contiguous(), bias[cols].contiguous())
+    err = (got[:, cols] - ref).abs()
+    assert bool((err <= 1e-3 * ref.abs().clamp_min(1.0)).all()), float(err.max())
+
+
+def test_tiny_kimi_linear_on_the_card_matches_the_cpu(cuda):
+    """encode_doc of Kimi Linear at test widths (KDA at dk = dv = 16, causal
+    MLA at q·k 32, v 16, experts with a held share) on the card (the KDA,
+    attention, expert and head kernels) against the CPU (their plain
+    versions), bf16 compute on both: the reps within 3e-2 of each row's
+    largest. The weights are drawn once on the CPU. No forward waits for the
+    card (the sync debug mode's "error")."""
+    from opensearch_sparse_model_tuning_sample_torch.models import kimi_linear as kl
+    from opensearch_sparse_model_tuning_sample_torch.models import sparse_encoder as tse
+    from opensearch_sparse_model_tuning_sample_torch.models.tokenizer import load_tokenizer
+
+    cfg = kl.config_from_preset("kimi-linear-tiny", experts_held=8, experts_first=4)
+    sd = kl.init_state_dict(cfg, 3)
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(5, 512, (4, 200), generator=g)
+    mask = (torch.arange(200)[None, :] < torch.tensor([200, 150, 64, 7])[:, None]).int()
+    reps = []
+    for dev in (cuda, torch.device("cpu")):
+        model = tse.SparseEncoderModel(cfg, kl.from_state_dict(cfg, sd, dev),
+                                       torch.ones(cfg.vocab_size), load_tokenizer(None))
+        i, m = ids.to(dev), mask.to(dev)
+        with torch.no_grad():
+            if dev.type == "cuda":
+                tse.encode_doc(model, i, m)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                rep = tse.encode_doc(model, i, m)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        reps.append(rep.cpu())
+    scale = reps[1].abs().amax(1, keepdim=True)
+    assert bool(((reps[0] - reps[1]).abs() <= 3e-2 * scale).all())

@@ -442,6 +442,41 @@ def test_modernbert_attention_spans_and_pair_counters(tmp_path):
         assert c["encoder.attn.pairs." + kind] == want
 
 
+def test_kimi_linear_spans_and_counters(tmp_path):
+    """A Kimi Linear ingest under a profiler (the tiny preset: KDA, KDA, KDA,
+    MLA; 16 experts, a share of 8 held): each KDA layer's mixer is the span
+    `encoder.attn.linear` inside `encoder.forward`, the MLA layer's core
+    `encoder.attn.causal`; `encoder.attn.tokens.linear` adds every KDA
+    layer's positions, padding included; the plain KDA runs once a KDA
+    layer and forward; `encoder.moe.experts_held` is the share, counted
+    once at build."""
+    (tmp_path / "vocab").mkdir()
+    (tmp_path / "vocab" / "vocab.txt").write_text(
+        "\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + sorted(set(WORDS))) + "\n")
+    from opensearch_sparse_model_tuning_sample_torch.models import kimi_linear
+
+    tracing.reset()
+    cfg = kimi_linear.config_from_preset("kimi-linear-tiny", compute_dtype=torch.float32,
+                                         experts_held=8, experts_first=8)
+    bert = kimi_linear.from_state_dict(cfg, kimi_linear.init_state_dict(cfg, 0), "cpu")
+    tok = tse.load_tokenizer(str(tmp_path / "vocab"))
+    model = tse.SparseEncoderModel(cfg, bert, torch.ones(cfg.vocab_size), tok)
+    assert tracing.counters()["encoder.moe.experts_held"] == 8
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _ingest(model, tmp_path, _corpus(20, seed=4, lo=2, hi=150))
+    spans = _spans(prof)
+    forward = [s for s in spans if s[3] == "encoder.forward"]
+    n_kda = sum(cfg.is_kda(i) for i in range(cfg.num_hidden_layers))
+    for name, n in (("encoder.attn.linear", n_kda), ("encoder.attn.causal", 4 - n_kda)):
+        found = [s for s in spans if s[3] == name]
+        assert len(found) == n * len(forward) > 0
+        assert all(any(f[0] <= s[0] and s[1] <= f[1] for f in forward) for s in found)
+    c = tracing.counters()
+    assert c["encoder.attn.tokens.linear"] == n_kda * c["encoder.positions"]
+    assert c["kda.plain_calls.kda_chunked_reference"] == n_kda * len(forward)
+    assert c["encoder.moe.experts_held"] == 8
+
+
 def test_recorded_counts_stay_out_of_the_registry():
     """Inside `recording()` a thread's counts go to its own dict (nested
     recordings each to their own), another thread's to the registry; `add`
