@@ -66,7 +66,8 @@ length);
 times Moonlight-16B-A3B's kernels at its cell's shapes (the grouped
 expert GEMMs, the combine, causal attention at q·k 192 and v 128, the
 head at D 2 048 and V 163 840), each against its bound, its plain version
-and a library call, and ingests 32 docs through `build_model`'s `moonlight-16b-a3b`
+and a library call (the GEMMs also against a second launch's bits, with
+ptxas's registers and spills for both), and ingests 32 docs through `build_model`'s `moonlight-16b-a3b`
 preset with its launch counters; `python3 chip_smoke.py
 --moonlight-only` runs it alone. Step 3e does the same for
 Kimi-Linear-48B-A3B (KDA's chunked kernels at 32 heads of 128 over up to
@@ -3606,12 +3607,99 @@ def _rel_rows(got, ref):
     return (g - r).norm(dim=-1) / r.norm(dim=-1).clamp_min(1e-6)
 
 
+def ptxas_resources(log, kernels):
+    """Per kernel of `kernels` (names as in the trace), ptxas's registers and
+    spill bytes from an nvcc log, and any note that it serialized the
+    wgmmas (C75xx)."""
+    res, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = next((k for k in kernels if k in m.group(1)), None)
+            if name:  # a note may come before its function's entry
+                res[name] = {"registers": None, "spill_stores": None, "spill_loads": None,
+                             "notes": res.get(name, {}).get("notes", [])}
+            continue
+        for k in kernels:
+            if "C75" in ln and k in ln:
+                res.setdefault(k, {"notes": []})["notes"].append(ln.strip()[:200])
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            res[name]["spill_stores"], res[name]["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            res[name]["registers"] = int(m[1])
+    return res
+
+
+def expert_gemm_rows(u, token, gate, up, down, offsets):
+    """The grouped expert GEMMs over the rows of `token` (sorted by expert,
+    the held ones up to offsets[E]): gate-up reading each row's token from u
+    in place, then down on its output. Each is held to the per-expert loop
+    on the gathered rows (each row within 2^-7 of its norm) and to its own
+    first launch (the same bits on a second one), and timed against its
+    bound (operations at 989 TFLOP/s or the weights and rows at 3.35 TB/s,
+    the larger), the plain loop and `torch._grouped_mm` (CUTLASS on
+    `wgmma`, a yardstick the port never calls) on the gathered rows.
+    Returns the two rows, each with ptxas's registers and spills for its
+    kernel, and down's output."""
+    from opensearch_sparse_model_tuning_sample_torch.ops import kernel_build
+    from opensearch_sparse_model_tuning_sample_torch.ops import moe
+
+    E, I, D = gate.shape
+    R = int(offsets[-1])
+    x = u.index_select(0, token[:R])  # the rows gathered: the plain loop's and the library's
+    h = moe.expert_gate_up(u, token, gate, up, offsets)
+    y = moe.expert_down(h, down, offsets)
+    torch.cuda.synchronize()
+    built = ptxas_resources(kernel_build.build_log("moe"), ["moe_gate_up_kernel",
+                                                            "moe_down_kernel"])
+    rows = []
+    for name, got, plain, f, (a, wt), ops, nbytes in (
+            ("moe_gate_up", h, lambda: moe.expert_gate_up_reference(x, gate, up, offsets),
+             lambda: moe.expert_gate_up(u, token, gate, up, offsets),
+             (x, torch.cat([gate, up], 1)), 2 * R * D * 2 * I,
+             E * 2 * I * D * 2 + R * (D + I) * 2),
+            ("moe_down", y, lambda: moe.expert_down_reference(h[:R], down, offsets),
+             lambda: moe.expert_down(h, down, offsets), (h[:R], down), 2 * R * I * D,
+             E * D * I * 2 + R * (I + D) * 2)):
+        ref = plain()
+        rel = _rel_rows(got[:R], ref)
+        check(float(rel.max()) <= 2 ** -7, f"{name}: row gap {float(rel.max())}")
+        check(torch.equal(f()[:R], got[:R]), f"{name}: the same bits on a second launch")
+        ms = cuda_ms(f, 5)
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        lib_ms = None
+        if hasattr(torch, "_grouped_mm"):
+            try:  # rows [R, K] against [E, K, N], groups ending at offs
+                wt = wt.transpose(1, 2)
+                ends = offsets[1:].contiguous()
+                lib_ms = cuda_ms(lambda: torch._grouped_mm(a, wt, offs=ends), 5)
+            except (RuntimeError, TypeError) as e:
+                lib_ms = f"torch._grouped_mm refused: {str(e).splitlines()[0][:120]}"
+        bound = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        rows.append({"kernel": name + "_kernel", "shape": [R, D, I, E], "ms": ms,
+                     "bound_ms": bound, "share_of_bound": bound / ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "row_gap_worst": float(rel.max()),
+                     "ptxas": built.get(name + "_kernel")})
+        del ref
+    del x, h
+    return rows, y
+
+
 def moonlight_rows(dev):
     """Moonlight's new kernels at the cell's shapes, each against its plain
     version for its answer and its time, its bound and one library call:
     the grouped expert GEMMs (gate-up with SiLU·mul, down) over one full
     batch's rows as the router splits them, against the per-expert loop
-    and `torch._grouped_mm` (where this torch has it); the combine of those
+    and `torch._grouped_mm` (where this torch has it), each the same bits
+    on a second launch, with ptxas's registers and spills for its kernel
+    (`expert_gemm_rows`); the combine of those
     rows into the fp32 stream, against the slot loop (within 1e-5 a row,
     the same bits on a second launch) and `index_select` with a weighted
     sum, bound by its bytes; the causal attention
@@ -3637,45 +3725,13 @@ def moonlight_rows(dev):
                           torch.randn(E, generator=g, device=dev) * 0.02, k, 2.446)
     token, offsets, pos = moe.permute(chosen, E)
     ub = u.to(torch.bfloat16)
-    x = ub.index_select(0, token)  # the rows gathered: the plain version's and the library's
     gate, up = ((torch.randn((E, I, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
                 for _ in range(2))
     down = (torch.randn((E, D, I), generator=g, device=dev) * 0.02).to(torch.bfloat16)
-    R = x.shape[0]
-    h = moe.expert_gate_up(ub, token, gate, up, offsets)
-    y = moe.expert_down(h, down, offsets)
-    torch.cuda.synchronize()
-    for name, got, plain, f, p, ops, nbytes in (
-            ("moe_gate_up", h, lambda: moe.expert_gate_up_reference(x, gate, up, offsets),
-             lambda: moe.expert_gate_up(ub, token, gate, up, offsets), (x, gate, up),
-             2 * R * D * 2 * I,
-             E * 2 * I * D * 2 + R * (D + I) * 2),
-            ("moe_down", y, lambda: moe.expert_down_reference(h, down, offsets),
-             lambda: moe.expert_down(h, down, offsets), (h, down), 2 * R * I * D,
-             E * D * I * 2 + R * (I + D) * 2)):
-        ref = plain()
-        rel = _rel_rows(got, ref)
-        check(float(rel.max()) <= 2 ** -7, f"{name}: row gap {float(rel.max())}")
-        ms = cuda_ms(f, 5)
-        t0 = time.perf_counter()
-        plain()
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        lib_ms = None
-        if hasattr(torch, "_grouped_mm"):
-            try:  # rows [R, K] against [E, K, N], groups ending at offs
-                a, wt = p[0], (torch.cat([p[1], p[2]], 1) if name == "moe_gate_up" else p[1])
-                wt = wt.transpose(1, 2)
-                ends = offsets[1:].contiguous()
-                lib_ms = cuda_ms(lambda: torch._grouped_mm(a, wt, offs=ends), 5)
-            except (RuntimeError, TypeError) as e:
-                lib_ms = f"torch._grouped_mm refused: {str(e).splitlines()[0][:120]}"
-        bound = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        rows.append({"kernel": name + "_kernel", "shape": [R, D, I, E], "ms": ms,
-                     "bound_ms": bound, "share_of_bound": bound / ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "row_gap_worst": float(rel.max())})
-        print(f"moonlight kernels: {json.dumps(rows[-1])}", flush=True)
-        del ref
+    gemm_rows, y = expert_gemm_rows(ub, token, gate, up, down, offsets)
+    for row in gemm_rows:
+        rows.append(row)
+        print(f"moonlight kernels: {json.dumps(row)}", flush=True)
     # the combine: the down rows above back into a random fp32 stream of the
     # batch's tokens, with a random shared-expert output
     x0 = torch.randn((T, D), generator=g, device=dev)
@@ -3703,7 +3759,7 @@ def moonlight_rows(dev):
                  "row_gap_worst": float(rel.max())})
     print(f"moonlight kernels: {json.dumps(rows[-1])}", flush=True)
     del x0, xs, shared, got, ref
-    del u, ub, x, gate, up, down, h, y
+    del u, ub, gate, up, down, y
     # causal attention at MLA's dims
     q, kk = (torch.randn((B, L, H, 192), generator=g, device=dev).to(torch.bfloat16)
              for _ in range(2))
@@ -3836,7 +3892,8 @@ def kimi_linear_rows(dev):
     plain torch versions and their bytes; causal MLA at [1, 32 768, 32, 192
     | 128] and the head at [2, 30 912, 2 304, 163 840], each held to its
     plain version on sampled query rows or vocab columns; the held-expert
-    GEMMs (128 of 256 experts, 8 a token) over the largest batch's rows."""
+    GEMMs (128 of 256 experts, 8 a token) over the largest batch's rows, as
+    in step 3d (`expert_gemm_rows`)."""
     from opensearch_sparse_model_tuning_sample_torch.ops import attention as at
     from opensearch_sparse_model_tuning_sample_torch.ops import kda as kda_op
     from opensearch_sparse_model_tuning_sample_torch.ops import moe
@@ -3883,27 +3940,12 @@ def kimi_linear_rows(dev):
                 for _ in range(2))
     down = (torch.randn((held, D, I), generator=g, device=dev) * 0.02).to(torch.bfloat16)
     token, offsets, pos = moe.permute(chosen, held, 0)
-    R = int(offsets[-1])
-    h = moe.expert_gate_up(u, token, gate, up, offsets)
-    y = moe.expert_down(h, down, offsets)
-    torch.cuda.synchronize()
-    hr = moe.expert_gate_up_reference(u.index_select(0, token[:R]), gate, up, offsets)
-    yr = moe.expert_down_reference(h[:R], down, offsets)
-    for name, got, ref, f, ops, nbytes in (
-            ("moe_gate_up", h[:R], hr,
-             lambda: moe.expert_gate_up(u, token, gate, up, offsets), 2 * R * D * 2 * I,
-             held * 2 * I * D * 2 + R * (D + I) * 2),
-            ("moe_down", y[:R], yr, lambda: moe.expert_down(h, down, offsets), 2 * R * I * D,
-             held * D * I * 2 + R * (I + D) * 2)):
-        rel = _rel_rows(got, ref)
-        check(float(rel.max()) <= 2 ** -7, f"{name} (held share): row gap {float(rel.max())}")
-        ms = cuda_ms(f, 5)
-        bound = max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
-        rows.append({"kernel": name + "_kernel", "shape": [T * kk, R, D, I, held], "ms": ms,
-                     "bound_ms": bound, "share_of_bound": bound / ms,
-                     "row_gap_worst": float(rel.max())})
-        print(f"kimi linear kernels: {json.dumps(rows[-1])}", flush=True)
-    del u, gate, up, down, h, y, hr, yr
+    gemm_rows, _ = expert_gemm_rows(u, token, gate, up, down, offsets)
+    for row in gemm_rows:
+        row["shape"] = [T * kk] + row["shape"]  # the rows routed, then the held ones
+        rows.append(row)
+        print(f"kimi linear kernels: {json.dumps(row)}", flush=True)
+    del u, gate, up, down
     torch.cuda.empty_cache()
     # causal MLA at 32 heads over one 32k doc
     L = 32768

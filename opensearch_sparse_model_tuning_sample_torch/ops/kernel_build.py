@@ -3,9 +3,11 @@
 Each source under `csrc/` has a plain C interface and compiles with one
 `nvcc` call for Hopper (`sm_90a`) into `build/torch_kernels/` at the repo
 root, named by the hash of its source and flags, so a changed source rebuilds
-and an unchanged one loads at once. Nothing builds at import: a kernel's
-wrapper asks for its library at its first launch, and `build()` compiles
-several at once (one `nvcc` process per source, all started together).
+and an unchanged one loads at once; `nvcc`'s output (ptxas's register,
+spill and shared-memory report) is kept beside each library. Nothing builds
+at import: a kernel's wrapper asks for its library at its first launch, and
+`build()` compiles several at once (one `nvcc` process per source, all
+started together).
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             log, _ = proc.communicate(timeout=_BUILD_TIMEOUT_S)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             done[name] = {"seconds": time.perf_counter() - t0, "log": log}
     finally:
@@ -88,6 +91,14 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                 proc.kill()
                 proc.wait()
     return done
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the library `name`, built first if needed ("" for
+    a library built before its log was kept)."""
+    build([name])
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1278,16 +1278,19 @@ def test_bert_attention_over_the_kernels_grid_splits_its_launches(cuda):
 # a host sync, causal attention at MLA's dims, the head at D 2 048
 
 
-def _moe_inputs(R, D, I, E, seed, device, empty=(5, 17, 63)):
-    """Rows sorted by expert with uneven groups: expert 0 takes a tenth of
-    the rows, the experts in `empty` none, the rest share what is left;
-    N(0, 1) rows and N(0, 0.02) weights, bf16."""
+def _moe_inputs(R, D, I, E, seed, device, empty=(5, 17, 63), counts=None):
+    """Rows sorted by expert in groups of `counts` rows (their sum may fall
+    short of R: the rows past it belong to no group), or uneven groups:
+    expert 0 takes a tenth of the rows, the experts in `empty` none, the
+    rest share what is left; N(0, 1) rows and N(0, 0.02) weights, bf16."""
     g = torch.Generator(device="cpu").manual_seed(seed)
-    weights = torch.rand(E, generator=g) + 0.2
-    weights[list(empty)] = 0.0
-    weights[0] = weights.sum() / 9
-    counts = torch.floor(weights / weights.sum() * R).long()
-    counts[1] += R - int(counts.sum())
+    if counts is None:
+        weights = torch.rand(E, generator=g) + 0.2
+        weights[list(empty)] = 0.0
+        weights[0] = weights.sum() / 9
+        counts = torch.floor(weights / weights.sum() * R).long()
+        counts[1] += R - int(counts.sum())
+    counts = torch.as_tensor(counts)
     offsets = torch.zeros(E + 1, dtype=torch.int32)
     offsets[1:] = torch.cumsum(counts, 0).to(torch.int32)
     x = torch.randn((R, D), generator=g).to(device, torch.bfloat16)
@@ -1297,30 +1300,49 @@ def _moe_inputs(R, D, I, E, seed, device, empty=(5, 17, 63)):
     return x, gate, up, down, offsets.to(device)
 
 
-@pytest.mark.parametrize("R,D,I,E", [(24576, 2048, 1408, 64), (301, 64, 32, 8)],
-                         ids=["moonlight", "tiny"])
-def test_grouped_expert_gemms_match_a_per_expert_loop(cuda, R, D, I, E):
+# the kernels' edges: a 128-row tile, K and N against their 64-deep and
+# 128- / 256-wide tiles, groups of one row and of exactly one tile, empty
+# experts first and last, rows past the last group (a held share)
+_GEMM_CASES = {
+    "moonlight": (24576, 2048, 1408, 64, dict(empty=(5, 17, 63))),
+    "kimi": (8000, 2304, 1024, 16, dict(empty=(3, 15))),
+    "tiny": (301, 64, 32, 8, dict(empty=(3,))),
+    "tiny_edges": (390, 64, 32, 5, dict(counts=[0, 1, 128, 261, 0])),
+    "one_tile": (512, 2048, 1408, 3, dict(counts=[128, 256, 128])),
+    "one_row": (203, 2048, 1408, 4, dict(counts=[1, 200, 1, 1])),
+    "empty_ends": (462, 2304, 1024, 5, dict(counts=[0, 0, 333, 129, 0])),
+    "held_share": (700, 2304, 1024, 3, dict(counts=[200, 0, 129])),
+}
+
+
+@pytest.mark.parametrize("case", list(_GEMM_CASES))
+def test_grouped_expert_gemms_match_a_per_expert_loop(cuda, case):
     """The gate-up (SiLU·mul fused, each row's token read in place through a
     shuffled token index) and down kernels against the plain per-expert loop
-    (the same bf16 operands, exact products summed in fp32), with empty
-    experts and ragged groups: each row within 2^-7 of its own
-    norm (the kernels sum in another order and round once to bf16), one
-    launch each."""
+    (the same bf16 operands, exact products summed in fp32), over the rows
+    of the groups (up to offsets[E]) at the kernels' edges (`_GEMM_CASES`):
+    each row within 2^-7 of its own norm (the kernels sum in another order
+    and round once to bf16); a second launch of each gives the same bits;
+    one launch a call."""
     from opensearch_sparse_model_tuning_sample_torch.ops import moe
     from opensearch_sparse_model_tuning_sample_torch.utils import tracing
 
-    x, gate, up, down, offsets = _moe_inputs(R, D, I, E, R + D, cuda,
-                                             empty=(5, 17, 63) if E == 64 else (3,))
+    R, D, I, E, kw = _GEMM_CASES[case]
+    x, gate, up, down, offsets = _moe_inputs(R, D, I, E, R + D, cuda, **kw)
+    n = int(offsets[-1])
     names = ["moe.launches.moe_gate_up_kernel", "moe.launches.moe_down_kernel"]
     tracing.reset(names)
     token = torch.randperm(R, generator=torch.Generator().manual_seed(R)).to(cuda)
     h = moe.expert_gate_up(x, token, gate, up, offsets)
     y = moe.expert_down(h, down, offsets)
+    h2 = moe.expert_gate_up(x, token, gate, up, offsets)
+    y2 = moe.expert_down(h, down, offsets)
     torch.cuda.synchronize()
-    assert [tracing.counters()[n] for n in names] == [1, 1]
-    h_ref = moe.expert_gate_up_reference(x.index_select(0, token), gate, up, offsets)
-    y_ref = moe.expert_down_reference(h, down, offsets)
-    for got, ref in ((h, h_ref), (y, y_ref)):
+    assert [tracing.counters()[n] for n in names] == [2, 2]
+    assert torch.equal(h2[:n], h[:n]) and torch.equal(y2[:n], y[:n])
+    h_ref = moe.expert_gate_up_reference(x.index_select(0, token[:n]), gate, up, offsets)
+    y_ref = moe.expert_down_reference(h[:n], down, offsets)
+    for got, ref in ((h[:n], h_ref), (y[:n], y_ref)):
         rel = (got.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1).clamp_min(1e-6)
         assert float(rel.max()) <= 2 ** -7, float(rel.max())
 
@@ -1811,16 +1833,21 @@ def test_kda_elementwise_kernels_match_plain_at_published_widths(cuda, which):
     assert float(err.max()) <= tol, float(err.max())
 
 
-def test_held_expert_share_matches_the_plain_layer(cuda):
-    """Kimi Linear's expert layer at its widths (D 2 304, I 1 024), 128 of 256
-    experts held, 8 a token: the gate-up kernel, the down kernel and the
+@pytest.mark.parametrize("T,D,I,E,held,k,first", [
+    (3000, 2304, 1024, 256, 128, 8, 0), (3000, 2304, 1024, 256, 128, 8, 128),
+    (24, 2304, 1024, 256, 128, 8, 0), (301, 64, 32, 16, 8, 2, 4)],
+    ids=["kimi", "second_card", "few_rows", "tiny"])
+def test_held_expert_share_matches_the_plain_layer(cuda, T, D, I, E, held, k, first):
+    """A share of an expert layer, `held` of E experts from `first` on, k a
+    token: Kimi Linear's widths (D 2 304, I 1 024, 128 of 256, 8 a token)
+    with the first and the second card's share and with about one row an
+    expert, and the tiny widths: the gate-up kernel, the down kernel and the
     combine (rows of absent experts never computed, left out) against the
     per-expert loop over the held rows and the slot loop, within 2^-7 of
     each row's norm; the launches; the held rows counted on the card."""
     from opensearch_sparse_model_tuning_sample_torch.ops import moe
     from opensearch_sparse_model_tuning_sample_torch.utils import tracing
 
-    T, D, I, E, held, k = 3000, 2304, 1024, 256, 128, 8
     g = torch.Generator(device="cpu").manual_seed(9)
     u = torch.randn((T, D), generator=g).to(cuda, torch.bfloat16)
     chosen = torch.stack([torch.randperm(E, generator=g)[:k] for _ in range(T)]).to(cuda)
@@ -1833,11 +1860,11 @@ def test_held_expert_share_matches_the_plain_layer(cuda):
     names = ["moe.launches.moe_gate_up_kernel", "moe.launches.moe_down_kernel",
              "moe.launches.moe_combine_kernel"]
     tracing.reset(names)
-    got = moe.experts(u, x.clone(), chosen, w, gate, up, down, shared, 0)
+    got = moe.experts(u, x.clone(), chosen, w, gate, up, down, shared, first)
     torch.cuda.synchronize()
     assert [tracing.counters().get(n, 0) for n in names] == [1, 1, 1]
-    token, offsets, pos = moe.permute(chosen, held, 0)
-    assert int(offsets[-1]) == int((chosen < held).sum())
+    token, offsets, pos = moe.permute(chosen, held, first)
+    assert int(offsets[-1]) == int(((chosen >= first) & (chosen < first + held)).sum())
     h = moe.expert_gate_up_reference(u.index_select(0, token), gate, up, offsets)
     y = moe.expert_down_reference(h, down, offsets)
     ref = moe.combine_reference(x.clone(), y, shared, pos, w)

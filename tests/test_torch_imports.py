@@ -114,6 +114,42 @@ def test_chip_smoke_imports_no_jax():
     _assert_imports_no_jax("chip_smoke.py")
 
 
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118moe_combine_kernelEPfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118moe_combine_kernelEPfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115moe_down_kernelE14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115moe_down_kernelE14CUtensorMap_st
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized \
+in the function '_ZN12_GLOBAL__N_118moe_gate_up_kernelE14CUtensorMap_st'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118moe_gate_up_kernelE14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118moe_gate_up_kernelE14CUtensorMap_st
+    24 bytes stack frame, 24 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 24 bytes cumulative stack size
+"""
+
+
+def test_chip_smoke_reads_registers_spills_and_serialised_wgmmas_from_nvcc():
+    """chip_smoke.py's report of the expert kernels' build (step 3d): per
+    kernel asked for, ptxas's registers, spill bytes and any C75xx note that
+    it serialised the wgmmas; other kernels of the log left out."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    got = cs.ptxas_resources(_PTXAS_LOG, ["moe_gate_up_kernel", "moe_down_kernel"])
+    assert got["moe_down_kernel"] == {"registers": 168, "spill_stores": 0, "spill_loads": 0,
+                                      "notes": []}
+    gate_up = got["moe_gate_up_kernel"]
+    assert (gate_up["registers"], gate_up["spill_stores"], gate_up["spill_loads"]) == (168, 24, 20)
+    assert len(gate_up["notes"]) == 1 and "(C7520)" in gate_up["notes"][0]
+    assert set(got) == {"moe_gate_up_kernel", "moe_down_kernel"}
+
+
 def test_compare_head_kernels_imports_no_jax():
     """compare_head_kernels.py runs on the card's machine too."""
     _assert_imports_no_jax("compare_head_kernels.py")
